@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface (`build/libsspl_<name>_<hash>.so`,
-the hash of the source in the name, so an edited source is never served
-by a stale library) and loaded with `ctypes`. All sources build in
+the hash of the source and of the shared headers in the name, so an
+edited source is never served by a stale library) and loaded with
+`ctypes`. All sources build in
 parallel, one `nvcc` each, at the first kernel call (or by an explicit
 `build_all()`); nothing is built or imported when a module is imported,
 so the CPU-only tests import every module without a CUDA toolkit.
@@ -33,6 +34,10 @@ SOURCES = {
     "orb_describe": "orb.cu",
     "hamming_best2": "hamming.cu",
     "pose_lm": "pose_lm.cu",
+    "lsd_support": "lsd_support.cu",
+    "lsd_refine": "lsd_refine.cu",
+    "lbd_describe": "lbd.cu",
+    "atan2_glibc": "atan2.cu",
 }
 
 COUNTS = {name: 0 for name in SOURCES}
@@ -57,6 +62,16 @@ _ARGTYPES = {
     "pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                 _F, _F, _F, _F, _I, _I, _F, _F, _F, _F, _F,
                 _P, _P, _P, _P, _P],
+    # img, H, W, grad_thresh, angle_tol, min_support_px, mask, peak, best,
+    # packed, stream
+    "lsd_support": [_P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P],
+    # img, packed, H, W, ax, ay, K, walk_steps, iters, angle_tol, half_grad,
+    # out, stream
+    "lsd_refine": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    # img, H, W, endpoints, valid, L, pairs, ts, packed, desc, stream
+    "lbd_describe": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+    # y, x, n, out, stream
+    "atan2_glibc": [_P, _P, _I, _P, _P],
 }
 
 
@@ -73,10 +88,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> tuple[str, str]:
+    """(source, library path); the hash covers the source and the shared
+    headers (csrc/*.cuh)."""
     src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:10]
-    return src, os.path.join(BUILD_DIR, f"libsspl_{name}_{digest}.so")
+    h = hashlib.sha1()
+    for path in [src] + sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"libsspl_{name}_{h.hexdigest()[:10]}.so")
 
 
 def _nvcc_cmd(src: str, out: str) -> list[str]:

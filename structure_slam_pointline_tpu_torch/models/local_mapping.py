@@ -1,13 +1,14 @@
 """Local mapping: keyframe insertion, triangulation, fusion, local BA
-problem gathering, result write-back and culling (points half).
+problem gathering, result write-back and culling, points and lines.
 
-Counterpart of structure_slam_pointline_tpu/models/local_mapping.py; the
-line halves (`create_new_lines`, `fuse_projected_lines`, `cull_lines`)
-are the next slice. Descriptor matching runs through kernel 3: the epipolar
-neighbour search of `create_new_points` as one [NB, F, F] batched launch
-and the fuse directions as one [2W, F, F] batched launch. Scatters follow
-the reference's "drop" and last-write-wins semantics
-(utils/indexing.py), so the sequential fuse merges are deterministic.
+Counterpart of structure_slam_pointline_tpu/models/local_mapping.py
+(`fuse_duplicate_points_3d` / `fuse_duplicate_lines_3d`, off the main
+path, are not ported). Descriptor matching runs through kernel 3: the
+neighbour searches of `create_new_points` / `create_new_lines` as one
+[NB, M, N] batched launch each and the fuse directions as one [2W, M, N]
+batched launch each. Scatters follow the reference's "drop" and
+last-write-wins semantics (utils/indexing.py), so the sequential fuse
+merges are deterministic.
 """
 
 from __future__ import annotations
@@ -21,14 +22,16 @@ from structure_slam_pointline_tpu_torch.models.tracking import Frame
 from structure_slam_pointline_tpu_torch.ops import hamming, matching, twoview
 from structure_slam_pointline_tpu_torch.optim import local_ba
 from structure_slam_pointline_tpu_torch.utils import camera as cam_utils
+from structure_slam_pointline_tpu_torch.utils import fmath
 from structure_slam_pointline_tpu_torch.utils import lie
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.indexing import (
     max_drop, nonzero_fixed, set_drop, set_drop2)
 from structure_slam_pointline_tpu_torch.world.map_store import (
-    DESC_RING, MapState, point_obs_counts)
+    DESC_RING, MapState, line_obs_counts, point_obs_counts)
 
 MAX_NEW_POINTS = 512
+MAX_NEW_LINES = 64
 BA_WINDOW = 8
 BA_FIXED = 8
 BA_LOCAL_KF = BA_WINDOW + BA_FIXED
@@ -270,6 +273,137 @@ def create_new_points(state: MapState, k_new: int, nb_ids: torch.Tensor, n_mp: i
                            n_clipped=n_clipped)
 
 
+class NewLinesResult(NamedTuple):
+    state: MapState
+    n_new: torch.Tensor
+    n_clipped: torch.Tensor
+
+
+def create_new_lines(state: MapState, k_new: int, nb_ids: torch.Tensor, n_ml: int,
+                     intr: Intrinsics, cfg: SLAMConfig) -> NewLinesResult:
+    """Triangulate the new keyframe's unbound lines against all `nb_ids`
+    neighbours in one batched pass: LBD match (th_high + the per-neighbour
+    MAD margin gate), the matched neighbour line's plane cut by the new
+    keyframe's endpoint rays, depth / length gates; each line keeps its
+    first (strongest-covisibility) accepting neighbour."""
+    LF = state.kf_line2d.shape[1]
+    L = state.ml_valid.shape[0]
+    K_cap = state.kf_valid.shape[0]
+    dev = state.kf_line2d.device
+    T1 = state.kf_T_cw[k_new]
+    K = intr.K(dev)
+    NB = nb_ids.shape[0]
+    free1 = state.kf_line_valid[k_new] & (state.kf_line_ml[k_new] < 0)
+    c1 = -T1[:3, :3].T @ T1[:3, 3]
+    Rwc1 = T1[:3, :3].T
+    ep1 = state.kf_line_ep[k_new]
+    desc1 = state.kf_ldesc[k_new]
+    nb_safe = torch.clamp(nb_ids, 0, K_cap - 1).long()
+    nb_present = (nb_ids >= 0) & state.kf_valid[nb_safe] & (nb_safe != k_new)
+
+    def ray_dir(uv):
+        xn = torch.stack([(uv[:, 0] - intr.cx) / intr.fx, (uv[:, 1] - intr.cy) / intr.fy,
+                          torch.ones(LF, device=dev)], dim=1)
+        return xn @ Rwc1.T
+
+    d_s, d_e = ray_dir(ep1[:, 0:2]), ray_dir(ep1[:, 2:4])
+    T2 = state.kf_T_cw[nb_safe]                                      # [NB, 4, 4]
+    free2 = state.kf_line_valid[nb_safe] & (state.kf_line_ml[nb_safe] < 0) \
+        & nb_present[:, None]
+    allow = free1[None, :, None] & free2[:, None, :]                 # [NB, LF, LF]
+    m = matching.masked_match(desc1, state.kf_ldesc[nb_safe], allow,
+                              max_dist=cfg.matching.th_high)
+    valid = matching.mad_margin_gate(m, scale=cfg.matching.line_mad_ratio)
+    midx = m.idx.long()
+    P2 = K[None] @ T2[:, :3, :4]                                     # [NB, 3, 4]
+    l2 = torch.gather(state.kf_line2d[nb_safe], 1, midx[..., None].expand(-1, -1, 3))
+    pi2 = l2 @ P2                                                    # [NB, LF, 4]
+
+    def intersect(d):
+        num = pi2[..., :3] @ c1 + pi2[..., 3]
+        den = torch.sum(pi2[..., :3] * d[None], dim=-1)
+        lam = -num / torch.where(torch.abs(den) < 1e-9, torch.full_like(den, 1e-9), den)
+        return c1 + d[None] * lam[..., None], lam
+
+    Xs, lam_s = intersect(d_s)
+    Xe, lam_e = intersect(d_e)
+
+    def depth_in(T, X):
+        return (X @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3])[..., 2]
+
+    z1s, z1e = depth_in(T1, Xs), depth_in(T1, Xe)
+    z2s, z2e = depth_in(T2, Xs), depth_in(T2, Xe)
+    seg_len = torch.linalg.norm(Xe - Xs, dim=-1)
+    depth_ratio = torch.minimum(z1s, z1e) / torch.clamp(torch.maximum(z1s, z1e), min=1e-9)
+    mid_depth = 0.5 * (z1s + z1e)
+    good = (valid & (z1s > 0.05) & (z1e > 0.05) & (z2s > 0.05) & (z2e > 0.05)
+            & (lam_s > 0.0) & (lam_e > 0.0) & (depth_ratio > 0.3)
+            & (seg_len < 1.3 * mid_depth) & (seg_len > 0.01)
+            & torch.all(torch.isfinite(Xs), dim=-1) & torch.all(torch.isfinite(Xe), dim=-1))
+
+    nb_rank = torch.arange(NB, dtype=torch.int32, device=dev)[:, None]
+    dir_of = torch.argmin(torch.where(good, nb_rank, NB), dim=0)     # [LF]
+    chosen = good.any(0)
+    lidx = torch.arange(LF, device=dev)
+    eps6 = torch.cat([Xs[dir_of, lidx], Xe[dir_of, lidx]], dim=1)    # [LF, 6]
+    refc = midx[dir_of, lidx]
+    nbc = nb_safe[dir_of]
+
+    order = nonzero_fixed(chosen, MAX_NEW_LINES)
+    taking = order >= 0
+    n_good = chosen.sum().to(torch.int32)
+    slot = n_ml + torch.cumsum(taking.long(), 0) - 1
+    pool_drop = taking & (slot >= L)
+    slot = torch.where(taking & (slot < L), slot, torch.full_like(slot, L))
+    n_new = (taking & ~pool_drop).sum().to(torch.int32)
+    n_clipped = (torch.clamp(n_good - MAX_NEW_LINES, min=0) + pool_drop.sum()).to(torch.int32)
+    feat = torch.clamp(order, 0, LF - 1)
+    desc_new = desc1[feat]
+    k32 = int(k_new)
+    ring0 = torch.where(slot < L, slot * DESC_RING, torch.full_like(slot, -1))
+    st = state._replace(
+        ml_endpoints=set_drop(state.ml_endpoints, slot, eps6[feat]),
+        ml_valid=set_drop(state.ml_valid, slot, True),
+        ml_desc=set_drop(state.ml_desc, slot, desc_new),
+        ml_first_kf=set_drop(state.ml_first_kf, slot, k32),
+        ml_last_kf=set_drop(state.ml_last_kf, slot, k32),
+        ml_visible=set_drop(state.ml_visible, slot, 1),
+        ml_found=set_drop(state.ml_found, slot, 1),
+        ml_desc_ring=set_drop(state.ml_desc_ring.reshape(-1, 8), ring0,
+                              desc_new).reshape(state.ml_desc_ring.shape),
+        ml_ring_n=set_drop(state.ml_ring_n, slot, 1),
+    )
+    # scattered at the clipped index, as the reference does: padding
+    # entries (order -1 -> line 0, value -1) come last and win at line 0
+    new_ml_of_line = set_drop(torch.full((LF,), -1, dtype=torch.int32, device=dev),
+                              feat, torch.where(slot < L, slot, -1).to(torch.int32))
+    row = state.kf_line_ml[k_new]
+    ml_new = torch.where((row < 0) & (new_ml_of_line >= 0), new_ml_of_line, row)
+    kf_line_ml = st.kf_line_ml.clone()
+    kf_line_ml[k_new] = ml_new
+    ok_new = taking & (slot < L)
+    rows = torch.where(ok_new, nbc[feat], torch.full_like(feat, K_cap))
+    cols = torch.where(ok_new, refc[feat], torch.full_like(feat, LF))
+    kf_line_ml = set_drop2(kf_line_ml, rows, cols, slot.to(torch.int32))
+    return NewLinesResult(state=st._replace(kf_line_ml=kf_line_ml), n_new=n_new,
+                          n_clipped=n_clipped)
+
+
+def cull_lines(state: MapState, n_kf: int, cfg: SLAMConfig) -> MapState:
+    """MapLineCulling: found/visible < 0.6, or at most one observation,
+    two keyframes after birth; clear dangling references."""
+    obs = line_obs_counts(state)
+    ratio = state.ml_found.float() / torch.clamp(state.ml_visible.float(), min=1.0)
+    age = n_kf - state.ml_first_kf
+    bad = state.ml_valid & (age >= 2) & ((ratio < cfg.map.line_cull_found_ratio)
+                                         | ((age >= 2) & (obs <= 1)))
+    ml_valid = state.ml_valid & ~bad
+    L = ml_valid.shape[0]
+    ref_ok = ml_valid[torch.clamp(state.kf_line_ml, 0, L - 1).long()] & (state.kf_line_ml >= 0)
+    return state._replace(ml_valid=ml_valid,
+                          kf_line_ml=torch.where(ref_ok, state.kf_line_ml, -1))
+
+
 def cull_keyframes(state: MapState, n_kf: int, cfg: SLAMConfig,
                    obs: torch.Tensor | None = None,
                    cand_ids: torch.Tensor | None = None) -> MapState:
@@ -379,18 +513,33 @@ def fuse_projected_points(state: MapState, k_new: int, nb_ids: torch.Tensor,
     e2 = torch.sum((uv - kp_uv) ** 2, dim=-1)
     m_valid = m.valid & (e2 <= 5.991 * _pow(sf, 2.0 * kp_oct.float()))
 
-    kf_kp_mp = state.kf_kp_mp
-    mp_valid = state.mp_valid
+    kf_kp_mp, mp_valid = _apply_fuse(state.kf_kp_mp, state.mp_valid, obs, b_ids, ids, midx,
+                                     m_valid)
+    return state._replace(kf_kp_mp=kf_kp_mp, mp_valid=mp_valid)
+
+
+def _apply_fuse(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
+                b_ids: torch.Tensor, cand_ids: torch.Tensor, feat_idx: torch.Tensor,
+                hits: torch.Tensor):
+    """The reference's sequential fuse merges over the 2W directions (a
+    fori_loop there, a host loop here): a match on a feature bound to
+    another landmark merges the two (the more-observed one survives), a
+    match on an unbound feature adds the observation; redirect chains are
+    then composed, dead and repeated bindings cleared. Returns (table,
+    valid)."""
+    K, F = table.shape
+    P = valid.shape[0]
+    dev = table.device
     redirect = torch.arange(P, dtype=torch.int32, device=dev)
     clampP = lambda t: torch.clamp(t, 0, P - 1).long()  # noqa: E731
-    for i in range(2 * W):
+    for i in range(b_ids.shape[0]):
         b = b_ids[i]
-        ids_i = ids[i]
+        ids_i = cand_ids[i]
         ids_r = torch.where(ids_i >= 0, redirect[clampP(ids_i)], -1)
-        ids_r = torch.where(mp_valid[clampP(ids_r)], ids_r, -1)
-        feat = midx[i]
-        hit = m_valid[i] & (ids_r >= 0)
-        row_b = kf_kp_mp[b]
+        ids_r = torch.where(valid[clampP(ids_r)], ids_r, -1)
+        feat = feat_idx[i]
+        hit = hits[i] & (ids_r >= 0)
+        row_b = table[b]
         cur = row_b[feat]
         cur_r = torch.where(cur >= 0, redirect[clampP(cur)], -1)
         cand = ids_r
@@ -398,26 +547,73 @@ def fuse_projected_points(state: MapState, k_new: int, nb_ids: torch.Tensor,
         keep_cand = obs[clampP(cand)] >= obs[clampP(cur_r)]
         src = torch.where(keep_cand, cur_r, cand)
         dst = torch.where(keep_cand, cand, cur_r)
-        redirect = set_drop(redirect, torch.where(mrg, src, P),
-                            torch.where(mrg, dst, 0))
-        mp_valid = set_drop(mp_valid, torch.where(mrg, src, P), False)
+        redirect = set_drop(redirect, torch.where(mrg, src, P), torch.where(mrg, dst, 0))
+        valid = set_drop(valid, torch.where(mrg, src, P), False)
         present_b = torch.zeros(P + 1, dtype=torch.bool, device=dev)
         present_b[torch.where(row_b >= 0, row_b, P).long()] = True
         add = hit & (cur_r < 0) & (cand >= 0) & ~present_b[clampP(cand)]
         new_row = set_drop(row_b, torch.where(add, feat, F), torch.where(add, cand, -1))
-        kf_kp_mp = kf_kp_mp.clone()
-        kf_kp_mp[b] = new_row
+        table = table.clone()
+        table[b] = new_row
     redirect = _compose_redirect(redirect)
-    kf_kp_mp = torch.where(kf_kp_mp >= 0, redirect[clampP(kf_kp_mp)], kf_kp_mp)
-    kf_kp_mp = torch.where((kf_kp_mp >= 0) & mp_valid[clampP(kf_kp_mp)], kf_kp_mp, -1)
-    kf_kp_mp = _dedup_row_table(kf_kp_mp, P)
-    return state._replace(kf_kp_mp=kf_kp_mp, mp_valid=mp_valid)
+    table = torch.where(table >= 0, redirect[clampP(table)], table)
+    table = torch.where((table >= 0) & valid[clampP(table)], table, -1)
+    return _dedup_row_table(table, P), valid
+
+
+def fuse_projected_lines(state: MapState, k_new: int, nb_ids: torch.Tensor,
+                         intr: Intrinsics, cfg: SLAMConfig) -> MapState:
+    """Projection-space map-line fusion (SearchInNeighbors via LSDmatcher
+    Fuse): candidate lines' projected midpoints within 8 px and 15 deg of
+    an observed line, LBD distance <= TH_HIGH; the 2W directions match as
+    one batched kernel-3 launch, the merges apply direction by direction."""
+    K, LF = state.kf_line_ml.shape
+    L = state.ml_valid.shape[0]
+    W = nb_ids.shape[0]
+    dev = state.kf_line_ml.device
+    obs = line_obs_counts(state)
+    nb_safe = torch.clamp(nb_ids, 0, K - 1).long()
+    nb_present = (nb_ids >= 0) & state.kf_valid[nb_safe] & (nb_safe != k_new)
+    k_new_b = torch.full((W,), int(k_new), dtype=torch.long, device=dev)
+    a_ids = torch.cat([k_new_b, nb_safe])
+    b_ids = torch.cat([nb_safe, k_new_b])
+    dir_present = torch.cat([nb_present, nb_present])
+
+    ids = state.kf_line_ml[a_ids]                                   # [2W, LF]
+    has = (ids >= 0) & dir_present[:, None]
+    safe = torch.clamp(ids, 0, L - 1).long()
+    ep = state.ml_endpoints[safe]                                    # [2W, LF, 6]
+    T_b = state.kf_T_cw[b_ids]
+
+    def proj(p):
+        return cam_utils.project(intr, p @ T_b[:, :3, :3].transpose(1, 2) + T_b[:, None, :3, 3])
+
+    uv_s, z_s = proj(ep[..., :3])
+    uv_e, z_e = proj(ep[..., 3:])
+    mid = 0.5 * (uv_s + uv_e)
+    seg = uv_e - uv_s
+    ang = fmath.atan2(seg[..., 1], seg[..., 0])
+    vis = (has & (z_s > 0.1) & (z_e > 0.1)
+           & cam_utils.in_image(cfg.camera, mid, margin=2.0))
+    fr_ep = state.kf_line_ep[b_ids]                                  # [2W, LF, 4]
+    fr_mid = 0.5 * (fr_ep[..., 0:2] + fr_ep[..., 2:4])
+    fr_ang = fmath.atan2(fr_ep[..., 3] - fr_ep[..., 1], fr_ep[..., 2] - fr_ep[..., 0])
+    allow = matching.window_mask(mid, vis, fr_mid, state.kf_line_valid[b_ids], 8.0)
+    dang = matching.jnp_mod(ang[..., :, None] - fr_ang[..., None, :] + torch.pi / 2,
+                            torch.pi) - torch.pi / 2
+    allow = allow & (torch.abs(dang) < 0.26)
+    m = matching.masked_match(state.ml_desc[safe], state.kf_ldesc[b_ids], allow,
+                              max_dist=cfg.matching.th_high)
+    midx = torch.clamp(m.idx.long(), 0, LF - 1)
+    kf_line_ml, ml_valid = _apply_fuse(state.kf_line_ml, state.ml_valid, obs, b_ids, ids,
+                                       midx, m.valid)
+    return state._replace(kf_line_ml=kf_line_ml, ml_valid=ml_valid)
 
 
 def apply_ba_result(state: MapState, local_kf: torch.Tensor, local_mp: torch.Tensor,
-                    ba: local_ba.BAResult) -> MapState:
-    """Scatter optimized poses/points back (non-finite updates dropped)
-    and erase outlier observations."""
+                    ba: local_ba.BAResult, local_ln: torch.Tensor | None = None) -> MapState:
+    """Scatter optimized poses, points (and line endpoints) back
+    (non-finite updates dropped) and erase outlier observations."""
     K = state.kf_valid.shape[0]
     P = state.mp_valid.shape[0]
     kf_fin = torch.all(torch.isfinite(ba.kf_T_cw).reshape(-1, 16), dim=1)
@@ -429,13 +625,24 @@ def apply_ba_result(state: MapState, local_kf: torch.Tensor, local_mp: torch.Ten
     rows = torch.clamp(local_kf, 0, K - 1).long()
     cur = st.kf_kp_mp[rows]
     keep = (cur < 0) | ba.edge_inlier
-    return st._replace(kf_kp_mp=set_drop(st.kf_kp_mp, kf_ids,
-                                         torch.where(keep, cur, -1)))
+    st = st._replace(kf_kp_mp=set_drop(st.kf_kp_mp, kf_ids, torch.where(keep, cur, -1)))
+    if local_ln is None or ba.ln_start is None:
+        return st
+    L = state.ml_valid.shape[0]
+    ln_fin = torch.all(torch.isfinite(ba.ln_start), dim=1) & torch.all(torch.isfinite(ba.ln_end),
+                                                                      dim=1)
+    ln_ids = torch.where((local_ln >= 0) & ln_fin, local_ln, L)
+    eps = torch.cat([ba.ln_start, ba.ln_end], dim=1)
+    lcur = st.kf_line_ml[rows]
+    lkeep = (lcur < 0) | ba.line_inlier
+    return st._replace(ml_endpoints=set_drop(st.ml_endpoints, ln_ids, eps),
+                       kf_line_ml=set_drop(st.kf_line_ml, kf_ids, torch.where(lkeep, lcur, -1)))
 
 
 def gather_ba_problem(state: MapState, n_kf: int, cfg: SLAMConfig):
     """Last BA_WINDOW keyframes free, the BA_FIXED before them fixed,
-    keyframe 0 gauge-fixed; returns (prob, local_kf, local_mp)."""
+    keyframe 0 gauge-fixed; returns (prob, lines, local_kf, local_mp,
+    local_ln), `lines` / `local_ln` None with `use_lines` off."""
     lo_free = max(n_kf - BA_WINDOW, 0)
     lo_fix = max(lo_free - BA_FIXED, 0)
     ids = list(range(lo_fix, n_kf))
@@ -444,30 +651,37 @@ def gather_ba_problem(state: MapState, n_kf: int, cfg: SLAMConfig):
     local_kf = torch.tensor(ids + [-1] * pad, dtype=torch.int32, device=dev)
     free = torch.tensor([(i >= lo_free and i != 0) for i in ids] + [False] * pad,
                         device=dev)
-    prob, local_kf, local_mp, _ = _gather_ba_device(state, local_kf, free, cfg)
-    return prob, local_kf, local_mp
+    return _gather_ba_device(state, local_kf, free, cfg)[:5]
+
+
+def _local_set(table: torch.Tensor, kf_ok: torch.Tensor, valid: torch.Tensor, cap: int):
+    """Landmarks with edges in the window, up to `cap` of them: (global ids
+    [cap] -1 padded, [KL, *] edges as local ids, count in the window)."""
+    n = valid.shape[0]
+    dev = table.device
+    edge_glob = torch.where(kf_ok[:, None], table, -1)
+    in_local = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    in_local[torch.where(edge_glob >= 0, edge_glob, n).reshape(-1).long()] = True
+    in_local = in_local[:n] & valid
+    local = nonzero_fixed(in_local, cap).to(torch.int32)
+    g2l = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    g2l = set_drop(g2l, torch.where(local >= 0, local, n),
+                   torch.arange(cap, dtype=torch.int32, device=dev))
+    edge_local = torch.where(edge_glob >= 0, g2l[torch.clamp(edge_glob, 0, n).long()], -1)
+    return local, edge_local, in_local.sum().to(torch.int32)
 
 
 def _gather_ba_device(state: MapState, local_kf: torch.Tensor, free: torch.Tensor,
                       cfg: SLAMConfig, n_mp_cap: int = BA_LOCAL_MP):
-    """(prob, local_kf, local_mp, n_dropped): landmarks with edges in the
-    window, up to n_mp_cap of them, indexed locally."""
+    """(prob, lines, local_kf, local_mp, local_ln, n_dropped): landmarks
+    with edges in the window, indexed locally; `lines` / `local_ln` are
+    None with `use_lines` off, `n_dropped` counts landmarks past the caps."""
     K = state.kf_valid.shape[0]
-    P = state.mp_valid.shape[0]
-    dev = state.kf_valid.device
     rows = torch.clamp(local_kf, 0, K - 1).long()
     kf_ok = (local_kf >= 0) & state.kf_valid[rows]
-    edge_mp_glob = torch.where(kf_ok[:, None], state.kf_kp_mp[rows], -1)
-    in_local = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    in_local[torch.where(edge_mp_glob >= 0, edge_mp_glob, P).reshape(-1).long()] = True
-    in_local = in_local[:P] & state.mp_valid
-    local_mp = nonzero_fixed(in_local, n_mp_cap).to(torch.int32)
-    mp_safe = torch.clamp(local_mp, 0, P - 1).long()
-    g2l = torch.full((P + 1,), -1, dtype=torch.int32, device=dev)
-    g2l = set_drop(g2l, torch.where(local_mp >= 0, local_mp, P),
-                   torch.arange(n_mp_cap, dtype=torch.int32, device=dev))
-    edge_mp_local = torch.where(edge_mp_glob >= 0,
-                                g2l[torch.clamp(edge_mp_glob, 0, P).long()], -1)
+    local_mp, edge_mp_local, n_mp = _local_set(state.kf_kp_mp[rows], kf_ok, state.mp_valid,
+                                               n_mp_cap)
+    mp_safe = torch.clamp(local_mp, 0, state.mp_valid.shape[0] - 1).long()
     sigma2 = _pow(cfg.frontend.scale_factor, 2.0 * state.kf_octave[rows].float())
     prob = local_ba.BAProblem(
         kf_T_cw=state.kf_T_cw[rows], kf_free=free & kf_ok, kf_valid=kf_ok,
@@ -475,8 +689,20 @@ def _gather_ba_device(state: MapState, local_kf: torch.Tensor, free: torch.Tenso
         edge_valid=(edge_mp_local >= 0) & state.kf_kp_valid[rows],
         mp_xyz=state.mp_xyz[mp_safe],
         mp_valid=(local_mp >= 0) & state.mp_valid[mp_safe])
-    n_drop = torch.clamp(in_local.sum().to(torch.int32) - n_mp_cap, min=0)
-    return prob, local_kf, local_mp, n_drop
+    n_drop = torch.clamp(n_mp - n_mp_cap, min=0)
+    if not cfg.use_lines:
+        return prob, None, local_kf, local_mp, None, n_drop
+    local_ln, edge_ln_local, n_ln = _local_set(state.kf_line_ml[rows], kf_ok,
+                                               state.ml_valid, BA_LOCAL_LN)
+    ln_safe = torch.clamp(local_ln, 0, state.ml_valid.shape[0] - 1).long()
+    lsigma2 = _pow(cfg.frontend.line_scale_factor, 2.0 * state.kf_loctave[rows].float())
+    lines = local_ba.BALineProblem(
+        ln_start=state.ml_endpoints[ln_safe, :3], ln_end=state.ml_endpoints[ln_safe, 3:],
+        ln_valid=(local_ln >= 0) & state.ml_valid[ln_safe],
+        obs_l=state.kf_line2d[rows], obs_sigma2=lsigma2, edge_ln=edge_ln_local,
+        edge_valid=(edge_ln_local >= 0) & state.kf_line_valid[rows])
+    n_drop = n_drop + torch.clamp(n_ln - BA_LOCAL_LN, min=0)
+    return prob, lines, local_kf, local_mp, local_ln, n_drop
 
 
 def cull_points(state: MapState, n_kf: int, cfg: SLAMConfig,
@@ -497,7 +723,8 @@ def cull_points(state: MapState, n_kf: int, cfg: SLAMConfig,
                           kf_kp_mp=torch.where(ref_ok, state.kf_kp_mp, -1))
 
 
-__all__ = ["MAX_NEW_POINTS", "BA_WINDOW", "BA_FIXED", "BA_LOCAL_KF", "BA_LOCAL_MP",
-           "insert_keyframe", "create_new_points", "NewPointsResult",
-           "fuse_projected_points", "apply_ba_result", "gather_ba_problem",
-           "_gather_ba_device", "cull_points", "cull_keyframes"]
+__all__ = ["MAX_NEW_POINTS", "MAX_NEW_LINES", "BA_WINDOW", "BA_FIXED", "BA_LOCAL_KF",
+           "BA_LOCAL_MP", "BA_LOCAL_LN", "insert_keyframe", "create_new_points",
+           "NewPointsResult", "create_new_lines", "NewLinesResult", "fuse_projected_points",
+           "fuse_projected_lines", "apply_ba_result", "gather_ba_problem",
+           "_gather_ba_device", "cull_points", "cull_lines", "cull_keyframes"]

@@ -1,8 +1,8 @@
 """Per-frame SLAM step: frontend -> tracking -> keyframe decision ->
 keyframe pipeline (insert, triangulate, fuse, local BA, cull).
 
-Counterpart of structure_slam_pointline_tpu/models/pipeline.py, points
-half. The reference runs a frame as one XLA program with the keyframe
+Counterpart of structure_slam_pointline_tpu/models/pipeline.py. The
+reference runs a frame as one XLA program with the keyframe
 branch under `lax.cond` and the wide re-track under `lax.while_loop`;
 here those are Python branches behind one small device -> host read per
 frame (the inlier count of the tracking attempt, from which `ok`, the
@@ -25,9 +25,10 @@ from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.models import local_mapping as lm
 from structure_slam_pointline_tpu_torch.models import tracking
 from structure_slam_pointline_tpu_torch.models.tracking import Frame
-from structure_slam_pointline_tpu_torch.ops import extract
+from structure_slam_pointline_tpu_torch.ops import extract, lbd, lsd
 from structure_slam_pointline_tpu_torch.optim import local_ba
 from structure_slam_pointline_tpu_torch.utils import camera as cam_utils
+from structure_slam_pointline_tpu_torch.utils import fmath
 from structure_slam_pointline_tpu_torch.utils import lie
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.indexing import stable_topk
@@ -60,28 +61,43 @@ class FrameOut(NamedTuple):
     n_mp: int = 0
     n_ml: int = 0
     n_kf: int = 0
+    # live landmark counts after a keyframe event (None on other frames:
+    # only the keyframe pipeline creates, fuses or culls landmarks)
+    n_live_mp: int | None = None
+    n_live_ml: int | None = None
 
 
 def build_frame_device(img: torch.Tensor, intr: Intrinsics, cfg: SLAMConfig) -> Frame:
-    """Image -> Frame: ORB extraction + undistortion. With `use_lines`
-    off the line fields are the reference's all-invalid arrays; line
-    detection is the next slice."""
-    if cfg.use_lines:
-        raise NotImplementedError(
-            "line frontend (LSD + LBD) is not ported yet: ROADMAP.md queue 1, "
-            "lines slice")
+    """Image -> Frame: ORB extraction, LSD-style lines (two octaves by
+    default) with LBD descriptors, undistortion (the reference's line
+    coefficients are recomputed from the undistorted endpoints)."""
     fe = cfg.frontend
     kp = extract.extract_orb(img, fe)
     xy = cam_utils.undistort_pixels(intr, kp.xy) if cfg.camera.has_distortion else kp.xy
     LF = fe.n_lines
     dev = img.device
-    return Frame(xy=xy, desc=kp.desc, octave=kp.octave, angle=kp.angle,
-                 kp_valid=kp.valid,
-                 line2d=torch.zeros((LF, 3), device=dev),
-                 line_ep=torch.zeros((LF, 4), device=dev),
-                 ldesc=torch.zeros((LF, 8), dtype=torch.int32, device=dev),
-                 loctave=torch.zeros((LF,), dtype=torch.int32, device=dev),
-                 line_valid=torch.zeros((LF,), dtype=torch.bool, device=dev))
+    if not cfg.use_lines:
+        return Frame(xy=xy, desc=kp.desc, octave=kp.octave, angle=kp.angle,
+                     kp_valid=kp.valid,
+                     line2d=torch.zeros((LF, 3), device=dev),
+                     line_ep=torch.zeros((LF, 4), device=dev),
+                     ldesc=torch.zeros((LF, 8), dtype=torch.int32, device=dev),
+                     loctave=torch.zeros((LF,), dtype=torch.int32, device=dev),
+                     line_valid=torch.zeros((LF,), dtype=torch.bool, device=dev))
+    ln = (lsd.detect_lines_pyramid(img, fe) if fe.line_octaves > 1
+          else lsd.detect_lines(img, fe))
+    ldesc, _ = lbd.describe_lines(img, ln.endpoints.contiguous(), ln.valid)
+    line_ep, line2d = ln.endpoints, ln.line2d
+    if cfg.camera.has_distortion:
+        sp = cam_utils.undistort_pixels(intr, line_ep[:, 0:2])
+        ep = cam_utils.undistort_pixels(intr, line_ep[:, 2:4])
+        line_ep = torch.cat([sp, ep], dim=1)
+        one = torch.ones((LF, 1), device=dev)
+        l = torch.linalg.cross(torch.cat([sp, one], 1), torch.cat([ep, one], 1))
+        line2d = l / torch.clamp(fmath.hypot(l[:, 0], l[:, 1]), min=1e-9)[:, None]
+    return Frame(xy=xy, desc=kp.desc, octave=kp.octave, angle=kp.angle, kp_valid=kp.valid,
+                 line2d=line2d, line_ep=line_ep, ldesc=ldesc, loctave=ln.octave,
+                 line_valid=ln.valid)
 
 
 def _gather_ba_problem_device(state: MapState, n_kf: int, cfg: SLAMConfig,
@@ -117,8 +133,8 @@ def _renorm_se3(T: torch.Tensor) -> torch.Tensor:
 def _keyframe_pipeline(state: MapState, frame: Frame, tr: tracking.TrackResult,
                        n_kf: int, n_mp: int, n_ml: int, frame_id: int,
                        intr: Intrinsics, cfg: SLAMConfig):
-    """Insert KF + triangulate vs neighbours + fuse + local BA + cull
-    (LocalMapping::Run's per-keyframe sequence, points half)."""
+    """Insert KF + triangulate points and lines vs neighbours + fuse +
+    local BA + cull (LocalMapping::Run's per-keyframe sequence)."""
     ab = frozenset(a for a in cfg.ablate.split(",") if a)
     k = n_kf
     dev = tr.T_cw.device
@@ -132,20 +148,33 @@ def _keyframe_pipeline(state: MapState, frame: Frame, tr: tracking.TrackResult,
     tri_nbs = torch.where(ar < NB, nbs, -1)
     out = lm.create_new_points(st, k, tri_nbs, n_mp, intr, cfg)
     st = out.state
-    n_new, n_clipped = (int(v) for v in torch.stack([out.n_new, out.n_clipped]).tolist())
-    n_mp = n_mp + n_new
-    n_dropped = n_clipped
+    counts = [out.n_new, out.n_clipped]
+    lines_tri = cfg.use_lines and "no_line_tri" not in ab
+    if lines_tri:
+        outl = lm.create_new_lines(st, k, tri_nbs, n_ml, intr, cfg)
+        st = outl.state
+        counts += [outl.n_new, outl.n_clipped]
+    counts = [int(v) for v in torch.stack(counts).tolist()]
+    n_mp = n_mp + counts[0]
+    n_dropped = counts[1]
+    if lines_tri:
+        n_ml = n_ml + counts[2]
+        n_dropped += counts[3]
     if "no_fuse" not in ab:
         st = lm.fuse_projected_points(st, k, nbs, intr, cfg)
-    prob, local_kf, local_mp, ba_drop = _gather_ba_problem_device(
+        if cfg.use_lines:
+            st = lm.fuse_projected_lines(st, k, nbs, intr, cfg)
+    prob, ba_lines, local_kf, local_mp, local_ln, ba_drop = _gather_ba_problem_device(
         st, k + 1, cfg, k, covis_w)
     n_dropped += int(ba_drop)
     if "no_ba" not in ab:
-        ba = local_ba.bundle_adjust(prob, intr, cfg.optim)
-        st = lm.apply_ba_result(st, local_kf, local_mp, ba)
+        ba = local_ba.bundle_adjust(prob, intr, cfg.optim, lines=ba_lines)
+        st = lm.apply_ba_result(st, local_kf, local_mp, ba, local_ln=local_ln)
     if "no_cull" not in ab:
         obs = map_store.point_obs_counts(st)
         st = lm.cull_points(st, k + 1, cfg, obs=obs)
+        if cfg.use_lines:
+            st = lm.cull_lines(st, k + 1, cfg)
         cull_w, cull_i = stable_topk(covis_w, min(lm.KF_CULL_WINDOW, covis_w.shape[0]))
         cand_ids = torch.where(cull_w > 0, cull_i, -1)
         st = lm.cull_keyframes(st, k + 1, cfg, obs=obs, cand_ids=cand_ids)
@@ -190,10 +219,12 @@ def slam_step(carry: SLAMCarry, img: torch.Tensor, frame_id: int, intr: Intrinsi
     roomy = carry.n_kf < cfg.map.max_keyframes - 1
     need_kf = (ok and roomy and n_inl >= cfg.keyframe.min_inliers and (weak or stale)
                and bool(allow_kf) and "no_kf" not in cfg.ablate)
+    n_live = (None, None)
     if need_kf:
         state, n_mp, n_ml, n_kf, T_cw, n_drop, local_sets, n_ref = _keyframe_pipeline(
             state, frame, tr, carry.n_kf, carry.n_mp, carry.n_ml, frame_id, intr, cfg)
         frames_since, inl_at_kf = 0, n_ref
+        n_live = tuple(torch.stack([state.mp_valid.sum(), state.ml_valid.sum()]).tolist())
     else:
         n_mp, n_ml, n_kf, T_cw, n_drop = (carry.n_mp, carry.n_ml, carry.n_kf,
                                           tr.T_cw, 0)
@@ -207,7 +238,8 @@ def slam_step(carry: SLAMCarry, img: torch.Tensor, frame_id: int, intr: Intrinsi
                           inliers_at_kf=inl_at_kf, ok=ok, recover_hold=recover_hold,
                           local_sets=local_sets)
     return new_carry, FrameOut(T_cw=T_cw, ok=ok, n_inliers=n_inl, is_kf=need_kf,
-                               n_dropped=n_drop, n_mp=n_mp, n_ml=n_ml, n_kf=n_kf)
+                               n_dropped=n_drop, n_mp=n_mp, n_ml=n_ml, n_kf=n_kf,
+                               n_live_mp=n_live[0], n_live_ml=n_live[1])
 
 
 def make_carry(state: MapState, T_last, velocity, n_kf: int, n_mp: int,

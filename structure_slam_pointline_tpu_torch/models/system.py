@@ -1,7 +1,7 @@
 """System facade: the host-side state machine around the per-frame step.
 
-Counterpart of structure_slam_pointline_tpu/models/system.py (points
-half): NO_IMAGES_YET -> NOT_INITIALIZED -> OK | LOST, the two-view
+Counterpart of structure_slam_pointline_tpu/models/system.py:
+NO_IMAGES_YET -> NOT_INITIALIZED -> OK | LOST, the two-view
 bootstrap (`track` until the map exists), then `track_sequence`, one
 `slam_step` per frame with the host reactions after each. (The reference
 streams 100-frame `lax.scan` chunks to amortize compilation and dispatch
@@ -67,16 +67,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 class SLAMSystem:
-    """Monocular point SLAM over a device-resident map."""
+    """Monocular point + line SLAM over a device-resident map."""
 
     COMPACT_FRAC = 0.75
 
     def __init__(self, cfg: SLAMConfig | None = None, device=None):
         self.cfg = cfg or SLAMConfig()
-        if self.cfg.use_lines:
-            raise NotImplementedError(
-                "use_lines=True needs the line slice (ROADMAP.md queue 1); "
-                "this port runs SLAMConfig(use_lines=False)")
         self.device = resolve_device(device)
         self.metrics = Metrics()
         self.intr = Intrinsics.from_config(self.cfg.camera)
@@ -142,6 +138,7 @@ class SLAMSystem:
                                              not self.localization_mode)
         self.map = self.carry.state
         self._count_frame(out)
+        self._count_landmark_deltas(out)
         if out.ok and out.is_kf:
             self.sync_cursors()
             self.maybe_compact()
@@ -158,6 +155,22 @@ class SLAMSystem:
         if out.n_dropped:
             self.metrics.count("landmarks_clipped", out.n_dropped)
 
+    def _count_landmark_deltas(self, out: pipeline.FrameOut) -> None:
+        """Landmark rate counters from the cursors and the live counts of a
+        keyframe event: created = cursor delta, removed (culled or fused) =
+        created - live delta (the reference's system.py:282-297)."""
+        if out.n_live_mp is None:
+            return
+        cur = (out.n_mp, out.n_ml, out.n_live_mp, out.n_live_ml)
+        base = self._lm_base
+        if base is not None and cur[0] >= base[0] and cur[1] >= base[1]:
+            mp_new, ml_new = cur[0] - base[0], cur[1] - base[1]
+            self.metrics.count("points_created", mp_new)
+            self.metrics.count("lines_created", ml_new)
+            self.metrics.count("points_removed", mp_new - (cur[2] - base[2]))
+            self.metrics.count("lines_removed", ml_new - (cur[3] - base[3]))
+        self._lm_base = cur
+
     # ------------------------------------------------------------------ #
     # initialization (reference Tracking::MonocularInitialization)
     # ------------------------------------------------------------------ #
@@ -171,7 +184,7 @@ class SLAMSystem:
                 self.state = TrackingState.NOT_INITIALIZED
             self._log(frame_id, None, 0, False)
             return None
-        m, m_valid = _init_match_device(self.ref_frame, frame, self.cfg)
+        m, m_valid, ml = _init_match_device(self.ref_frame, frame, self.cfg)
         valid_np = m_valid.cpu().numpy()
         n_matches = int(valid_np.sum())
         if n_matches < self.cfg.init.min_matches:
@@ -191,13 +204,13 @@ class SLAMSystem:
         if not bool(out.success):
             self._log(frame_id, None, 0, False)
             return None
-        T = self._create_initial_map(frame, frame_id, m, out)
+        T = self._create_initial_map(frame, frame_id, m, out, ml)
         self._log(frame_id, T, n_matches, True)
         return T
 
-    def _create_initial_map(self, frame, frame_id, m, out) -> np.ndarray:
-        """Two keyframes + triangulated points, scale-normalized to median
-        depth 1, then a BA over the initial map."""
+    def _create_initial_map(self, frame, frame_id, m, out, ml=None) -> np.ndarray:
+        """Two keyframes + triangulated points and lines, scale-normalized
+        to median point depth 1, then a BA over the initial map."""
         good = out.good_mask.cpu().numpy()
         X = out.points3d.cpu().numpy()
         med = float(np.median(X[good, 2])) if good.any() else 1.0
@@ -244,29 +257,56 @@ class SLAMSystem:
             mp_last_kf=head(st.mp_last_kf, 1),
             mp_visible=head(st.mp_visible, 2),
             mp_found=head(st.mp_found, 2))
+        # matched lines cut by the two view planes (Initializer::LineTriangulate)
         LF = frame.line2d.shape[0]
-        no_lines = t(np.full(LF, -1, np.int32), torch.int32)
+        line_ml0 = np.full(LF, -1, np.int32)
+        line_ml1 = np.full(LF, -1, np.int32)
+        n_newl = 0
+        if ml is not None:
+            tri = twoview.triangulate_lines(ref_frame.line2d, ref_frame.line_ep,
+                                            frame.line2d[ml.idx.long()], ml.valid, out.R, out.t,
+                                            self.intr.K(dev))
+            lids = np.nonzero(tri.good.cpu().numpy())[0]
+            n_newl = len(lids)
+            if n_newl:
+                eps = np.concatenate([tri.start.cpu().numpy()[lids] / med,
+                                      tri.end.cpu().numpy()[lids] / med], 1)
+
+                def lhead(x, v):
+                    x = x.clone()
+                    x[:n_newl] = v
+                    return x
+
+                st = st._replace(ml_endpoints=lhead(st.ml_endpoints, t(eps)),
+                                 ml_valid=lhead(st.ml_valid, True),
+                                 ml_first_kf=lhead(st.ml_first_kf, 0),
+                                 ml_last_kf=lhead(st.ml_last_kf, 1),
+                                 ml_visible=lhead(st.ml_visible, 2),
+                                 ml_found=lhead(st.ml_found, 2))
+                line_ml0[lids] = np.arange(n_newl)
+                line_ml1[ml.idx.cpu().numpy()[lids]] = np.arange(n_newl)
         st = lm.insert_keyframe(st, 0, self.ref_frame_id, t(T0), ref_frame,
-                                t(mp_of_feat0, torch.int32), no_lines, self.cfg)
+                                t(mp_of_feat0, torch.int32), t(line_ml0, torch.int32), self.cfg)
         st = lm.insert_keyframe(st, 1, frame_id, t(T1), frame,
-                                t(mp_of_feat1, torch.int32), no_lines, self.cfg)
+                                t(mp_of_feat1, torch.int32), t(line_ml1, torch.int32), self.cfg)
         st = st._replace(mp_obs_bits=map_store.compute_obs_bits(st))
         self.map = st
-        self.cur.n_kf, self.cur.n_mp, self.cur.n_ml = 2, n_new, 0
+        self.cur.n_kf, self.cur.n_mp, self.cur.n_ml = 2, n_new, n_newl
         self._run_local_ba()
         self.state = TrackingState.OK
         self.last_T = self.map.kf_T_cw[1].cpu().numpy()
         self.velocity = np.eye(4, dtype=np.float32)
         self.carry = pipeline.make_carry(
             self.map, self.last_T, self.velocity, self.cur.n_kf, self.cur.n_mp,
-            n_new, n_ml=0, window_kf=self.cfg.map.local_window_kf,
+            n_new, n_ml=n_newl, window_kf=self.cfg.map.local_window_kf,
             p_cap=self.cfg.map.local_points_cap, l_cap=self.cfg.map.local_lines_cap)
         return self.last_T
 
     def _run_local_ba(self) -> None:
-        prob, local_kf, local_mp = lm.gather_ba_problem(self.map, self.cur.n_kf, self.cfg)
-        result = local_ba.bundle_adjust(prob, self.intr, self.cfg.optim)
-        self.map = lm.apply_ba_result(self.map, local_kf, local_mp, result)
+        prob, lines, local_kf, local_mp, local_ln = lm.gather_ba_problem(
+            self.map, self.cur.n_kf, self.cfg)
+        result = local_ba.bundle_adjust(prob, self.intr, self.cfg.optim, lines=lines)
+        self.map = lm.apply_ba_result(self.map, local_kf, local_mp, result, local_ln=local_ln)
 
     # ------------------------------------------------------------------ #
     def _track_device(self, img, frame_id) -> Optional[np.ndarray]:
@@ -304,6 +344,7 @@ class SLAMSystem:
         self.ref_frame: Optional[Frame] = None
         self.ref_frame_id = -1
         self.carry: Optional[pipeline.SLAMCarry] = None
+        self._lm_base = None
 
     def maybe_compact(self) -> None:
         """The reference reclaims culled slots when a bump cursor passes
@@ -329,8 +370,10 @@ class SLAMSystem:
 
 
 def _init_match_device(ref: Frame, cur: Frame, cfg: SLAMConfig):
-    """Wide-window octave-gated point match with the ratio test and the
-    30-bin rotation histogram; returns (MatchResult, valid mask)."""
+    """Bootstrap matching, points and lines: wide-window octave-gated point
+    match with the ratio test and the 30-bin rotation histogram; with
+    lines, a 100 px midpoint-window LBD match with the MAD margin gate.
+    Returns (point MatchResult, valid mask, line MatchResult or None)."""
     allow = matching.window_mask(ref.xy, ref.kp_valid, cur.xy, cur.kp_valid,
                                  radius=100.0, kp_octave=cur.octave,
                                  pred_octave=ref.octave, octave_slack=1)
@@ -338,7 +381,14 @@ def _init_match_device(ref: Frame, cur: Frame, cfg: SLAMConfig):
                               ratio=cfg.matching.nn_ratio_init)
     m_valid = matching.rotation_consistency(ref.angle, cur.angle, m,
                                             cfg.matching.histo_bins)
-    return m, m_valid
+    ml = None
+    if cfg.use_lines:
+        mid_r = 0.5 * (ref.line_ep[:, 0:2] + ref.line_ep[:, 2:4])
+        mid_c = 0.5 * (cur.line_ep[:, 0:2] + cur.line_ep[:, 2:4])
+        allow_l = matching.window_mask(mid_r, ref.line_valid, mid_c, cur.line_valid, 100.0)
+        ml = matching.masked_match(ref.ldesc, cur.ldesc, allow_l, max_dist=cfg.matching.th_high)
+        ml = ml._replace(valid=matching.mad_margin_gate(ml, scale=cfg.matching.line_mad_ratio))
+    return m, m_valid, ml
 
 
 def _shrink_to_budget(frame: Frame, priority: np.ndarray, F: int) -> Frame:

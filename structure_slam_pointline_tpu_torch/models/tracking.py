@@ -9,7 +9,8 @@ Counterpart of structure_slam_pointline_tpu/models/tracking.py
 
 Matching runs through kernel 3 (ops/matching.masked_match) and each pass's
 pose solve through kernel 4 (optim/pose_opt.pose_optimize). Lines take the
-same path on their own arrays; with `use_lines=False` those arrays are
+same path on their own arrays, their angle gate's atan2 through kernel 8
+(utils/fmath.atan2); with `use_lines=False` those arrays are
 all invalid, exactly as in the reference, and the line edges carry no
 weight (`line_pose_weight` = 0).
 """
@@ -25,6 +26,7 @@ from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.ops import matching
 from structure_slam_pointline_tpu_torch.optim import pose_opt
 from structure_slam_pointline_tpu_torch.utils import camera as cam_utils
+from structure_slam_pointline_tpu_torch.utils import fmath
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.indexing import add_drop, set_drop, stable_topk
 from structure_slam_pointline_tpu_torch.world import map_store
@@ -191,8 +193,8 @@ def _match_lines(state: MapState, frame: Frame, T_cw, ids_ok, safe_ids,
     fr_mid = 0.5 * (frame.line_ep[:, 0:2] + frame.line_ep[:, 2:4])
     allow = matching.window_mask(mid, vis, fr_mid, frame.line_valid, radius)
     seg = uv_e - uv_s
-    ang_m = torch.atan2(seg[:, 1], seg[:, 0])
-    fr_ang = torch.atan2(frame.line_ep[:, 3] - frame.line_ep[:, 1],
+    ang_m = fmath.atan2(seg[:, 1], seg[:, 0])
+    fr_ang = fmath.atan2(frame.line_ep[:, 3] - frame.line_ep[:, 1],
                          frame.line_ep[:, 2] - frame.line_ep[:, 0])
     dang = matching.jnp_mod(ang_m[:, None] - fr_ang[None, :] + torch.pi / 2,
                             torch.pi) - torch.pi / 2

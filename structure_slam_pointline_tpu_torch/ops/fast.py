@@ -195,5 +195,17 @@ def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
     return outs
 
 
+def select_keypoints(score: torch.Tensor, k: int, cell: int = 32, cell_cap: int = 8,
+                     threshold: float = 20.0, min_threshold: float = 7.0,
+                     border: int = 16):
+    """Single-level selection without sub-pixel refinement, the reference's
+    `select_keypoints` (fast.py:92) with `raw=None`: one level of
+    `select_keypoints_levels` on a flat raw map, whose parabola offsets are
+    exactly 0. Returns (xy [k, 2], resp [k], valid [k])."""
+    return select_keypoints_levels([(score, torch.zeros_like(score))], [k], cell=cell,
+                                   cell_cap=cell_cap, threshold=threshold,
+                                   min_threshold=min_threshold, border=border)[0]
+
+
 __all__ = ["fast_score_plain", "nms3_plain", "fast_score_nms_plain",
-           "fast_score_nms", "select_keypoints_levels", "ARC_LEN"]
+           "fast_score_nms", "select_keypoints_levels", "select_keypoints", "ARC_LEN"]

@@ -100,16 +100,19 @@ def rotation_consistency(ref_angle, kp_angle, match: MatchResult,
 
 
 def _masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    n = valid.sum().to(torch.int64)
-    xs = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf")))).values
-    idx = torch.clamp((n - 1) // 2, 0, x.shape[0] - 1)
-    return torch.where(n > 0, xs[idx], torch.zeros_like(xs[0]))
+    """Lower median of x over the valid entries of the last axis (0 when
+    there are none), kept as a size-1 last axis."""
+    n = valid.sum(-1, keepdim=True).to(torch.int64)
+    xs = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf"))), dim=-1).values
+    idx = torch.clamp((n - 1) // 2, 0, x.shape[-1] - 1)
+    return torch.where(n > 0, torch.gather(xs, -1, idx), torch.zeros_like(xs[..., :1]))
 
 
 def mad_margin_gate(match: MatchResult, scale: float = 0.5) -> torch.Tensor:
     """MAD-normalized best-vs-second margin test for line matches
     (reference mad_margin_gate, matching.py:148), from the best and
-    re-masked second distances `masked_match` already produced."""
+    re-masked second distances `masked_match` already produced; a batched
+    match gates each batch row on its own median."""
     best = match.dist.float()
     second = torch.clamp(match.second.float(), max=float(_BIG))
     margin = torch.where(second < _BIG, second - best,

@@ -1,8 +1,7 @@
 """Two-view monocular bootstrap: batched H/F RANSAC + R,t recovery.
 
-Counterpart of structure_slam_pointline_tpu/ops/twoview.py (the point
-half: `initialize_two_view` and `triangulate`; the line triangulation is
-the next slice). All RANSAC iterations of both models evaluate at once:
+Counterpart of structure_slam_pointline_tpu/ops/twoview.py:
+`initialize_two_view`, `triangulate` and `triangulate_lines`. All RANSAC iterations of both models evaluate at once:
 batched DLT SVDs, one [ITERS, N] scoring pass per model, the reference's
 RH = SH / (SH + SF) > 0.40 model choice, 4 E and 8 H (Faugeras)
 candidates with cheirality counts. Null vectors from SVD may carry the
@@ -260,5 +259,53 @@ def initialize_two_view(uv1, uv2, mask, sets, intr: Intrinsics, sigma: float = 1
                          parallax_deg=par[best])
 
 
-__all__ = ["TwoViewResult", "triangulate", "initialize_two_view", "CHI2_1D",
-           "CHI2_2D"]
+class LineTriangulation(NamedTuple):
+    start: torch.Tensor  # [M, 3] frame-1 coords
+    end: torch.Tensor    # [M, 3]
+    good: torch.Tensor   # [M]
+
+
+def triangulate_lines(line2d_1, ep_1, line2d_2, match_ok, R, t, K) -> LineTriangulation:
+    """Two-view line triangulation for the bootstrap: view-1 endpoint rays
+    cut the plane pi2 = (K [R|t])^T l2 of the matched view-2 line; gates on
+    ray/plane angle, depth in both views, endpoint depth ratio, segment
+    length and the view-2 line residual (reference twoview.py:367-421)."""
+    M = line2d_1.shape[0]
+    P2 = K @ torch.cat([R, t[:, None]], dim=1)               # [3, 4]
+    pi2 = line2d_2 @ P2                                       # [M, 4]
+    Kinv = torch.linalg.inv(K)
+    ones = torch.ones((M, 1), dtype=ep_1.dtype, device=ep_1.device)
+
+    def intersect(uv):
+        d = torch.cat([uv, ones], dim=1) @ Kinv.T
+        den = torch.sum(pi2[:, :3] * d, dim=1)
+        lam = -pi2[:, 3] / torch.where(torch.abs(den) < 1e-9, torch.full_like(den, 1e-9), den)
+        return d * lam[:, None], lam
+
+    Xs, lam_s = intersect(ep_1[:, 0:2])
+    Xe, lam_e = intersect(ep_1[:, 2:4])
+    z1s, z1e = Xs[:, 2], Xe[:, 2]
+    z2s = (Xs @ R.T + t)[:, 2]
+    z2e = (Xe @ R.T + t)[:, 2]
+
+    def reproj_line_err(X):
+        ph = X @ P2[:, :3].T + P2[:, 3]
+        den = torch.where(torch.abs(ph[:, 2:3]) < 1e-9, torch.full_like(ph[:, 2:3], 1e-9),
+                          ph[:, 2:3])
+        uvh = ph[:, :2] / den
+        return line2d_2[:, 0] * uvh[:, 0] + line2d_2[:, 1] * uvh[:, 1] + line2d_2[:, 2]
+
+    e_s, e_e = reproj_line_err(Xs), reproj_line_err(Xe)
+    seg_len = torch.linalg.norm(Xe - Xs, dim=1)
+    depth_ratio = torch.minimum(z1s, z1e) / torch.clamp(torch.maximum(z1s, z1e), min=1e-9)
+    mid_depth = 0.5 * (z1s + z1e)
+    good = (match_ok & (lam_s > 0.05) & (lam_e > 0.05)
+            & (z1s > 0.05) & (z1e > 0.05) & (z2s > 0.05) & (z2e > 0.05)
+            & (depth_ratio > 0.3) & (seg_len < 1.3 * mid_depth) & (seg_len > 0.01)
+            & (e_s * e_s <= 2.0 * CHI2_1D) & (e_e * e_e <= 2.0 * CHI2_1D)
+            & torch.all(torch.isfinite(Xs), dim=1) & torch.all(torch.isfinite(Xe), dim=1))
+    return LineTriangulation(start=Xs, end=Xe, good=good)
+
+
+__all__ = ["TwoViewResult", "triangulate", "initialize_two_view", "LineTriangulation",
+           "triangulate_lines", "CHI2_1D", "CHI2_2D"]

@@ -1,15 +1,16 @@
 """Local bundle adjustment: batched Gauss-Newton with a Schur complement.
 
-Counterpart of structure_slam_pointline_tpu/optim/local_ba.py, points
-only (the reference passes `lines=None` when `use_lines` is off; line
-endpoints are the next slice). The [KL, F] keyframe-major edge grid is
-laid out once per call as a dense [KL, PL] camera x landmark grid (each
-landmark is observed at most once per keyframe), per-landmark 3x3 blocks
-reduce over KL, per-camera 6x6 blocks over PL, and the reduced camera
-system S = blockdiag(Hcc) - (A Hpp^-1) A^T is solved densely. Schedule:
-5 iterations, the chi2 cut, 15 more; 3x3 blocks get the trace-relative
-damping floor of the reference (local_ba.py:286-315). These run as torch
-ops on the device; the Schur product is one matmul.
+Counterpart of structure_slam_pointline_tpu/optim/local_ba.py. The
+[KL, F] keyframe-major edge grid is laid out once per call as a dense
+[KL, PL] camera x landmark grid (each landmark is observed at most once
+per keyframe), per-landmark 3x3 blocks reduce over KL, per-camera 6x6
+blocks over PL, and the reduced camera system S = blockdiag(Hcc) -
+(A Hpp^-1) A^T is solved densely. With `lines`, map-line endpoints join
+the marginalized landmarks as two more sets with one point-to-line
+residual row each ([KL, LL] grids). Schedule: 5 iterations, the chi2 cut,
+15 more; 3x3 blocks get the trace-relative damping floor of the
+reference (local_ba.py:286-315). These run as torch ops on the device;
+each Schur product is one matmul.
 """
 
 from __future__ import annotations
@@ -36,11 +37,26 @@ class BAProblem(NamedTuple):
     mp_valid: torch.Tensor    # [PL] bool
 
 
+class BALineProblem(NamedTuple):
+    """Map-line endpoints as marginalized landmarks, one point-to-infinite-
+    line residual per endpoint and observation."""
+    ln_start: torch.Tensor    # [LL, 3] world start points
+    ln_end: torch.Tensor      # [LL, 3]
+    ln_valid: torch.Tensor    # [LL]
+    obs_l: torch.Tensor       # [KL, LF, 3] observed normalized line coeffs
+    obs_sigma2: torch.Tensor  # [KL, LF]
+    edge_ln: torch.Tensor     # [KL, LF] local line index or -1
+    edge_valid: torch.Tensor  # [KL, LF]
+
+
 class BAResult(NamedTuple):
     kf_T_cw: torch.Tensor      # [KL, 4, 4]
     mp_xyz: torch.Tensor       # [PL, 3]
     edge_inlier: torch.Tensor  # [KL, F]
     cost: torch.Tensor
+    ln_start: torch.Tensor | None = None     # [LL, 3]
+    ln_end: torch.Tensor | None = None
+    line_inlier: torch.Tensor | None = None  # [KL, LF]
 
 
 def _to_dense_grid(prob: BAProblem):
@@ -59,6 +75,25 @@ def _to_dense_grid(prob: BAProblem):
     grid = grid.reshape(KL, PL, 4).permute(2, 0, 1)
     edge = (grid[3] > 0.5) & prob.mp_valid[None, :]
     return grid[0:2], grid[2], edge, base_kf
+
+
+def _lines_to_grid(lines: BALineProblem):
+    """[KL, LF] line observations -> ([3, KL, LL] coeffs, [KL, LL] info,
+    edge mask, the base [KL, LF] mask)."""
+    KL, LF = lines.edge_ln.shape
+    LL = lines.ln_start.shape[0]
+    dev = lines.edge_ln.device
+    base = lines.edge_valid & (lines.edge_ln >= 0)
+    rows = torch.arange(KL, device=dev)[:, None].expand(KL, LF)
+    lin = (rows * LL + lines.edge_ln.long())[base]
+    info = 1.0 / torch.clamp(lines.obs_sigma2, min=1e-12)
+    vals = torch.stack([lines.obs_l[..., 0], lines.obs_l[..., 1], lines.obs_l[..., 2], info,
+                        torch.ones_like(info)], dim=-1)[base]          # [E, 5]
+    grid = torch.zeros((KL * LL, 5), dtype=vals.dtype, device=dev)
+    grid.index_put_((lin,), vals, accumulate=True)
+    grid = grid.reshape(KL, LL, 5).permute(2, 0, 1)
+    edge = (grid[4] > 0.5) & lines.ln_valid[None, :]
+    return grid[0:3], grid[3], edge, base
 
 
 def _project_planes(T, X, intr: Intrinsics):
@@ -108,8 +143,34 @@ def _plane_inv3(Hpp, lam, freef):
             [co02 * idet, co12 * idet, co22 * idet]]
 
 
-def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig) -> BAResult:
-    """Run the 5 + cut + 15 schedule on the local problem."""
+def _schur_block(A, Hpi, bp, KL, n_cols):
+    """(A Hpp^-1 A^T as [KL, 6, KL, 6], A Hpp^-1 bp as [KL, 6]) of one
+    landmark set held as planes."""
+    AHi = torch.stack([torch.stack([
+        A[i, 0] * Hpi[0][l][None, :] + A[i, 1] * Hpi[1][l][None, :]
+        + A[i, 2] * Hpi[2][l][None, :] for l in range(3)]) for i in range(6)])
+    M1 = AHi.permute(2, 0, 1, 3).reshape(KL * 6, 3 * n_cols)
+    M2 = A.permute(2, 0, 1, 3).reshape(KL * 6, 3 * n_cols)
+    S_c = (M1 @ M2.T).reshape(KL, 6, KL, 6)
+    b_c = torch.stack([torch.sum(AHi[i, 0] * bp[0][None, :] + AHi[i, 1] * bp[1][None, :]
+                                 + AHi[i, 2] * bp[2][None, :], dim=1)
+                       for i in range(6)]).T
+    return S_c, b_c
+
+
+def _backsub(A, Hpi, bp, dxc, freef):
+    rhs = [bp[j] - torch.sum(sum(A[i, j] * dxc[:, i, None] for i in range(6)), dim=0)
+           for j in range(3)]
+    dxp = torch.stack([(Hpi[l][0] * rhs[0] + Hpi[l][1] * rhs[1] + Hpi[l][2] * rhs[2]) * freef
+                       for l in range(3)])
+    pn = torch.sqrt(torch.sum(dxp * dxp, dim=0, keepdim=True))
+    return dxp * torch.clamp(0.5 / torch.clamp(pn, min=1e-9), max=1.0)
+
+
+def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
+                  lines: BALineProblem | None = None) -> BAResult:
+    """Run the 5 + cut + 15 schedule on the local problem; with `lines`,
+    map-line endpoints are optimized with the points."""
     KL, F = prob.edge_mp.shape
     PL = prob.mp_xyz.shape[0]
     dtype = prob.kf_T_cw.dtype
@@ -118,6 +179,9 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig) -> BAResu
     free_f = (prob.kf_free & prob.kf_valid).to(dtype)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     kk = torch.arange(KL, device=dev)
+    if lines is not None:
+        LL = lines.ln_start.shape[0]
+        l_g, linfo, ledge, lbase = _lines_to_grid(lines)
 
     def chi2_planes(T, X, mask):
         pp = _project_planes(T, X, intr)
@@ -126,12 +190,48 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig) -> BAResu
         chi2 = (ru * ru + rv * rv) * info
         return pp, ru, rv, torch.where(mask, chi2, torch.zeros_like(chi2))
 
-    def lm_phase(T, X, edge_mask, n_iters, lam):
+    def line_chi2_planes(T, Xs, Xe, mask):
+        """Per-endpoint signed distances e = l . (u, v, 1) on [KL, LL]."""
+        pps = _project_planes(T, Xs, intr)
+        ppe = _project_planes(T, Xe, intr)
+        e_s = l_g[0] * pps["u"] + l_g[1] * pps["v"] + l_g[2]
+        e_e = l_g[0] * ppe["u"] + l_g[1] * ppe["v"] + l_g[2]
+        zero = torch.zeros_like(e_s)
+        c_s = torch.where(mask, e_s * e_s * linfo, zero)
+        c_e = torch.where(mask, e_e * e_e * linfo, zero)
+        return pps, ppe, e_s, e_e, c_s, c_e
+
+    def line_terms(pp):
+        """(Jc [6] planes, Jx [3] planes) of one endpoint set: l0 * Ju +
+        l1 * Jv is d(-e)/d. in the point planes' convention."""
+        (Ju, Jv), (Jxu, Jxv) = _jacobian_planes(pp)
+        return ([l_g[0] * Ju[i] + l_g[1] * Jv[i] for i in range(6)],
+                [l_g[0] * Jxu[j] + l_g[1] * Jxv[j] for j in range(3)])
+
+    def one_endpoint(Jc_l, Jx_l, w_l, r_l, lam, lnf):
+        wJc = [w_l * q for q in Jc_l]
+        Hcc_l = torch.stack([torch.stack([torch.sum(wJc[i] * Jc_l[j], dim=1)
+                                          for j in range(6)]) for i in range(6)]).permute(2, 0, 1)
+        bc_l = -torch.stack([torch.sum(wJc[i] * r_l, dim=1) for i in range(6)]).T
+        wJx = [w_l * q for q in Jx_l]
+        Hpp_l = [[torch.sum(wJx[i] * Jx_l[j], dim=0) for j in range(3)] for i in range(3)]
+        bp_l = [-torch.sum(wJx[i] * r_l, dim=0) for i in range(3)]
+        A_l = torch.stack([torch.stack([wJc[i] * Jx_l[j] for j in range(3)]) for i in range(6)])
+        Hpi_l = _plane_inv3(Hpp_l, lam, lnf)
+        S_l, b_l = _schur_block(A_l, Hpi_l, bp_l, KL, LL)
+        return Hcc_l, bc_l, A_l, Hpi_l, bp_l, S_l, b_l
+
+    def lm_phase(T, X, Xs, Xe, edge_mask, ln_mask, n_iters, lam):
         cnt = edge_mask.sum(0)
         pt_free = prob.mp_valid & (cnt >= 2)
         evf = (edge_mask & pt_free[None, :]).to(dtype)
         ev = evf > 0
         ptf = pt_free.to(dtype)
+        if lines is not None:
+            ln_free = lines.ln_valid & (ln_mask.sum(0) >= 2)
+            levf = (ln_mask & ln_free[None, :]).to(dtype)
+            lev = levf > 0
+            lnf = ln_free.to(dtype)
         cost = torch.zeros((), dtype=dtype, device=dev)
         for _ in range(n_iters):
             pp, ru, rv, chi2 = chi2_planes(T, X, ev)
@@ -153,50 +253,70 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig) -> BAResu
             A = torch.stack([torch.stack([wJu[i] * Jxu[j] + wJv[i] * Jxv[j]
                                           for j in range(3)]) for i in range(6)])
             Hpi = _plane_inv3(Hpp, lam, ptf)                           # [3][3] of [PL]
-            AHi = torch.stack([torch.stack([
-                A[i, 0] * Hpi[0][l][None, :] + A[i, 1] * Hpi[1][l][None, :]
-                + A[i, 2] * Hpi[2][l][None, :] for l in range(3)]) for i in range(6)])
-            M1 = AHi.permute(2, 0, 1, 3).reshape(KL * 6, 3 * PL)
-            M2 = A.permute(2, 0, 1, 3).reshape(KL * 6, 3 * PL)
-            S_pt = (M1 @ M2.T).reshape(KL, 6, KL, 6)
-            b_pt = torch.stack([torch.sum(AHi[i, 0] * bp[0][None, :]
-                                          + AHi[i, 1] * bp[1][None, :]
-                                          + AHi[i, 2] * bp[2][None, :], dim=1)
-                                for i in range(6)]).T
+            S_pt, b_pt = _schur_block(A, Hpi, bp, KL, PL)
+            if lines is not None:
+                pps, ppe, e_s, e_e, c_s, c_e = line_chi2_planes(T, Xs, Xe, lev)
+                cost = cost + torch.sum(torch.clamp(c_s + c_e, max=cfg.chi2_line * 8) * levf)
+                w_s = huber_weight(c_s, cfg.huber_delta_line) * linfo * levf
+                w_e = huber_weight(c_e, cfg.huber_delta_line) * linfo * levf
+                Jc_s, Jx_s = line_terms(pps)
+                Jc_e, Jx_e = line_terms(ppe)
+                out_s = one_endpoint(Jc_s, Jx_s, w_s, -e_s, lam, lnf)
+                out_e = one_endpoint(Jc_e, Jx_e, w_e, -e_e, lam, lnf)
+                Hcc = Hcc + out_s[0] + out_e[0]
+                bc = bc + out_s[1] + out_e[1]
             S = -S_pt
+            b_red = bc - b_pt
+            if lines is not None:
+                S = S - out_s[5] - out_e[5]
+                b_red = b_red - out_s[6] - out_e[6]
             S[kk, :, kk, :] += Hcc * (1.0 + lam * eye6)
             fm = free_f
             S = S * (fm[:, None, None, None] * fm[None, None, :, None])
             S[kk, :, kk, :] += (1.0 - fm)[:, None, None] * eye6
-            b_m = (bc - b_pt) * fm[:, None]
+            b_m = b_red * fm[:, None]
             Sd = S.reshape(KL * 6, KL * 6)
             dxc = torch.linalg.solve(
                 Sd + 1e-6 * torch.eye(KL * 6, dtype=dtype, device=dev),
                 b_m.reshape(-1)).reshape(KL, 6) * fm[:, None]
             cn = torch.linalg.norm(dxc, dim=1, keepdim=True)
             dxc_c = dxc * torch.clamp(0.5 / torch.clamp(cn, min=1e-9), max=1.0)
-            rhs = [bp[j] - torch.sum(sum(A[i, j] * dxc[:, i, None] for i in range(6)),
-                                     dim=0) for j in range(3)]
-            dxp = torch.stack([(Hpi[l][0] * rhs[0] + Hpi[l][1] * rhs[1]
-                                + Hpi[l][2] * rhs[2]) * ptf for l in range(3)])
-            pn = torch.sqrt(torch.sum(dxp * dxp, dim=0, keepdim=True))
-            dxp = dxp * torch.clamp(0.5 / torch.clamp(pn, min=1e-9), max=1.0)
+            dxp = _backsub(A, Hpi, bp, dxc, ptf)
+            if lines is not None:
+                Xs = Xs + _backsub(out_s[2], out_s[3], out_s[4], dxc, lnf)
+                Xe = Xe + _backsub(out_e[2], out_e[3], out_e[4], dxc, lnf)
             T = lie.se3_exp(dxc_c) @ T
             X = X + dxp
-        return T, X, cost
+        return T, X, Xs, Xe, cost
 
-    T1, X1, _ = lm_phase(prob.kf_T_cw, prob.mp_xyz.T, edge_lm,
-                         cfg.local_ba_iters_first, cfg.lm_lambda_init)
+    if lines is not None:
+        Xs0, Xe0, ln_edge = lines.ln_start.T, lines.ln_end.T, ledge
+    else:
+        Xs0 = Xe0 = ln_edge = None
+    T1, X1, Xs1, Xe1, _ = lm_phase(prob.kf_T_cw, prob.mp_xyz.T, Xs0, Xe0, edge_lm, ln_edge,
+                                   cfg.local_ba_iters_first, cfg.lm_lambda_init)
     pp, _, _, chi2 = chi2_planes(T1, X1, edge_lm)
     keep = edge_lm & (chi2 <= cfg.chi2_mono) & (pp["z"] > 0)
-    T2, X2, cost = lm_phase(T1, X1, keep, cfg.local_ba_iters_second,
-                            cfg.lm_lambda_init)
+    keep_ln = ln_edge
+    if lines is not None:
+        pps, ppe, _, _, c_s, c_e = line_chi2_planes(T1, Xs1, Xe1, ln_edge)
+        keep_ln = ln_edge & (c_s + c_e <= 2.0 * cfg.chi2_line) & (pps["z"] > 0) & (ppe["z"] > 0)
+    T2, X2, Xs2, Xe2, cost = lm_phase(T1, X1, Xs1, Xe1, keep, keep_ln,
+                                      cfg.local_ba_iters_second, cfg.lm_lambda_init)
     pp, _, _, chi2 = chi2_planes(T2, X2, edge_lm)
     inlier_lm = edge_lm & (chi2 <= cfg.chi2_mono) & (pp["z"] > 0)
     idx = kk[:, None] * PL + torch.clamp(prob.edge_mp.long(), 0, PL - 1)
     inlier = base_kf & (prob.edge_mp >= 0) & (prob.edge_mp < PL) \
         & inlier_lm.reshape(-1)[idx]
-    return BAResult(kf_T_cw=T2, mp_xyz=X2.T, edge_inlier=inlier, cost=cost)
+    if lines is None:
+        return BAResult(kf_T_cw=T2, mp_xyz=X2.T, edge_inlier=inlier, cost=cost)
+    pps, ppe, _, _, c_s, c_e = line_chi2_planes(T2, Xs2, Xe2, ln_edge)
+    inl_ln = ln_edge & (c_s + c_e <= 2.0 * cfg.chi2_line) & (pps["z"] > 0) & (ppe["z"] > 0)
+    lidx = kk[:, None] * LL + torch.clamp(lines.edge_ln.long(), 0, LL - 1)
+    line_inlier = lbase & (lines.edge_ln >= 0) & (lines.edge_ln < LL) \
+        & inl_ln.reshape(-1)[lidx]
+    return BAResult(kf_T_cw=T2, mp_xyz=X2.T, edge_inlier=inlier, cost=cost,
+                    ln_start=Xs2.T, ln_end=Xe2.T, line_inlier=line_inlier)
 
 
-__all__ = ["BAProblem", "BAResult", "bundle_adjust"]
+__all__ = ["BAProblem", "BALineProblem", "BAResult", "bundle_adjust"]

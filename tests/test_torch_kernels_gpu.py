@@ -1,7 +1,9 @@
-"""The four CUDA kernels of the PyTorch port against their plain versions,
-on the card, at the main path's shapes (640x480 levels, 1024 keypoints,
-2048 local points x 1024 features, pose problems of 2048 points + 256
-lines). Marked `gpu`: they skip without a CUDA device. Run on the card:
+"""The eight CUDA kernels of the PyTorch port against their plain
+versions, on the card, at the main path's shapes (640x480 levels, 1024
+keypoints, 2048 local points x 1024 features, pose problems of 2048
+points + 256 lines, line octaves of 640x480 and 320x240 with 256 / 128
+anchors, 64 segments). Marked `gpu`: they skip without a CUDA device. Run
+on the card:
 
     python -m pytest -o addopts="" -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
@@ -10,7 +12,15 @@ arithmetic and bf16 roundings reproduced op for op); ORB descriptors equal
 on >= 99.5% of keypoints and angles within 1e-4 rad (float32 moment sums
 in another order can move atan2 by an ulp and, rarely, flip the bank);
 pose within 1e-4 with inlier masks equal on >= 99.5% (float32 reductions
-in another order).
+in another order). Line kernels: the dense support pass (score and
+packed ridge plane) exactly equal (bf16 roundings, glibc's atan2f and
+integer support counts reproduced op for op); refinement endpoints within
+1e-3 px on >= 99.9% of valid anchors (both sum in sample order; the bound
+leaves room for an ulp of cos / sin moving a sample across a pixel
+boundary); LBD words equal on >= 99% of segments with descriptors within
+1e-5 (the plain version sums in the kernel's order, so they are expected
+equal; the bounds leave room for an ulp in a transcendental); atan2
+bit-exact against the torch-op version on the card and on the CPU.
 """
 
 import numpy as np
@@ -18,10 +28,11 @@ import pytest
 import torch
 
 from structure_slam_pointline_tpu_torch import kernels
-from structure_slam_pointline_tpu_torch.config import CameraConfig, OptimConfig
+from structure_slam_pointline_tpu_torch.config import CameraConfig, FrontendConfig, OptimConfig
 from structure_slam_pointline_tpu_torch.io import synthetic
-from structure_slam_pointline_tpu_torch.ops import fast, hamming, orb, pyramid
+from structure_slam_pointline_tpu_torch.ops import fast, hamming, lbd, lsd, orb, pyramid
 from structure_slam_pointline_tpu_torch.optim import pose_opt
+from structure_slam_pointline_tpu_torch.utils import fmath
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 
 pytestmark = pytest.mark.gpu
@@ -134,6 +145,71 @@ def test_pose_lm_matches_plain(cuda, line_weight):
     same = torch.cat([rk.point_inliers.cpu() == rp.point_inliers,
                       rk.line_inliers.cpu() == rp.line_inliers]).float().mean().item()
     assert same >= 0.995
+
+
+@pytest.fixture(scope="module")
+def octaves(cuda):
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    pose = synthetic.circular_trajectory(610, radius=0.5)[40]
+    img = torch.from_numpy(synthetic.render(scene, pose, cam, noise=2.0, seed=40)).to(cuda)
+    return [img, lsd.half_octave(img).contiguous()]
+
+
+def test_lsd_support_matches_plain(octaves):
+    fe = FrontendConfig()
+    before = kernels.COUNTS["lsd_support"]
+    for img in octaves:
+        args = (fe.line_grad_threshold, fe.line_angle_tol, fe.line_min_length)
+        best_k, packed_k = lsd.lsd_support(img, *args)
+        best_p, packed_p = lsd.lsd_support_plain(img, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(best_k, best_p)
+        assert torch.equal(packed_k, packed_p)
+        assert (best_k > 0).sum().item() > 100
+    assert kernels.COUNTS["lsd_support"] == before + 2
+
+
+def test_lsd_refine_matches_plain(octaves):
+    fe = FrontendConfig()
+    for img, K, S in zip(octaves, (256, 128), (48, 24)):
+        best, packed = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
+                                             fe.line_min_length)
+        axy, _, avalid = fast.select_keypoints(best, k=K, cell=16, cell_cap=1,
+                                               threshold=1.0, min_threshold=1.0, border=4)
+        ax, ay = axy[:, 0].contiguous(), axy[:, 1].contiguous()
+        args = (S, fe.line_refine_iters, fe.line_angle_tol, fe.line_grad_threshold)
+        out_k = lsd.lsd_refine(img, packed, ax, ay, *args)
+        out_p = lsd.lsd_refine_plain(img, packed, ax, ay, *args)
+        err = (out_k[:, :4] - out_p[:, :4]).abs().amax(1)[avalid]
+        assert avalid.sum().item() > 50
+        assert (err <= 1e-3).float().mean().item() >= 0.999
+
+
+def test_lbd_matches_plain(octaves):
+    img = octaves[0]
+    lines = lsd.detect_lines_pyramid(img, FrontendConfig())
+    assert lines.valid.sum().item() >= 32
+    wk, dk = lbd.describe_lines(img, lines.endpoints.contiguous(), lines.valid)
+    wp, dp = lbd.describe_lines_plain(img, lines.endpoints, lines.valid)
+    same = (wk == wp).all(1).float().mean().item()
+    err = (dk - dp).abs().max().item()
+    assert same >= 0.99 and err <= 1e-5, (same, err)
+
+
+def test_atan2_matches_plain(cuda):
+    g = np.random.default_rng(9)
+    y = (g.normal(size=20000) * np.exp(g.normal(size=20000) * 3)).astype(np.float32)
+    x = (g.normal(size=20000) * np.exp(g.normal(size=20000) * 3)).astype(np.float32)
+    y[:40], x[40:80], x[80:120], y[120:130] = 0.0, 0.0, 1.0, -0.0
+    y, x = torch.from_numpy(y), torch.from_numpy(x)
+    before = kernels.COUNTS["atan2_glibc"]
+    out_k = fmath.atan2(y.to(cuda), x.to(cuda))
+    out_p = fmath.atan2_plain(y.to(cuda), x.to(cuda))
+    assert kernels.COUNTS["atan2_glibc"] == before + 1
+    bits = out_k.cpu().view(torch.int32)
+    assert torch.equal(bits, out_p.cpu().view(torch.int32))
+    assert torch.equal(bits, fmath.atan2_plain(y, x).view(torch.int32))
 
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda):

@@ -15,8 +15,6 @@ BA can shift a marginal match, which the later frames carry, so the
 bounds leave room for that). Both ATE-Sim3 must stay under 0.05.
 """
 
-import functools
-
 import numpy as np
 import pytest
 
@@ -25,7 +23,7 @@ from structure_slam_pointline_tpu.models.system import SLAMSystem as JSystem
 from structure_slam_pointline_tpu_torch.models.system import SLAMSystem as TSystem
 from structure_slam_pointline_tpu_torch.models.system import resolve_device
 
-from torch_port_helpers import configs, sequence
+from torch_port_helpers import configs, disk_cached, sequence
 
 N_TRACK = 16
 
@@ -46,7 +44,7 @@ def _run(cls, cfg, **kw):
                 ate=synthetic.ate_rmse(est, poses[ids]))
 
 
-@functools.lru_cache(maxsize=None)
+@disk_cached
 def _runs():
     jc, tc = configs(full=True)
     return _run(JSystem, jc), _run(TSystem, tc, device="cpu")

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Points-only path of two checkouts of the port, alternated on one GPU.
+
+    python3 tools/points_ab.py OLD_ROOT NEW_ROOT [--frames 200] [--out FILE]
+
+Each root is a checkout of this repository (for example the parent commit
+unpacked with `git archive` into a git-ignored directory, and this tree).
+The runs go old, new, new, old, each in a process of its own that imports
+the port from its root and builds that root's kernels into its `build/`.
+A run is the bench scene of chip_smoke.py at 640x480 with
+`SLAMConfig(camera=CameraConfig(fy=480.0), use_lines=False)`: bootstrap
+through `track()` (within 90 frames), then `--frames` frames through
+`track_sequence()`. Each run prints one JSON line (root, init frame,
+tracked fps, ATE-Sim3, tracked frames, keyframes, points, the launch
+counts); `--out` also writes them all to a file. Exits nonzero if a run
+fails or does not initialize.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+RUN = r"""
+import json, sys, time
+import numpy as np
+sys.path.insert(0, ROOT)
+import torch
+from structure_slam_pointline_tpu_torch import kernels
+from structure_slam_pointline_tpu_torch.config import CameraConfig, SLAMConfig
+from structure_slam_pointline_tpu_torch.io import synthetic
+from structure_slam_pointline_tpu_torch.models.system import SLAMSystem
+
+kernels.build_all()
+cam = CameraConfig(fy=480.0)
+scene = synthetic.make_room_scene(n_points=350, n_lines=40, seed=0)
+poses = synthetic.circular_trajectory(10 + 6 * 100, radius=0.5)
+frame = lambda i: synthetic.render(scene, poses[i], cam, noise=2.0, seed=i)
+slam = SLAMSystem(SLAMConfig(camera=cam, use_lines=False))
+kernels.reset_counts()
+i = 0
+while slam.carry is None and i < 90:
+    slam.track(frame(i), i)
+    i += 1
+if slam.carry is None:
+    sys.exit("no initialization within 90 frames")
+seq = np.stack([frame(j) for j in range(i, i + FRAMES)])
+torch.cuda.synchronize()
+t0 = time.time()
+T, ok, inl, iskf = slam.track_sequence(seq, i)
+torch.cuda.synchronize()
+dt = time.time() - t0
+traj = slam.trajectory()
+ids = sorted(traj)
+est = np.stack([np.linalg.inv(traj[k]) for k in ids])
+print(json.dumps({"root": ROOT, "init_frame": i - 1, "frames": FRAMES, "fps": FRAMES / dt,
+                  "ate_sim3": synthetic.ate_rmse(est, poses[ids]), "tracked": int(ok.sum()),
+                  "keyframes": slam.cur.n_kf, "points": slam.cur.n_mp,
+                  "live_points": int(slam.map.mp_valid.sum()),
+                  "launches": dict(kernels.COUNTS)}))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old_root")
+    ap.add_argument("new_root")
+    ap.add_argument("--frames", type=int, default=200)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    results = []
+    for root in (args.old_root, args.new_root, args.new_root, args.old_root):
+        root = os.path.abspath(root)
+        code = f"ROOT = {root!r}\nFRAMES = {args.frames}\n" + RUN
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        results.append(json.loads(line))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
