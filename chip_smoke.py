@@ -16,12 +16,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    a. the main path, `SLAMConfig()` with lines on: bootstrap through
       `SLAMSystem.track()` (must initialize within 90 frames), then 200
       frames through `track_sequence()`. Every kernel's launch counter is
-      zeroed just before and read just after; all eight must be nonzero.
+      zeroed just before and read just after; all twelve must be nonzero.
       ATE-Sim3 over the tracked frames must be <= 0.05, and map lines must
       have been made and be live at the end;
    b. the points-only path, `use_lines=False`: bootstrap, then 60 frames,
-      its counters read on their own (the four point kernels nonzero),
-      ATE-Sim3 <= 0.05.
+      its counters read on their own (the four point kernels and kernels
+      9-12 nonzero), ATE-Sim3 <= 0.05.
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
    through its plain PyTorch version: FAST/NMS maps, Hamming best / second
@@ -30,13 +30,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    1e-4 rad; pose within 1e-4 (rotation and translation entries) with
    inlier masks equal on >= 99.5% of edges; LSD refinement endpoints within
    1e-3 px on >= 99.9% of valid anchors; LBD words equal on >= 99% of
-   segments and float descriptors within 1e-5; atan2 bit-exact. Each is
+   segments and float descriptors within 1e-5; atan2 bit-exact; keypoint
+   selection (ORB levels and LSD anchors) `valid` equal and `resp`, `xy`
+   equal on valid slots; observer bits and votes equal; null vectors
+   within 1e-6; local BA poses and landmarks within 1e-3 with point and
+   line inlier masks equal on >= 99.5% of edges, two launches
+   bit-identical, and one call under torch.cuda.set_sync_debug_mode
+   ("error"), which raises on any host synchronization. Each kernel is
    timed on the device (torch.profiler's device events per call, host
-   launch gaps left out) and from the caller (median of CUDA events around one call, gaps
-   included). The kernel table's rows that still run as torch ops
-   (keypoint selection, the 4x4 null vector, local BA, observer bits and
-   votes, the fuse functions) are counted over phase 2a, and one call of
-   each is timed the same way beside its bound.
+   launch gaps left out) and from the caller (median of CUDA events around
+   one call, gaps included); the null vector also against
+   torch.linalg.eigh on the same Gram matrices (library_ms). The kernel
+   table's row that still runs as torch ops (the fuse functions) is counted
+   over phase 2a, and one call of each is timed the same way beside its
+   bound.
 4. Where the time goes: 20 further frames of the main path under
    torch.profiler; prints the wall time, the device-busy time per frame and
    the top device kernels.
@@ -78,6 +85,12 @@ OPS_REFINE_SAMPLE = 60
 OPS_LBD_SAMPLE = 60
 OPS_LBD_SEGMENT = 4000
 OPS_ATAN2 = 60        # glibc atan2f: one division, the polynomial, the fix-ups
+# per 4x4 null-vector system: the Gram (r x 10 multiply-adds), 30 Jacobi
+# rotations (~60 operations each with one atan2f, cosf and sinf)
+OPS_NULL_SYSTEM = 2000
+# per active BA residual row per iteration: projection, Jacobians, the
+# 6x6 / 6x3 / 3x3 block terms and the Schur product (~300 operations)
+OPS_BA_ROW = 300
 
 # kernel -> (JAX function it replaces, CUDA source)
 KERNELS = {
@@ -97,8 +110,17 @@ KERNELS = {
                      "structure_slam_pointline_tpu_torch/csrc/lbd.cu"),
     "atan2_glibc": ("structure_slam_pointline_tpu/ops/lsd.py:448",
                     "structure_slam_pointline_tpu_torch/csrc/atan2.cu"),
+    "obs_bits": ("structure_slam_pointline_tpu/world/map_store.py:235",
+                 "structure_slam_pointline_tpu_torch/csrc/obs_bits.cu"),
+    "null_vector4": ("structure_slam_pointline_tpu/utils/linalg.py:108",
+                     "structure_slam_pointline_tpu_torch/csrc/null_vector4.cu"),
+    "kp_select": ("structure_slam_pointline_tpu/ops/fast.py:197",
+                  "structure_slam_pointline_tpu_torch/csrc/kp_select.cu"),
+    "local_ba": ("structure_slam_pointline_tpu/optim/local_ba.py:226",
+                 "structure_slam_pointline_tpu_torch/csrc/local_ba.cu"),
 }
-POINT_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm")
+POINT_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "obs_bits",
+                 "null_vector4", "kp_select", "local_ba")
 
 
 def fail(msg: str) -> None:
@@ -138,21 +160,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def device_ms(fn, reps: int = 20) -> float:
     """Device milliseconds of one call: the device-side events (kernels,
     copies) that torch.profiler records over `reps` calls, summed, per
-    call. Launch gaps on the host are left out."""
+    call. Launch gaps on the host are left out. The profiler on the card
+    has returned no device events at all for a session now and then (the
+    same call measured in the run before): such a session is repeated,
+    up to three times, and then the call is timed with CUDA events
+    instead (launch gaps included), with a note on stderr."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    print(f"[note] torch.profiler recorded no device time for {getattr(fn, '__name__', fn)};"
+          " timed with CUDA events instead", file=sys.stderr, flush=True)
+    return time_ms(fn, reps=reps)
 
 
 def timings(kernel_fn, plain_fn) -> dict:
@@ -203,35 +232,6 @@ def torch_op_rows(cfg):
     counts are lower estimates read off the code (the compares, selects
     and multiply-adds the function cannot skip), so each bound is a floor."""
     from structure_slam_pointline_tpu_torch.models import local_mapping as lm
-    from structure_slam_pointline_tpu_torch.ops import fast
-    from structure_slam_pointline_tpu_torch.optim import local_ba
-    from structure_slam_pointline_tpu_torch.utils import linalg
-    from structure_slam_pointline_tpu_torch.world import map_store
-
-    def sel_cost(a, kw, out):
-        # eight rounds of a per-cell max over every pixel, then the top-k
-        px = sum(s.numel() for s, _ in a[0])
-        return (sum(nbytes(s, r) for s, r in a[0]) + sum(nbytes(*o) for o in out), 16 * px)
-
-    def null_cost(a, kw, out):
-        # A^T A, then 5 Jacobi sweeps of 6 rotations on a 4x4 system
-        return nbytes(a[0], out), a[0].numel() // 16 * 2000
-
-    def ba_cost(a, kw, out):
-        # per LM iteration: ~300 multiply-adds per residual row pair
-        # (projection, Jacobian, block sums) and the reduced camera solve
-        prob, ocfg, ln = a[0], a[2], kw.get("lines")
-        rows = int(prob.edge_valid.sum()) + (2 * int(ln.edge_valid.sum()) if ln else 0)
-        iters = ocfg.local_ba_iters_first + ocfg.local_ba_iters_second
-        free = 6 * int(prob.kf_free.sum())
-        return (nbytes(*prob, *(ln or ()), *(t for t in out if t is not None)),
-                iters * (rows * 300 + free ** 3 // 3))
-
-    def bits_cost(a, kw, out):
-        return nbytes(a[0].kf_kp_mp, out), 4 * a[0].kf_kp_mp.numel()
-
-    def votes_cost(a, kw, out):
-        return nbytes(*a, out), 2 * a[0].shape[0] * a[2].shape[0]
 
     def fuse_cost(table, desc, kf_desc):
         def cost(a, kw, out):
@@ -246,19 +246,6 @@ def torch_op_rows(cfg):
         return cost
 
     return {
-        "2": ("structure_slam_pointline_tpu/ops/fast.py:197 select_keypoints_levels",
-              fast, "select_keypoints_levels",
-              lambda score_raw, ks, **kw: ("sel", tuple(ks)), sel_cost),
-        "8": ("structure_slam_pointline_tpu/utils/linalg.py:108 null_vector_4",
-              linalg, "null_vector_4", lambda A, **kw: ("null", tuple(A.shape)), null_cost),
-        "9": ("structure_slam_pointline_tpu/optim/local_ba.py:226 bundle_adjust",
-              local_ba, "bundle_adjust",
-              lambda prob, *a, **kw: ("ba", int(prob.kf_valid.sum())), ba_cost),
-        "10a": ("structure_slam_pointline_tpu/world/map_store.py:235 compute_obs_bits",
-                map_store, "compute_obs_bits", lambda st: ("bits",), bits_cost),
-        "10b": ("structure_slam_pointline_tpu/world/map_store.py:253 votes_from_bits",
-                map_store, "votes_from_bits",
-                lambda rows, *a: ("votes", tuple(rows.shape)), votes_cost),
         "11a": ("structure_slam_pointline_tpu/models/local_mapping.py:736 fuse_projected_points",
                 lm, "fuse_projected_points", lambda *a: ("fuse",),
                 fuse_cost("kf_kp_mp", 32, "kf_desc")),
@@ -329,8 +316,9 @@ def main() -> int:
     from structure_slam_pointline_tpu_torch.config import CameraConfig, SLAMConfig
     from structure_slam_pointline_tpu_torch.io import synthetic
     from structure_slam_pointline_tpu_torch.ops import extract, fast, hamming, lbd, lsd, orb
-    from structure_slam_pointline_tpu_torch.optim import pose_opt
-    from structure_slam_pointline_tpu_torch.utils import fmath
+    from structure_slam_pointline_tpu_torch.optim import local_ba, pose_opt
+    from structure_slam_pointline_tpu_torch.utils import fmath, linalg
+    from structure_slam_pointline_tpu_torch.world import map_store
 
     t_start = time.time()
     smi = smi_line()
@@ -377,6 +365,16 @@ def main() -> int:
         "atan2_glibc": Recorder(fmath, "atan2",
                                 lambda y, x: ("atan2", tuple(torch.broadcast_shapes(
                                     y.shape, x.shape)))),
+        "kp_select": Recorder(fast, "select_keypoints_levels",
+                              lambda score_raw, ks, **kw: ("sel", tuple(ks), kw.get("cell"),
+                                                           kw.get("cell_cap"))),
+        "null_vector4": Recorder(linalg, "null_vector_4",
+                                 lambda A, **kw: ("null", tuple(A.shape))),
+        "local_ba": Recorder(local_ba, "bundle_adjust",
+                             lambda prob, *a, **kw: ("ba", int(prob.kf_valid.sum()))),
+        "obs_bits": Recorder(map_store, "compute_obs_bits", lambda st: ("bits",)),
+        "votes": Recorder(map_store, "votes_from_bits",
+                          lambda rows, *a: ("votes", tuple(rows.shape))),
     }
     op_rows = torch_op_rows(cfg)
     op_rec = {row: Recorder(mod, attr, key_fn)
@@ -579,31 +577,157 @@ def main() -> int:
         **timings(lambda: fmath.atan2(y, x), lambda: fmath.atan2_plain(y, x)),
         bytes=n_at * 12, ops=n_at * OPS_ATAN2, library_ms=None,
         shape=f"{n_at} elements (+{len(at_calls) - 1} other shapes checked)"))
+
+    # keypoint selection: every call shape (ORB levels at 1024 and 2048
+    # keypoints, the LSD anchors of both octaves), valid equal, resp and xy
+    # equal on valid slots
+    sel_calls = rec["kp_select"].calls
+    for key, (args, kw) in sel_calls.items():
+        out_k = fast.select_keypoints_levels(*args, **kw)
+        out_p = fast.select_keypoints_levels_plain(*args, **kw)
+        for li, ((xk, rk_, vk), (xp, rp_, vp)) in enumerate(zip(out_k, out_p)):
+            if not (torch.equal(vk, vp) and torch.equal(rk_[vk], rp_[vp])
+                    and torch.equal(xk[vk], xp[vp])):
+                fail(f"kp_select disagrees at {key} level {li}: valid "
+                     f"{int((vk != vp).sum())} slots")
+    orb_key = next((k for k in sel_calls if sum(k[1]) == cfg.frontend.n_keypoints), None)
+    if orb_key is None or len(sel_calls) < 3:
+        fail(f"keypoint selection shapes missing: {sorted(sel_calls)}")
+    sel_args, sel_kw = sel_calls[orb_key]
+    lsd_sel = [v for k, v in sel_calls.items() if k[3] == 1]
+    px = sum(sc.numel() for sc, _ in sel_args[0])
+    nsel = sum(orb_key[1])
+
+    def frame_selection(fn):
+        # one frame's selections: the ORB levels and both LSD octaves' anchors
+        return lambda: [fn(*a, **k) for a, k in [(sel_args, sel_kw)] + lsd_sel]
+
+    rows.append(dict(
+        name="kp_select", max_abs_err=0.0,
+        **timings(lambda: fast.select_keypoints_levels(*sel_args, **sel_kw),
+                  lambda: fast.select_keypoints_levels_plain(*sel_args, **sel_kw)),
+        frame_wall_ms=time_ms(frame_selection(fast.select_keypoints_levels)),
+        frame_plain_wall_ms=time_ms(frame_selection(fast.select_keypoints_levels_plain)),
+        bytes=px * 4 + nsel * (5 * 4 + 8 + 4 + 1), ops=px * 6, library_ms=None,
+        shape=f"{len(sel_args[0])} levels, {px} px, {nsel} keypoints "
+              f"(+{len(sel_calls) - 1} other shapes checked)"))
+
+    # observer bits and votes: exactly equal
+    (st_bits,), _ = rec["obs_bits"].calls[("bits",)]
+    if not torch.equal(map_store.compute_obs_bits(st_bits),
+                       map_store.compute_obs_bits_plain(st_bits)):
+        fail("obs_bits disagrees with its plain version")
+    vote_calls = rec["votes"].calls
+    for key, (args, _) in vote_calls.items():
+        if not torch.equal(map_store.votes_from_bits(*args),
+                           map_store.votes_from_bits_plain(*args)):
+            fail(f"votes_from_bits disagrees at {key}")
+    vargs = vote_calls[max(rec["votes"].n, key=rec["votes"].n.get)][0]
+    Kb, Fb = st_bits.kf_kp_mp.shape
+    Pb = st_bits.mp_valid.shape[0]
+    vt = timings(lambda: map_store.votes_from_bits(*vargs),
+                 lambda: map_store.votes_from_bits_plain(*vargs))
+    v_bytes = nbytes(*vargs) + vargs[2].shape[0] * 4
+    v_ops = 2 * vargs[0].shape[0] * vargs[2].shape[0]
+    rows.append(dict(
+        name="obs_bits", max_abs_err=0.0,
+        **timings(lambda: map_store.compute_obs_bits(st_bits),
+                  lambda: map_store.compute_obs_bits_plain(st_bits)),
+        bytes=Kb * Fb * 4 + Pb * ((Kb + 31) // 32) * 4, ops=4 * Kb * Fb, library_ms=None,
+        votes=dict(vt, bound_ms=max(v_bytes / HBM_BYTES_PER_S, v_ops / CUDA_CORE_OPS_PER_S)
+                   * 1e3, calls=sum(rec["votes"].n.values()),
+                   shape=f"{tuple(vargs[0].shape)} rows, {vargs[2].shape[0]} keyframes"),
+        shape=f"[{Kb}, {Fb}] grid, {Pb} rows"))
+
+    # null vectors: every shape within 1e-6; the library yardstick is
+    # torch.linalg.eigh on the same Gram matrices
+    null_calls = rec["null_vector4"].calls
+    null_err = 0.0
+    for key, (args, kw) in null_calls.items():
+        null_err = max(null_err, (linalg.null_vector_4(*args, **kw)
+                                  - linalg.null_vector_4_plain(*args, **kw)).abs().max().item())
+    print(f"[check] null_vector4: max err {null_err:.3e} over {len(null_calls)} shapes",
+          flush=True)
+    if null_err > 1e-6:
+        fail(f"null_vector4 disagrees: max err {null_err:.3e}")
+    (A_nv,), _ = null_calls[max(null_calls, key=lambda k: int(np.prod(k[1][:-2])))]
+    n_sys = int(np.prod(A_nv.shape[:-2]))
+    gram = (A_nv.transpose(-1, -2) @ A_nv).reshape(n_sys, 4, 4).contiguous()
+    rows.append(dict(
+        name="null_vector4", max_abs_err=null_err,
+        **timings(lambda: linalg.null_vector_4(A_nv), lambda: linalg.null_vector_4_plain(A_nv)),
+        library_ms=device_ms(lambda: torch.linalg.eigh(gram)),
+        library_wall_ms=time_ms(lambda: torch.linalg.eigh(gram)),
+        bytes=A_nv.numel() * 4 + n_sys * 16, ops=n_sys * OPS_NULL_SYSTEM,
+        shape=f"{tuple(A_nv.shape[:-2])} systems of {tuple(A_nv.shape[-2:])}"))
+
+    # local BA: every recorded window size, poses and landmarks within 1e-3,
+    # inlier masks on >= 99.5% of edges; the largest twice (bit-identical)
+    # and once with host synchronization made an error
+    ba_calls = rec["local_ba"].calls
+    worst_pose = worst_lm = 0.0
+    worst_in = 1.0
+    for key, (args, kw) in sorted(ba_calls.items()):
+        rk = local_ba.bundle_adjust(*args, **kw)
+        rp = local_ba.bundle_adjust_plain(*args, **kw)
+        worst_pose = max(worst_pose, (rk.kf_T_cw - rp.kf_T_cw).abs().max().item())
+        for a, b in ((rk.mp_xyz, rp.mp_xyz), (rk.ln_start, rp.ln_start),
+                     (rk.ln_end, rp.ln_end)):
+            if a is not None:
+                worst_lm = max(worst_lm, (a - b).abs().max().item())
+        worst_in = min(worst_in, (rk.edge_inlier == rp.edge_inlier).float().mean().item())
+        if rk.line_inlier is not None:
+            worst_in = min(worst_in,
+                           (rk.line_inlier == rp.line_inlier).float().mean().item())
+    print(f"[check] local_ba: {len(ba_calls)} window sizes, pose err {worst_pose:.3e}, "
+          f"landmark err {worst_lm:.3e}, inlier masks equal {worst_in:.4f}", flush=True)
+    if worst_pose > 1e-3 or worst_lm > 1e-3 or worst_in < 0.995:
+        fail(f"local_ba disagrees: pose {worst_pose:.2e}, landmarks {worst_lm:.2e}, "
+             f"inliers {worst_in:.4f}")
+    ba_key = max(ba_calls, key=lambda k: k[1])
+    ba_args, ba_kw = ba_calls[ba_key]
+    r1 = local_ba.bundle_adjust(*ba_args, **ba_kw)
+    r2 = local_ba.bundle_adjust(*ba_args, **ba_kw)
+    if not all(torch.equal(a, b) for a, b in zip(r1, r2) if a is not None):
+        fail("local_ba: two launches on the same input differ")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    local_ba.bundle_adjust(*ba_args, **ba_kw)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    prob, ocfg, ln = ba_args[0], ba_args[2], ba_kw.get("lines")
+    ba_rows = int(prob.edge_valid.sum()) + (2 * int(ln.edge_valid.sum()) if ln else 0)
+    ba_iters = ocfg.local_ba_iters_first + ocfg.local_ba_iters_second
+    ba_free = 6 * int(prob.kf_free.sum())
+    rows.append(dict(
+        name="local_ba", max_abs_err=max(worst_pose, worst_lm),
+        ms=device_ms(lambda: local_ba.bundle_adjust(*ba_args, **ba_kw), reps=5),
+        wall_ms=time_ms(lambda: local_ba.bundle_adjust(*ba_args, **ba_kw), reps=5),
+        # few repetitions: the plain version is ~10^4 small torch ops
+        plain_ms=device_ms(lambda: local_ba.bundle_adjust_plain(*ba_args, **ba_kw), reps=3),
+        plain_wall_ms=time_ms(lambda: local_ba.bundle_adjust_plain(*ba_args, **ba_kw),
+                              reps=3, warmup=1),
+        bytes=nbytes(*prob, *(ln or ()), *(t for t in r1 if isinstance(t, torch.Tensor))),
+        ops=ba_iters * (ba_rows * OPS_BA_ROW + ba_free ** 3 // 3), library_ms=None,
+        shape=f"{ba_key[1]} keyframes, {ba_rows} residual rows"
+              f"{', lines on' if ln else ''} (+{len(ba_calls) - 1} window sizes checked)"))
     print(f"[time] kernel checks done at {time.time() - t_start:.0f} s", flush=True)
 
-    # the rows still run as torch ops: calls on the main path, one call's
-    # device time and its bound (the largest BA, the per-frame ORB selection,
-    # otherwise the most frequent shape)
+    # the rows still run as torch ops: calls on the main path, one call of
+    # the most frequent shape timed beside its bound
     ops_table = []
     for row, (replaces, _, attr, _, cost) in op_rows.items():
         r = op_rec[row]
         if not r.n:
             fail(f"torch-op row {row} ({attr}) never ran on the main path")
-        if row == "9":
-            key = max(r.n, key=lambda k: k[1])
-        elif row == "2":
-            key = next((k for k in r.n if sum(k[1]) == cfg.frontend.n_keypoints),
-                       max(r.n, key=r.n.get))
-        else:
-            key = max(r.n, key=r.n.get)
+        key = max(r.n, key=r.n.get)
         args, kw = r.calls[key]
         fn = getattr(r.module, attr)
         b, o = cost(args, kw, fn(*args, **kw))
         b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / CUDA_CORE_OPS_PER_S * 1e3
         ops_table.append({
             "row": row, "function": attr, "replaces": replaces, "calls": sum(r.n.values()),
-            # few repetitions: a BA call is ~10^4 small torch ops, and the
-            # profiler's bookkeeping of 20 of them costs minutes
+            # few repetitions: a fuse call is thousands of small torch ops
             "ms": device_ms(lambda: fn(*args, **kw), reps=3),
             "wall_ms": time_ms(lambda: fn(*args, **kw), reps=3, warmup=1),
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -655,7 +779,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
-            "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"]})
+            "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"],
+            **{k: r[k] for k in ("frame_wall_ms", "frame_plain_wall_ms", "library_wall_ms",
+                                 "votes") if k in r}})
         print(f"[kernel] {r['name']}: {r['shape']} | device: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms | caller: kernel {r['wall_ms']:.4f} ms, "
               f"plain {r['plain_wall_ms']:.4f} ms | bound {max(b_ms, o_ms):.5f} ms",

@@ -9,8 +9,9 @@ parallel, one `nvcc` each, at the first kernel call (or by an explicit
 `build_all()`); nothing is built or imported when a module is imported,
 so the CPU-only tests import every module without a CUDA toolkit.
 
-A wrapper adds one to `COUNTS[name]` where it launches its kernel and
-nowhere else; `reset_counts()` zeroes them.
+A source may export several entry points (`ENTRIES`); every launch of
+any of them adds one to its kernel's `COUNTS[name]`, where the wrapper
+launches it and nowhere else; `reset_counts()` zeroes them.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 
-# kernel name -> CUDA source; a library exports `sspl_<name>`
+# kernel name -> CUDA source; a library exports `sspl_<entry>` for each
+# of its ENTRIES (by default the kernel's own name)
 SOURCES = {
     "fast_nms": "fast.cu",
     "orb_describe": "orb.cu",
@@ -38,7 +40,23 @@ SOURCES = {
     "lsd_refine": "lsd_refine.cu",
     "lbd_describe": "lbd.cu",
     "atan2_glibc": "atan2.cu",
+    "obs_bits": "obs_bits.cu",
+    "null_vector4": "null_vector4.cu",
+    "kp_select": "kp_select.cu",
+    "local_ba": "local_ba.cu",
 }
+
+# kernels whose source is built with nvcc's default -fmad=true (every other
+# one gets -fmad=false): kernel 10 calls the CUDA math library's atan2f /
+# cosf / sinf as torch's own CUDA kernels do, and rounds its own products
+# and sums explicitly (csrc/null_vector4.cu)
+FMAD = {"null_vector4"}
+
+ENTRIES = {name: (name,) for name in SOURCES}
+ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
+ENTRIES["kp_select"] = ("kp_select_cells", "kp_select_rank")
+ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
+                       "ba_solve", "ba_backsub", "ba_edges")
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -72,6 +90,27 @@ _ARGTYPES = {
     "lbd_describe": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
     # y, x, n, out, stream
     "atan2_glibc": [_P, _P, _I, _P, _P],
+    # kf_kp_mp, K, F, P, out, stream
+    "obs_bits": [_P, _I, _I, _I, _P, _P],
+    # obs_rows, matched, kf_valid, M, KW, K, votes, stream
+    "votes_from_bits": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # A, N, r, sweeps, out, stream
+    "null_vector4": [_P, _I, _I, _I, _P, _P],
+    # scores, hs, ws, cell_off, L, cell, cap, threshold, min_threshold,
+    # border, top_s, top_i, stream
+    "kp_select_cells": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
+    # raws, hs, ws, cell_off, ks, out_off, L, cell, cap, top_s, top_i,
+    # xy, resp, valid, stream
+    "kp_select_rank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # local BA: a pointer to the host-side work description (optim/local_ba.py
+    # _Work), then per entry: classify's mode, edges' two output masks
+    "ba_grid": [_P, _P],
+    "ba_classify": [_P, _I, _P],
+    "ba_landmarks": [_P, _P],
+    "ba_reduce": [_P, _P],
+    "ba_solve": [_P, _P],
+    "ba_backsub": [_P, _P],
+    "ba_edges": [_P, _P, _P, _P],
 }
 
 
@@ -88,10 +127,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> tuple[str, str]:
-    """(source, library path); the hash covers the source and the shared
-    headers (csrc/*.cuh)."""
+    """(source, library path); the hash covers the source, the shared
+    headers (csrc/*.cuh) and the -fmad choice."""
     src = os.path.join(_CSRC, SOURCES[name])
-    h = hashlib.sha1()
+    h = hashlib.sha1(b"fmad" if name in FMAD else b"")
     for path in [src] + sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
                                if f.endswith(".cuh")):
         with open(path, "rb") as f:
@@ -99,9 +138,10 @@ def _lib_path(name: str) -> tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"libsspl_{name}_{h.hexdigest()[:10]}.so")
 
 
-def _nvcc_cmd(src: str, out: str) -> list[str]:
+def _nvcc_cmd(name: str, src: str, out: str) -> list[str]:
+    fmad = "-fmad=true" if name in FMAD else "-fmad=false"
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+            "-O3", fmad, "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", out, src]
 
 
@@ -117,7 +157,7 @@ def build_all(names=None) -> dict:
             continue
         tmp = out + f".tmp{os.getpid()}"
         procs[name] = (subprocess.Popen(
-            _nvcc_cmd(src, tmp), stdout=subprocess.PIPE,
+            _nvcc_cmd(name, src, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     reports = {}
     errors = []
@@ -144,21 +184,26 @@ def lib(name: str):
             if not os.path.exists(out):
                 build_all([name])
             h = ctypes.CDLL(out)
-            fn = getattr(h, f"sspl_{name}")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            for entry in ENTRIES[name]:
+                fn = getattr(h, f"sspl_{entry}")
+                fn.argtypes = _ARGTYPES[entry]
+                fn.restype = ctypes.c_int
             _LIBS[name] = h
     return _LIBS[name]
 
 
-def launch(name: str, *args) -> None:
-    """Call `sspl_<name>` on PyTorch's current stream; raise if the launch
-    failed (the C side returns cudaGetLastError() after the launch)."""
-    fn = getattr(lib(name), f"sspl_{name}")
+def launch(name: str, *args, entry: str | None = None) -> None:
+    """Call `sspl_<entry>` (default: the kernel's name) of kernel `name` on
+    PyTorch's current stream; raise if the launch failed (the C side
+    returns cudaGetLastError() after the launch)."""
+    entry = entry or name
+    if entry not in ENTRIES[name]:
+        raise ValueError(f"kernel {name} exports no entry point {entry}")
+    fn = getattr(lib(name), f"sspl_{entry}")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+        raise RuntimeError(f"CUDA kernel {name} ({entry}) failed to launch: error {err}")
     COUNTS[name] += 1
 
 
@@ -184,5 +229,5 @@ def check_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: expects {dtype}, got {t.dtype}")
 
 
-__all__ = ["SOURCES", "COUNTS", "BUILD_DIR", "reset_counts", "build_all",
+__all__ = ["SOURCES", "ENTRIES", "COUNTS", "BUILD_DIR", "reset_counts", "build_all",
            "lib", "launch", "ptr", "check_cuda", "check_dtype"]

@@ -14,13 +14,18 @@ so the jitter only separates near-zero ties). Rolls wrap at the borders;
 the border zeroing hides that from the raw map but not from the NMS
 input, and the kernel reproduces the wrap.
 
-`select_keypoints_levels` stays torch ops on the device: 8 rounds of
-masked argmax per 32x32 cell (argmax keeps the first index, like
+`select_keypoints_levels` is the wrapper of CUDA kernel 11
+(csrc/kp_select.cu: one warp per cell for the per-cell top `cell_cap`,
+one block per level for the ranking and the sub-pixel offsets).
+`select_keypoints_levels_plain` is its plain version: `cell_cap` rounds
+of masked argmax per cell (argmax keeps the first index, like
 jnp.argmax) and one global ranking per level by a STABLE descending
 sort, so ties go to the lower index as in `lax.top_k`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -100,15 +105,16 @@ def fast_score_nms(img: torch.Tensor):
     return raw, nms
 
 
-def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
-                            cell_cap: int = 8, threshold: float = 20.0,
-                            min_threshold: float = 7.0, border: int = 16):
+def select_keypoints_levels_plain(score_raw: list, ks: list, cell: int = 32,
+                                  cell_cap: int = 8, threshold: float = 20.0,
+                                  min_threshold: float = 7.0, border: int = 16):
     """Per-cell top-`cell_cap` then a global top-k per level, with parabola
     sub-pixel offsets from the raw map; same candidates and ranking as
     the reference's `select_keypoints_levels` (fast.py:197).
 
-    `score_raw` = [(nms_score, raw_score)] float32 per level. Returns a
-    list of (xy [k, 2], resp [k], valid [k]) per level."""
+    `score_raw` = [(nms_score, raw_score or None)] float32 per level (None:
+    no sub-pixel offsets). Returns a list of (xy [k, 2], resp [k], valid
+    [k]) per level."""
     L = len(score_raw)
     assert len(ks) == L
     cap = min(cell_cap, cell * cell)
@@ -116,6 +122,8 @@ def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
     cells_rows = []
     neg_inf = float("-inf")
     for (score, raw) in score_raw:
+        if raw is None:
+            raw = torch.zeros_like(score)
         score = score.float()
         h, w = score.shape
         dev = score.device
@@ -195,17 +203,70 @@ def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
     return outs
 
 
+MAX_LEVELS = 16   # kernel 11's level table
+
+
+def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
+                            cell_cap: int = 8, threshold: float = 20.0,
+                            min_threshold: float = 7.0, border: int = 16):
+    """`select_keypoints_levels_plain`'s result. CPU tensors -> plain
+    version; CUDA tensors -> kernel 11, two launches (or raise)."""
+    if score_raw[0][0].device.type == "cpu":
+        return select_keypoints_levels_plain(score_raw, ks, cell, cell_cap, threshold,
+                                             min_threshold, border)
+    L = len(score_raw)
+    if L != len(ks) or not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"select_keypoints_levels: {L} levels, {len(ks)} budgets")
+    if not 1 <= cell <= 64:
+        raise ValueError(f"select_keypoints_levels: cell {cell} outside 1..64")
+    cap = min(cell_cap, cell * cell)
+    maps = [t for pair in score_raw for t in pair if t is not None]
+    for t in maps:
+        kernels.check_dtype("select_keypoints_levels", t, torch.float32)
+    kernels.check_cuda("select_keypoints_levels", *maps)
+    dev = maps[0].device
+    hs = [s.shape[0] for s, _ in score_raw]
+    ws = [s.shape[1] for s, _ in score_raw]
+    for (s, r) in score_raw:
+        if s.dim() != 2 or (r is not None and r.shape != s.shape):
+            raise ValueError("select_keypoints_levels: expects [H, W] maps of one shape "
+                             "per level")
+    cell_off = np.cumsum([0] + [-(-h // cell) * -(-w // cell) for h, w in zip(hs, ws)])
+    out_off = np.cumsum([0] + list(ks))
+    if max(np.diff(cell_off)) * cap > 16384:   # launch B sorts a level in shared memory
+        raise ValueError("select_keypoints_levels: too many candidates per level")
+    ints = lambda v: (ctypes.c_int * len(v))(*[int(x) for x in v])  # noqa: E731
+    ptrs = lambda v: (ctypes.c_void_p * len(v))(  # noqa: E731
+        *[t.data_ptr() if t is not None else None for t in v])
+    c_hs, c_ws, c_off = ints(hs), ints(ws), ints(cell_off)
+    top_s = torch.empty(int(cell_off[-1]) * cap, dtype=torch.float32, device=dev)
+    top_i = torch.empty(int(cell_off[-1]) * cap, dtype=torch.int32, device=dev)
+    kernels.launch("kp_select", ptrs([s for s, _ in score_raw]), c_hs, c_ws, c_off, L,
+                   cell, cap, float(threshold), float(min_threshold), int(border),
+                   kernels.ptr(top_s), kernels.ptr(top_i), entry="kp_select_cells")
+    n_out = int(out_off[-1])
+    xy = torch.empty((n_out, 2), dtype=torch.float32, device=dev)
+    resp = torch.empty(n_out, dtype=torch.float32, device=dev)
+    valid = torch.empty(n_out, dtype=torch.bool, device=dev)
+    kernels.launch("kp_select", ptrs([r for _, r in score_raw]), c_hs, c_ws, c_off,
+                   ints(ks), ints(out_off[:-1]), L, cell, cap, kernels.ptr(top_s),
+                   kernels.ptr(top_i), kernels.ptr(xy), kernels.ptr(resp),
+                   kernels.ptr(valid), entry="kp_select_rank")
+    return [(xy[a:b], resp[a:b], valid[a:b]) for a, b in zip(out_off[:-1], out_off[1:])]
+
+
 def select_keypoints(score: torch.Tensor, k: int, cell: int = 32, cell_cap: int = 8,
                      threshold: float = 20.0, min_threshold: float = 7.0,
                      border: int = 16):
     """Single-level selection without sub-pixel refinement, the reference's
     `select_keypoints` (fast.py:92) with `raw=None`: one level of
-    `select_keypoints_levels` on a flat raw map, whose parabola offsets are
-    exactly 0. Returns (xy [k, 2], resp [k], valid [k])."""
-    return select_keypoints_levels([(score, torch.zeros_like(score))], [k], cell=cell,
+    `select_keypoints_levels` without a raw map (offsets exactly 0).
+    Returns (xy [k, 2], resp [k], valid [k])."""
+    return select_keypoints_levels([(score, None)], [k], cell=cell,
                                    cell_cap=cell_cap, threshold=threshold,
                                    min_threshold=min_threshold, border=border)[0]
 
 
 __all__ = ["fast_score_plain", "nms3_plain", "fast_score_nms_plain",
-           "fast_score_nms", "select_keypoints_levels", "select_keypoints", "ARC_LEN"]
+           "fast_score_nms", "select_keypoints_levels", "select_keypoints_levels_plain",
+           "select_keypoints", "ARC_LEN"]

@@ -9,16 +9,23 @@ blocks over PL, and the reduced camera system S = blockdiag(Hcc) -
 the marginalized landmarks as two more sets with one point-to-line
 residual row each ([KL, LL] grids). Schedule: 5 iterations, the chi2 cut,
 15 more; 3x3 blocks get the trace-relative damping floor of the
-reference (local_ba.py:286-315). These run as torch ops on the device;
-each Schur product is one matmul.
+reference (local_ba.py:286-315).
+
+`bundle_adjust` is the wrapper of CUDA kernel 12 (csrc/local_ba.cu: the
+whole schedule as a fixed chain of launches, no host synchronization).
+`bundle_adjust_plain` is its plain version: the schedule as torch ops,
+each Schur product one matmul, the reduced system by torch.linalg.solve
+(the reference's jnp.linalg.solve).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.config import OptimConfig
 from structure_slam_pointline_tpu_torch.utils import lie
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
@@ -167,8 +174,8 @@ def _backsub(A, Hpi, bp, dxc, freef):
     return dxp * torch.clamp(0.5 / torch.clamp(pn, min=1e-9), max=1.0)
 
 
-def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
-                  lines: BALineProblem | None = None) -> BAResult:
+def bundle_adjust_plain(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
+                        lines: BALineProblem | None = None) -> BAResult:
     """Run the 5 + cut + 15 schedule on the local problem; with `lines`,
     map-line endpoints are optimized with the points."""
     KL, F = prob.edge_mp.shape
@@ -319,4 +326,100 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
                     ln_start=Xs2.T, ln_end=Xe2.T, line_inlier=line_inlier)
 
 
-__all__ = ["BAProblem", "BALineProblem", "BAResult", "bundle_adjust"]
+MAX_BA_KEYFRAMES = 32   # kernel 12 keeps a landmark's edges as 32 bits
+
+
+class _Work(ctypes.Structure):
+    """Kernel 12's work description (`struct Work` in csrc/local_ba.cu):
+    sizes, scalars and device pointers, read by every launch."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("KL", "F", "PL", "LF", "LL", "NJ")]
+                + [(n, ctypes.c_float) for n in (
+                    "fx", "fy", "cx", "cy", "chi2_mono", "chi2_mono4", "chi2_line2",
+                    "chi2_line8", "delta_pt", "delta_ln", "ds", "lam")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "cam_free", "kf_valid", "obs_uv", "obs_sigma2", "edge_mp",
+                    "edge_valid", "mp_valid", "obs_l", "ln_sigma2", "edge_ln",
+                    "ln_edge_valid", "ln_valid", "T", "X", "pgrid", "lgrid", "edge_bits",
+                    "act_bits", "inl_bits", "A", "AHi", "HB", "Hpi", "bp", "lm_cost",
+                    "Sred", "Hk", "dxc", "cost")])
+
+
+def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
+                  lines: BALineProblem | None = None) -> BAResult:
+    """`bundle_adjust_plain`'s schedule. CPU tensors -> plain version; CUDA
+    tensors -> kernel 12 (4 launches per iteration and 5 more, 85 at the
+    default 5 + 15 iterations; no host synchronization), or raise."""
+    if prob.kf_T_cw.device.type == "cpu":
+        return bundle_adjust_plain(prob, intr, cfg, lines=lines)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    KL, F = prob.edge_mp.shape
+    PL = prob.mp_xyz.shape[0]
+    if not 1 <= KL <= MAX_BA_KEYFRAMES:
+        raise ValueError(f"bundle_adjust: {KL} keyframes, at most {MAX_BA_KEYFRAMES}")
+    typed = [(prob.kf_T_cw, f32), (prob.kf_free, b8), (prob.kf_valid, b8),
+             (prob.obs_uv, f32), (prob.obs_sigma2, f32), (prob.edge_mp, i32),
+             (prob.edge_valid, b8), (prob.mp_xyz, f32), (prob.mp_valid, b8)]
+    if lines is not None:
+        LF, LL = lines.edge_ln.shape[1], lines.ln_start.shape[0]
+        typed += [(lines.ln_start, f32), (lines.ln_end, f32), (lines.ln_valid, b8),
+                  (lines.obs_l, f32), (lines.obs_sigma2, f32), (lines.edge_ln, i32),
+                  (lines.edge_valid, b8)]
+    else:
+        LF = LL = 0
+    for t, dt in typed:
+        kernels.check_dtype("bundle_adjust", t, dt)
+    ins = [t.contiguous() for t, _ in typed]
+    kernels.check_cuda("bundle_adjust", *ins)
+    (T_in, kf_free, kf_valid, obs_uv, obs_sigma2, edge_mp, edge_valid, mp_xyz,
+     mp_valid) = ins[:9]
+    dev = T_in.device
+    NJ = PL + 2 * LL
+    T = T_in.clone()
+    X = torch.cat([mp_xyz] + ins[9:11]) if lines is not None else mp_xyz.clone()
+    cam_free = kf_free & kf_valid
+    empty = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    buf = dict(
+        T=T, X=X, cam_free=cam_free,
+        pgrid=torch.zeros((KL, PL, 4), dtype=f32, device=dev),
+        lgrid=torch.zeros((KL, max(LL, 1), 5), dtype=f32, device=dev),
+        edge_bits=empty(PL + LL, dt=i32), act_bits=empty(NJ, dt=i32),
+        inl_bits=empty(PL + LL, dt=i32), A=empty(KL, NJ, 18), AHi=empty(KL, NJ, 18),
+        HB=empty(KL, NJ, 27), Hpi=empty(NJ, 9), bp=empty(NJ, 3), lm_cost=empty(PL + LL),
+        Sred=empty(KL * (KL + 1) // 2, 36), Hk=empty(KL, 33), dxc=empty(KL, 6),
+        cost=empty(1))
+    work = _Work(KL=KL, F=F, PL=PL, LF=LF, LL=LL, NJ=NJ, fx=intr.fx, fy=intr.fy,
+                 cx=intr.cx, cy=intr.cy, chi2_mono=cfg.chi2_mono,
+                 chi2_mono4=cfg.chi2_mono * 4, chi2_line2=2.0 * cfg.chi2_line,
+                 chi2_line8=cfg.chi2_line * 8, delta_pt=cfg.huber_delta_point,
+                 delta_ln=cfg.huber_delta_line, ds=1.0 + cfg.lm_lambda_init,
+                 lam=cfg.lm_lambda_init, kf_valid=kf_valid.data_ptr(),
+                 obs_uv=obs_uv.data_ptr(), obs_sigma2=obs_sigma2.data_ptr(),
+                 edge_mp=edge_mp.data_ptr(), edge_valid=edge_valid.data_ptr(),
+                 mp_valid=mp_valid.data_ptr(),
+                 **{k: v.data_ptr() for k, v in buf.items()})
+    if lines is not None:
+        (work.ln_valid, work.obs_l, work.ln_sigma2, work.edge_ln,
+         work.ln_edge_valid) = [t.data_ptr() for t in ins[11:]]
+    ws = ctypes.addressof(work)
+    kernels.launch("local_ba", ws, entry="ba_grid")
+    kernels.launch("local_ba", ws, 0, entry="ba_classify")
+    for phase, iters in enumerate((cfg.local_ba_iters_first, cfg.local_ba_iters_second)):
+        if phase:
+            kernels.launch("local_ba", ws, 1, entry="ba_classify")
+        for _ in range(iters):
+            for entry in ("ba_landmarks", "ba_reduce", "ba_solve", "ba_backsub"):
+                kernels.launch("local_ba", ws, entry=entry)
+    kernels.launch("local_ba", ws, 2, entry="ba_classify")
+    inlier = empty(KL, F, dt=b8)
+    line_inlier = empty(KL, LF, dt=b8) if lines is not None else None
+    kernels.launch("local_ba", ws, kernels.ptr(inlier),
+                   kernels.ptr(line_inlier if lines is not None else inlier),
+                   entry="ba_edges")
+    T = T.reshape(KL, 4, 4)
+    if lines is None:
+        return BAResult(kf_T_cw=T, mp_xyz=X, edge_inlier=inlier, cost=buf["cost"][0])
+    return BAResult(kf_T_cw=T, mp_xyz=X[:PL], edge_inlier=inlier, cost=buf["cost"][0],
+                    ln_start=X[PL:PL + LL], ln_end=X[PL + LL:], line_inlier=line_inlier)
+
+
+__all__ = ["BAProblem", "BALineProblem", "BAResult", "bundle_adjust", "bundle_adjust_plain"]

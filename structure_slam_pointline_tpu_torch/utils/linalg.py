@@ -5,11 +5,19 @@ Counterpart of structure_slam_pointline_tpu/utils/linalg.py: the same
 with the reference (torch.linalg.eigh would pick other signs and, for
 near-degenerate systems, other vectors). Entries live as separate [N]
 vectors, exactly as in the reference.
+
+`null_vector_4` is the wrapper of CUDA kernel 10 (csrc/null_vector4.cu,
+one system per thread); `null_vector_4_plain` is its plain version and
+sums the Gram entries row after row, as the kernel does.
+`jacobi_eigh_4x4` stays plain torch: only `null_vector_4` runs on the
+main path.
 """
 
 from __future__ import annotations
 
 import torch
+
+from structure_slam_pointline_tpu_torch import kernels
 
 _PAIRS4 = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 
@@ -59,14 +67,17 @@ def jacobi_eigh_4x4(M: torch.Tensor, sweeps: int = 5):
     return vals, vecs
 
 
-def null_vector_4(A: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
+def null_vector_4_plain(A: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
     """Unit vector minimizing ||A v|| for [..., r, 4] stacked rows: the
     eigenvector of A^T A with the smallest eigenvalue."""
     a = [A[..., :, i] for i in range(4)]
     m = [[None] * 4 for _ in range(4)]
     for i in range(4):
         for j in range(i, 4):
-            m[i][j] = m[j][i] = torch.sum(a[i] * a[j], dim=-1)
+            s = a[i][..., 0] * a[j][..., 0]
+            for q in range(1, A.shape[-2]):
+                s = s + a[i][..., q] * a[j][..., q]
+            m[i][j] = m[j][i] = s
     V = _identity_lists(m[0][0])
     for _ in range(sweeps):
         m, V = _sweep(m, V)
@@ -79,4 +90,22 @@ def null_vector_4(A: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
     return torch.stack(best, dim=-1)
 
 
-__all__ = ["jacobi_eigh_4x4", "null_vector_4"]
+def null_vector_4(A: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
+    """[..., 4] null vectors of float32 [..., r, 4] systems. CPU tensor ->
+    plain version; CUDA tensor -> kernel 10 (or raise)."""
+    if A.device.type == "cpu":
+        return null_vector_4_plain(A, sweeps)
+    if A.dim() < 2 or A.shape[-1] != 4 or A.shape[-2] < 1:
+        raise ValueError(f"null_vector_4: expects [..., r, 4], got {tuple(A.shape)}")
+    kernels.check_dtype("null_vector_4", A, torch.float32)
+    A = A.contiguous()
+    kernels.check_cuda("null_vector_4", A)
+    batch = A.shape[:-2]
+    n = A[..., 0, 0].numel()
+    out = torch.empty(batch + (4,), dtype=A.dtype, device=A.device)
+    kernels.launch("null_vector4", kernels.ptr(A), n, A.shape[-2], sweeps,
+                   kernels.ptr(out))
+    return out
+
+
+__all__ = ["jacobi_eigh_4x4", "null_vector_4", "null_vector_4_plain"]

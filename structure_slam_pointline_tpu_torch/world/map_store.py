@@ -8,6 +8,10 @@ reference's uint32 words (convert.py translates with a numpy view).
 Observations live only in the keyframe-major edge grid `kf_kp_mp[K, F]`
 (edge (k, f) exists iff kf_kp_mp[k, f] >= 0); everything derived
 (observation counts, covisibility, observer bits) is a segment op over it.
+
+`compute_obs_bits` and `votes_from_bits` are the wrappers of CUDA kernel 9
+(csrc/obs_bits.cu); `compute_obs_bits_plain` and `votes_from_bits_plain`
+are their plain versions.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.utils.indexing import add_drop
 
@@ -167,10 +172,11 @@ def covisibility_weights(state: MapState, kf_id) -> torch.Tensor:
     return torch.where(state.kf_valid, w, torch.zeros_like(w))
 
 
-def compute_obs_bits(state: MapState) -> torch.Tensor:
-    """[P, K/32] int32 observer bitmasks from the [K, F] edge grid: each
-    (keyframe, landmark) pair appears at most once, so an integer add of
-    2^(k mod 32) into word k // 32 is an exact bitwise OR."""
+def compute_obs_bits_plain(state: MapState) -> torch.Tensor:
+    """[P, K/32] int32 observer bitmasks from the [K, F] edge grid: an
+    integer add of 2^(k mod 32) into word k // 32, mod 2^32 as the
+    reference's uint32 scatter-add (an exact bitwise OR while each
+    (keyframe, landmark) pair appears once)."""
     K, F = state.kf_kp_mp.shape
     P = state.mp_valid.shape[0]
     KW = (K + 31) // 32
@@ -182,12 +188,28 @@ def compute_obs_bits(state: MapState) -> torch.Tensor:
     ok = e >= 0
     acc = torch.zeros(P * KW, dtype=torch.long, device=dev)
     acc.index_put_(((e * KW + word)[ok],), bit[ok], accumulate=True)
+    acc = torch.remainder(acc, 2 ** 32)
     acc = torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc)
     return acc.to(torch.int32).reshape(P, KW)
 
 
-def votes_from_bits(obs_rows: torch.Tensor, matched: torch.Tensor,
-                    kf_valid: torch.Tensor) -> torch.Tensor:
+def compute_obs_bits(state: MapState) -> torch.Tensor:
+    """[P, K/32] int32 observer bitmasks. CPU tensors -> plain version;
+    CUDA tensors -> kernel 9 (or raise)."""
+    e = state.kf_kp_mp
+    if e.device.type == "cpu":
+        return compute_obs_bits_plain(state)
+    kernels.check_dtype("compute_obs_bits", e, torch.int32)
+    kernels.check_cuda("compute_obs_bits", e)
+    K, F = e.shape
+    P = state.mp_valid.shape[0]
+    out = torch.zeros((P, (K + 31) // 32), dtype=torch.int32, device=e.device)
+    kernels.launch("obs_bits", kernels.ptr(e), K, F, P, kernels.ptr(out))
+    return out
+
+
+def votes_from_bits_plain(obs_rows: torch.Tensor, matched: torch.Tensor,
+                          kf_valid: torch.Tensor) -> torch.Tensor:
     """[K] keyframe votes: matched local-map rows' observer bits, summed."""
     M, KW = obs_rows.shape
     K = kf_valid.shape[0]
@@ -195,6 +217,28 @@ def votes_from_bits(obs_rows: torch.Tensor, matched: torch.Tensor,
     bits = ((obs_rows[:, :, None] >> shifts) & 1).reshape(M, KW * 32)[:, :K]
     v = (bits * matched[:, None].to(torch.int32)).sum(0).to(torch.int32)
     return torch.where(kf_valid, v, torch.zeros_like(v))
+
+
+def votes_from_bits(obs_rows: torch.Tensor, matched: torch.Tensor,
+                    kf_valid: torch.Tensor) -> torch.Tensor:
+    """[K] int32 keyframe votes of [M, K/32] observer rows. CPU tensors ->
+    plain version; CUDA tensors -> kernel 9 (or raise)."""
+    if obs_rows.device.type == "cpu":
+        return votes_from_bits_plain(obs_rows, matched, kf_valid)
+    kernels.check_dtype("votes_from_bits", obs_rows, torch.int32)
+    kernels.check_dtype("votes_from_bits", matched, torch.bool)
+    kernels.check_dtype("votes_from_bits", kf_valid, torch.bool)
+    kernels.check_cuda("votes_from_bits", obs_rows, matched, kf_valid)
+    M, KW = obs_rows.shape
+    K = kf_valid.shape[0]
+    if matched.shape != (M,) or KW * 32 < K:
+        raise ValueError(f"votes_from_bits: rows {tuple(obs_rows.shape)}, matched "
+                         f"{tuple(matched.shape)}, {K} keyframes")
+    votes = torch.empty(K, dtype=torch.int32, device=obs_rows.device)
+    kernels.launch("obs_bits", kernels.ptr(obs_rows), kernels.ptr(matched),
+                   kernels.ptr(kf_valid), M, KW, K, kernels.ptr(votes),
+                   entry="votes_from_bits")
+    return votes
 
 
 def kf_match_votes(state: MapState, matched_pt: torch.Tensor) -> torch.Tensor:
@@ -208,4 +252,5 @@ def kf_match_votes(state: MapState, matched_pt: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["MapState", "MapCursors", "DESC_RING", "init_map", "point_obs_counts",
            "line_obs_counts", "covisibility_weights", "compute_obs_bits",
-           "votes_from_bits", "kf_match_votes"]
+           "compute_obs_bits_plain", "votes_from_bits", "votes_from_bits_plain",
+           "kf_match_votes"]

@@ -1,8 +1,11 @@
-"""The eight CUDA kernels of the PyTorch port against their plain
+"""The twelve CUDA kernels of the PyTorch port against their plain
 versions, on the card, at the main path's shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
 points + 256 lines, line octaves of 640x480 and 320x240 with 256 / 128
-anchors, 64 segments). Marked `gpu`: they skip without a CUDA device. Run
+anchors, 64 segments, 8-level keypoint selection at 1024 and 2048
+keypoints and the LSD anchor selection, 12 x 2048 null-vector systems,
+the [256, 2048] observer grid, local BA with 16 keyframes, 2048 points
+and 256 lines). Marked `gpu`: they skip without a CUDA device. Run
 on the card:
 
     python -m pytest -o addopts="" -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
@@ -21,6 +24,14 @@ boundary); LBD words equal on >= 99% of segments with descriptors within
 1e-5 (the plain version sums in the kernel's order, so they are expected
 equal; the bounds leave room for an ulp in a transcendental); atan2
 bit-exact against the torch-op version on the card and on the CPU.
+Keypoint selection: `valid` equal, `resp` and `xy` equal on valid slots
+(the same float32 ops on the same scores). Observer bits and votes:
+equal (integer adds). Null vectors: within 1e-6 (each product and sum
+rounds as the plain version's op does; the bound leaves room for an ulp
+of atan2f / cosf / sinf). Local BA: poses and landmarks within 1e-3
+(the plain version's own bound against JAX; sums over landmarks and the
+LU solve run in another order), inlier masks equal on >= 99.5% of
+edges, two launches bit-identical, and no host synchronization.
 """
 
 import numpy as np
@@ -28,12 +39,14 @@ import pytest
 import torch
 
 from structure_slam_pointline_tpu_torch import kernels
-from structure_slam_pointline_tpu_torch.config import CameraConfig, FrontendConfig, OptimConfig
+from structure_slam_pointline_tpu_torch.config import (CameraConfig, FrontendConfig, OptimConfig,
+                                                      SLAMConfig)
 from structure_slam_pointline_tpu_torch.io import synthetic
-from structure_slam_pointline_tpu_torch.ops import fast, hamming, lbd, lsd, orb, pyramid
-from structure_slam_pointline_tpu_torch.optim import pose_opt
-from structure_slam_pointline_tpu_torch.utils import fmath
+from structure_slam_pointline_tpu_torch.ops import extract, fast, hamming, lbd, lsd, orb, pyramid
+from structure_slam_pointline_tpu_torch.optim import local_ba, pose_opt
+from structure_slam_pointline_tpu_torch.utils import fmath, linalg
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
+from structure_slam_pointline_tpu_torch.world import map_store
 
 pytestmark = pytest.mark.gpu
 
@@ -212,7 +225,211 @@ def test_atan2_matches_plain(cuda):
     assert torch.equal(bits, fmath.atan2_plain(y, x).view(torch.int32))
 
 
-def test_cuda_tensor_never_takes_the_plain_path(cuda):
-    """A CUDA tensor of the wrong dtype raises instead of falling back."""
+def _assert_selection_equal(out_k, out_p):
+    for (xk, rk, vk), (xp, rp, vp) in zip(out_k, out_p):
+        assert torch.equal(vk, vp)
+        assert torch.equal(rk[vk], rp[vp])
+        assert torch.equal(xk[vk], xp[vp])
+
+
+@pytest.mark.parametrize("n_kp", [1024, 2048])
+def test_kp_select_matches_plain(levels, n_kp):
+    fe = FrontendConfig()
+    ks = extract.level_budgets(n_kp, fe.n_levels, fe.scale_factor)
+    score_raw = []
+    for lv in levels[0]:
+        raw, nms = fast.fast_score_nms(lv)
+        score_raw.append((nms, raw))
+    kw = dict(cell=fe.cell_size, cell_cap=8, threshold=fe.fast_threshold,
+              min_threshold=fe.fast_min_threshold, border=orb.PATCH_RADIUS + 1)
+    before = kernels.COUNTS["kp_select"]
+    out_k = fast.select_keypoints_levels(score_raw, ks, **kw)
+    out_p = fast.select_keypoints_levels_plain(score_raw, ks, **kw)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["kp_select"] == before + 2
+    assert sum(int(v.sum()) for _, _, v in out_k) > n_kp // 2
+    _assert_selection_equal(out_k, out_p)
+
+
+def test_kp_select_lsd_anchors_match_plain(octaves):
+    fe = FrontendConfig()
+    for img, K in zip(octaves, (256, 128)):
+        best, _ = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
+                                        fe.line_min_length)
+        kw = dict(cell=16, cell_cap=1, threshold=1.0, min_threshold=1.0, border=4)
+        out_k = fast.select_keypoints(best, K, **kw)
+        out_p = fast.select_keypoints_levels_plain([(best, None)], [K], **kw)[0]
+        assert out_k[2].sum().item() > 50
+        _assert_selection_equal([out_k], [out_p])
+
+
+def _obs_grid(g, K=256, F=2048, P=32768):
+    grid = g.integers(-1, P, (K, F)).astype(np.int32)
+    grid[g.uniform(size=(K, F)) < 0.5] = -1
+    grid[3, :40] = grid[3, 40:80]           # duplicated (keyframe, landmark) pairs
+    return torch.from_numpy(grid)
+
+
+def test_obs_bits_and_votes_match_plain(cuda):
+    g = np.random.default_rng(5)
+    kf = _obs_grid(g)
+    K, P = kf.shape[0], 32768
+    st = map_store.init_map(SLAMConfig(), "cpu")
+    st = st._replace(kf_kp_mp=kf)
+    st_c = st._replace(kf_kp_mp=kf.to(cuda), mp_valid=st.mp_valid.to(cuda))
+    bits_k = map_store.compute_obs_bits(st_c)
+    assert torch.equal(bits_k.cpu(), map_store.compute_obs_bits_plain(st))
+    rows = bits_k[torch.from_numpy(g.integers(0, P, 2048)).to(cuda)]
+    matched = torch.from_numpy(g.uniform(size=2048) < 0.5).to(cuda)
+    kf_valid = torch.from_numpy(g.uniform(size=K) < 0.7).to(cuda)
+    v_k = map_store.votes_from_bits(rows, matched, kf_valid)
+    v_p = map_store.votes_from_bits_plain(rows, matched, kf_valid)
+    assert torch.equal(v_k, v_p)
+    assert v_k.sum().item() > 0
+
+
+def test_null_vector4_matches_plain(cuda):
+    g = np.random.default_rng(6)
+    A = g.normal(size=(12, 2048, 4, 4)).astype(np.float32)
+    A[:, :64, 3] = A[:, :64, 2] * 1.0001      # near rank-deficient systems
+    A = torch.from_numpy(A).to(cuda)
+    before = kernels.COUNTS["null_vector4"]
+    out_k = linalg.null_vector_4(A)
+    out_p = linalg.null_vector_4_plain(A)
+    assert kernels.COUNTS["null_vector4"] == before + 1
+    assert out_k.shape == (12, 2048, 4)
+    assert (out_k - out_p).abs().max().item() <= 1e-6
+
+
+def ba_problem(seed=7, KL=16, PL=2048, LL=256, F=2048, LF=128):
+    """A local BA problem at the main path's shapes, seeded with numpy:
+    KL keyframes on an arc facing a box of points and lines (the second
+    half free, the first fixed), each landmark seen by 3-6 keyframes with
+    pixel noise and 5% outliers, free poses and landmarks perturbed."""
+    g = np.random.default_rng(seed)
+    intr = Intrinsics.from_config(CameraConfig(fy=480.0))
+    Ts = []
+    for k in range(KL):
+        a = 0.6 * (k / (KL - 1) - 0.5)
+        c, s = np.cos(a), np.sin(a)
+        R = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]])
+        C = np.array([2.0 * np.sin(a), 0.1 * np.cos(3 * a), -2.0 * (1 - np.cos(a))])
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, -R @ C
+        Ts.append(T)
+    Ts = np.stack(Ts)
+    box = lambda n: np.stack([g.uniform(-2, 2, n), g.uniform(-1.5, 1.5, n),  # noqa: E731
+                              g.uniform(4, 8, n)], 1)
+    pts, ls, le = box(PL), box(LL), box(LL)
+
+    def proj(T, X):
+        pc = X @ T[:3, :3].T + T[:3, 3]
+        return np.stack([intr.fx * pc[:, 0] / pc[:, 2] + intr.cx,
+                         intr.fy * pc[:, 1] / pc[:, 2] + intr.cy], 1)
+
+    obs_uv = np.zeros((KL, F, 2))
+    edge_mp = -np.ones((KL, F), np.int64)
+    octave = g.integers(0, 4, (KL, F))
+    fill = np.zeros(KL, np.int64)
+    for j in range(PL):
+        for k in g.choice(KL, g.integers(3, min(7, KL + 1)), replace=False):
+            uv = proj(Ts[k], pts[j:j + 1])[0] + g.normal(0, 0.8, 2)
+            if g.uniform() < 0.05:
+                uv += g.uniform(-25, 25, 2)
+            if fill[k] < F:
+                edge_mp[k, fill[k]], obs_uv[k, fill[k]] = j, uv
+                fill[k] += 1
+    obs_l = np.zeros((KL, LF, 3))
+    edge_ln = -np.ones((KL, LF), np.int64)
+    lfill = np.zeros(KL, np.int64)
+    for j in range(LL):
+        for k in g.choice(KL, g.integers(3, min(6, KL + 1)), replace=False):
+            us = proj(Ts[k], ls[j:j + 1])[0] + g.normal(0, 0.5, 2)
+            ue = proj(Ts[k], le[j:j + 1])[0] + g.normal(0, 0.5, 2)
+            ln = np.cross(np.r_[us, 1.0], np.r_[ue, 1.0])
+            if lfill[k] < LF:
+                edge_ln[k, lfill[k]] = j
+                obs_l[k, lfill[k]] = ln / np.hypot(ln[0], ln[1])
+                lfill[k] += 1
+    free = np.arange(KL) >= KL // 2
+    Tp = Ts.copy()
+    for k in np.nonzero(free)[0]:
+        Tp[k, :3, 3] += g.normal(0, 0.02, 3)
+    f = lambda x, dt=torch.float32: torch.tensor(np.asarray(x), dtype=dt)  # noqa: E731
+    prob = local_ba.BAProblem(
+        kf_T_cw=f(Tp), kf_free=f(free, torch.bool), kf_valid=torch.ones(KL, dtype=torch.bool),
+        obs_uv=f(obs_uv), obs_sigma2=f(1.2 ** (2 * octave)), edge_mp=f(edge_mp, torch.int32),
+        edge_valid=f(edge_mp >= 0, torch.bool), mp_xyz=f(pts + g.normal(0, 0.01, pts.shape)),
+        mp_valid=f(g.uniform(size=PL) < 0.97, torch.bool))
+    lines = local_ba.BALineProblem(
+        ln_start=f(ls + g.normal(0, 0.01, ls.shape)), ln_end=f(le + g.normal(0, 0.01, le.shape)),
+        ln_valid=torch.ones(LL, dtype=torch.bool), obs_l=f(obs_l),
+        obs_sigma2=f(np.full((KL, LF), 4.0)), edge_ln=f(edge_ln, torch.int32),
+        edge_valid=f(edge_ln >= 0, torch.bool))
+    return prob, lines, intr
+
+
+def _to(t, dev):
+    return type(t)(*[x.to(dev) for x in t])
+
+
+@pytest.mark.parametrize("with_lines", [True, False])
+def test_local_ba_matches_plain(cuda, with_lines):
+    prob, lines, intr = ba_problem()
+    prob = _to(prob, cuda)
+    lines = _to(lines, cuda) if with_lines else None
+    cfg = OptimConfig()
+    torch.cuda.synchronize()
+    before = kernels.COUNTS["local_ba"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rk = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
+        rk2 = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.COUNTS["local_ba"] == before + 2 * 85
+    rp = local_ba.bundle_adjust_plain(prob, intr, cfg, lines=lines)
+    for a, b in zip(rk, rk2):
+        if a is not None:
+            assert torch.equal(a, b)                 # deterministic reductions
+    assert (rk.kf_T_cw - rp.kf_T_cw).abs().max().item() <= 1e-3
+    assert (rk.mp_xyz - rp.mp_xyz).abs().max().item() <= 1e-3
+    assert (rk.edge_inlier == rp.edge_inlier).float().mean().item() >= 0.995
+    assert rk.edge_inlier.sum().item() > 0.8 * prob.edge_valid.sum().item()
+    if with_lines:
+        assert (rk.ln_start - rp.ln_start).abs().max().item() <= 1e-3
+        assert (rk.ln_end - rp.ln_end).abs().max().item() <= 1e-3
+        assert (rk.line_inlier == rp.line_inlier).float().mean().item() >= 0.995
+
+
+def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
+    """A CUDA tensor of the wrong dtype raises instead of falling back, and
+    the wrappers of kernels 9-12 run on CUDA tensors with every plain
+    version made to raise."""
     with pytest.raises(TypeError):
         fast.fast_score_nms(torch.zeros((64, 64), device=cuda))
+    with pytest.raises(TypeError):
+        linalg.null_vector_4(torch.zeros((8, 4, 4), dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError):
+        fast.select_keypoints(torch.zeros((64, 64), dtype=torch.bfloat16, device=cuda), 8)
+    with pytest.raises(TypeError):
+        map_store.votes_from_bits(torch.zeros((4, 8), dtype=torch.int64, device=cuda),
+                                  torch.ones(4, dtype=torch.bool, device=cuda),
+                                  torch.ones(256, dtype=torch.bool, device=cuda))
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached from a CUDA tensor")
+
+    for mod, name in ((fast, "select_keypoints_levels_plain"), (linalg, "null_vector_4_plain"),
+                      (local_ba, "bundle_adjust_plain"),
+                      (map_store, "compute_obs_bits_plain"),
+                      (map_store, "votes_from_bits_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
+    linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
+    st = map_store.init_map(SLAMConfig(), cuda)
+    map_store.votes_from_bits(map_store.compute_obs_bits(st)[:16], torch.ones(
+        16, dtype=torch.bool, device=cuda), st.kf_valid)
+    prob, lines, intr = ba_problem(KL=4, PL=64, LL=8, F=128, LF=16)
+    local_ba.bundle_adjust(_to(prob, cuda), intr, OptimConfig(), lines=_to(lines, cuda))
+    torch.cuda.synchronize()

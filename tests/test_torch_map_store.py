@@ -85,3 +85,26 @@ def test_votes():
                             torch.from_numpy(matched), t.kf_valid).numpy(), np.asarray(ref))
     np.testing.assert_array_equal(tms.kf_match_votes(t, torch.from_numpy(m)).numpy(),
                                   np.asarray(jms.kf_match_votes(j, jnp.asarray(m))))
+
+
+def test_obs_bits_add_semantics_with_duplicates():
+    """The reference scatter-ADDS 2^(k mod 32): a (keyframe, landmark) pair
+    bound twice carries into the next bit (mod 2^32), which an OR would
+    not. The plain version keeps the add, as kernel 9 does."""
+    jc, tc = configs()
+    j0 = jms.init_map(jc)
+    K, F = j0.kf_kp_mp.shape
+    P = j0.mp_valid.shape[0]
+    g = np.random.default_rng(4)
+    grid = g.integers(-1, P, (K, F)).astype(np.int32)
+    grid[1, :6] = grid[1, 6:12]             # duplicated pairs in keyframe 1
+    grid[31 % K, :3] = 5                    # the top bit of a word, three times
+    ref = np.asarray(jms.compute_obs_bits(j0._replace(kf_kp_mp=jnp.asarray(grid))))
+    t0 = tms.init_map(tc, "cpu")
+    out = tms.compute_obs_bits_plain(t0._replace(kf_kp_mp=torch.from_numpy(grid)))
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), ref)
+    ored = np.zeros_like(ref)
+    for k in range(K):
+        for e in grid[k][grid[k] >= 0]:
+            ored[e, k // 32] |= np.uint32(1) << np.uint32(k % 32)
+    assert (ored != ref).any()
