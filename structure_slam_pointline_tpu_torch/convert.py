@@ -7,6 +7,10 @@ are the reference's (world/map_store.py MapState, models/pipeline.py
 SLAMCarry, models/tracking.py LocalSets and Frame). The reference's
 uint32 words (descriptors, observer bitmasks) are stored here as int32
 bit patterns: the conversion is a numpy view, lossless both ways.
+
+The relocalization state crosses too: a vocabulary (the reference's
+per-level [B^l, B, 8] uint32 centres, kept uint32 on the host) and a
+loop closer's BoW index (`kf_bows` [K, W], `kf_words` {k: [F] int32}).
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import numpy as np
 import torch
 
 from structure_slam_pointline_tpu_torch.models import pipeline
+from structure_slam_pointline_tpu_torch.models.loop_closing import LoopCloser
 from structure_slam_pointline_tpu_torch.models.tracking import Frame, LocalSets
+from structure_slam_pointline_tpu_torch.ops.bow import Vocabulary
 from structure_slam_pointline_tpu_torch.world.map_store import MapState
 
 _CARRY_SCALARS = {"n_kf": int, "n_mp": int, "n_ml": int, "frames_since_kf": int,
@@ -92,6 +98,24 @@ def frame_to_numpy(frame: Frame) -> dict:
     return _tuple_to_numpy(frame, _FRAME_U32)
 
 
+def vocabulary_from_numpy(centers, branching: int, depth: int) -> Vocabulary:
+    """Per-level centre arrays [B^l, B, 8] (uint32, or their int32 bit
+    patterns) -> the port's Vocabulary."""
+    return Vocabulary(centers=tuple(np.ascontiguousarray(np.asarray(c).view(np.uint32))
+                                    for c in centers), branching=int(branching),
+                      depth=int(depth))
+
+
+def bow_index_from_numpy(lc: LoopCloser, voc: Vocabulary, kf_bows, kf_words: dict,
+                         device) -> LoopCloser:
+    """Load a trained vocabulary and BoW index into a port LoopCloser."""
+    lc.voc = voc
+    lc.kf_bows = torch.from_numpy(np.array(kf_bows, np.float32)).to(device)
+    lc.kf_words = {int(k): np.asarray(w, np.int32) for k, w in kf_words.items()}
+    return lc
+
+
 __all__ = ["map_state_from_numpy", "map_state_to_numpy", "local_sets_from_numpy",
            "local_sets_to_numpy", "carry_from_numpy", "carry_to_numpy",
-           "frame_from_numpy", "frame_to_numpy"]
+           "frame_from_numpy", "frame_to_numpy", "vocabulary_from_numpy",
+           "bow_index_from_numpy"]

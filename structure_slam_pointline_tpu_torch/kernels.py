@@ -9,7 +9,9 @@ parallel, one `nvcc` each, at the first kernel call (or by an explicit
 `build_all()`); nothing is built or imported when a module is imported,
 so the CPU-only tests import every module without a CUDA toolkit.
 
-A source may export several entry points (`ENTRIES`); every launch of
+A source may export several entry points (`ENTRIES`), and two kernels
+may share one source (kernels 13 and 14 in `bow.cu`: each is built into
+its own library and counted on its own); every launch of
 any of them adds one to its kernel's `COUNTS[name]`, where the wrapper
 launches it and nowhere else; `reset_counts()` zeroes them.
 """
@@ -44,6 +46,9 @@ SOURCES = {
     "null_vector4": "null_vector4.cu",
     "kp_select": "kp_select.cu",
     "local_ba": "local_ba.cu",
+    "bow_transform": "bow.cu",
+    "bow_query": "bow.cu",
+    "ransac_pnp": "pnp.cu",
 }
 
 # kernels whose source is built with nvcc's default -fmad=true (every other
@@ -57,6 +62,7 @@ ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
 ENTRIES["kp_select"] = ("kp_select_cells", "kp_select_rank")
 ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
                        "ba_solve", "ba_backsub", "ba_edges")
+ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_count", "pnp_select")
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -111,6 +117,17 @@ _ARGTYPES = {
     "ba_solve": [_P, _P],
     "ba_backsub": [_P, _P],
     "ba_edges": [_P, _P, _P, _P],
+    # nodes, branching, depth, desc, valid, B, N, words, bow, stream
+    "bow_transform": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    # q, kf_bows, kf_valid, exclude, K, W, min_score, scores, stream
+    "bow_query": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
+    # pts_w, uv, sets, C, I, N, fx, fy, cx, cy, hyp, stream
+    "pnp_hypotheses": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    # hyp, pts_w, uv, mask, C, I, N, fx, fy, cx, cy, thresh, counts, stream
+    "pnp_count": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
+    # hyp, counts, pts_w, uv, mask, C, I, N, fx, fy, cx, cy, thresh, T_cw,
+    # inliers, n_best, stream
+    "pnp_select": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
 }
 
 

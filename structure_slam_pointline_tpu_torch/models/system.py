@@ -7,11 +7,16 @@ bootstrap (`track` until the map exists), then `track_sequence`, one
 streams 100-frame `lax.scan` chunks to amortize compilation and dispatch
 and reacts at chunk ends; a Python loop gains nothing from chunking.)
 
+A lost frame runs the reference's recovery ladder
+(`_attempt_relocalization`): the reference-keyframe rung, then BoW + PnP
+relocalization (models/relocalization.py), with the vocabulary and BoW
+index of a lazily created `LoopCloser`.
+
 `SLAMSystem(cfg)` runs on the CUDA device and raises if there is none;
 `device="cpu"` is the explicit opt-in the tests use. The host reactions
 that are not ported yet raise NotImplementedError naming their ROADMAP.md
-item instead of being skipped: relocalization (queue 1 item 14), loop
-closing (item 15) and pool compaction (item 16).
+item instead of being skipped: loop closing (queue 1 item 15) and pool
+compaction (item 16).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 
 from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.models import local_mapping as lm
-from structure_slam_pointline_tpu_torch.models import pipeline
+from structure_slam_pointline_tpu_torch.models import pipeline, relocalization
+from structure_slam_pointline_tpu_torch.models.loop_closing import LoopCloser
 from structure_slam_pointline_tpu_torch.models.tracking import Frame
 from structure_slam_pointline_tpu_torch.ops import matching, twoview
 from structure_slam_pointline_tpu_torch.optim import local_ba
@@ -33,8 +39,6 @@ from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.metrics import Metrics
 from structure_slam_pointline_tpu_torch.world import map_store
 
-_RELOC = ("relocalization (BoW + PnP) is not ported yet: ROADMAP.md queue 1 "
-          "item 14")
 _LOOP = "loop closing is not ported yet: ROADMAP.md queue 1 item 15"
 _COMPACT = "pool compaction is not ported yet: ROADMAP.md queue 1 item 16"
 
@@ -79,6 +83,8 @@ class SLAMSystem:
         self.localization_mode = False
         self.log: List[FrameLog] = []
         self.init_rng = np.random.default_rng(self.cfg.seed)
+        # created at the first lost frame; reset() keeps it, as the reference does
+        self._loop_closer: Optional[LoopCloser] = None
         self.reset()
 
     # ------------------------------------------------------------------ #
@@ -101,8 +107,10 @@ class SLAMSystem:
 
     def track_sequence(self, imgs, first_frame_id: int):
         """Stream an [N, H, W] sequence frame by frame with the reference's
-        host reactions. Returns (T_cw [N, 4, 4], ok [N], n_inliers [N],
-        is_kf [N]) as numpy; a lost frame's pose is zero."""
+        host reactions (its per-frame `_step_with_recovery`): a lost frame
+        with >= 2 keyframes in the map runs the recovery ladder, and a
+        recovered pose counts as tracked. Returns (T_cw [N, 4, 4], ok [N],
+        n_inliers [N], is_kf [N]) as numpy; a lost frame's pose is zero."""
         if self.carry is None:
             raise RuntimeError("track_sequence needs an initialized map: call "
                                "track() until the bootstrap succeeds")
@@ -113,12 +121,17 @@ class SLAMSystem:
         Ts = []
         for j in range(n):
             out = self._step(imgs[j], first_frame_id + j)
+            T_j, ok_j = out.T_cw, out.ok
             if not out.ok:
                 self.sync_cursors()
                 if self.cur.n_kf >= 2:
-                    raise NotImplementedError(_RELOC)
-            Ts.append(out.T_cw)
-            ok_out[j], inl_out[j], kf_out[j] = out.ok, out.n_inliers, out.ok and out.is_kf
+                    self.metrics.count("reloc_attempts")
+                    T_rec = self._attempt_relocalization(imgs[j], first_frame_id + j)
+                    if T_rec is not None:
+                        self.metrics.count("reloc_success")
+                        T_j, ok_j = torch.as_tensor(T_rec, device=self.device), True
+            Ts.append(T_j)
+            ok_out[j], inl_out[j], kf_out[j] = ok_j, out.n_inliers, out.ok and out.is_kf
         T_out = torch.stack(Ts).cpu().numpy()   # one device -> host copy
         T_out[~ok_out] = 0.0
         for k in range(n):
@@ -319,10 +332,43 @@ class SLAMSystem:
             return T
         self.sync_cursors()
         if self.cur.n_kf <= 5:
+            # lost right after initialization: start over
             self._log(frame_id, None, out.n_inliers, False)
             self.reset()
             return None
-        raise NotImplementedError(_RELOC)
+        T_rel = self._attempt_relocalization(img, frame_id)
+        self._log(frame_id, T_rel, out.n_inliers, False)
+        return T_rel
+
+    def _attempt_relocalization(self, img, frame_id) -> Optional[np.ndarray]:
+        """Recovery ladder of a lost frame: (1) BoW-gated matching against
+        the reference keyframe + pose LM from `last_T`, (2) BoW + PnP
+        relocalization. On success the per-frame step restarts from the
+        recovered pose with zero velocity and the stricter inlier gate for
+        `keyframe.max_frames` frames."""
+        frame = self.build_frame(img)
+        lc = self._get_loop_closer()
+        T = relocalization.track_reference_keyframe(self.map, self.cur.n_kf, frame, lc,
+                                                    self.last_T, self.intr, self.cfg)
+        if T is not None:
+            self.metrics.count("reloc_ref_kf")
+        else:
+            T = relocalization.relocalize(self.map, self.cur.n_kf, frame, lc, self.intr,
+                                          self.cfg, self.init_rng)
+        if T is None:
+            return None
+        self.carry = self.carry._replace(
+            T_last=torch.as_tensor(T, dtype=torch.float32, device=self.device),
+            velocity=torch.eye(4, dtype=torch.float32, device=self.device),
+            ok=True, recover_hold=self.cfg.keyframe.max_frames)
+        self.last_T = np.asarray(T)
+        self.state = TrackingState.OK
+        return np.asarray(T)
+
+    def _get_loop_closer(self) -> LoopCloser:
+        if self._loop_closer is None:
+            self._loop_closer = LoopCloser(self.cfg)
+        return self._loop_closer
 
     def _log(self, frame_id, T, n_inl, is_kf):
         self.log.append(FrameLog(frame_id, T, n_inl, is_kf, self.state))
@@ -335,7 +381,8 @@ class SLAMSystem:
 
     def reset(self) -> None:
         """Clear the map and return to the uninitialized state (the frame
-        log is kept)."""
+        log and the loop closer's vocabulary and index are kept, as in the
+        reference)."""
         self.map = map_store.init_map(self.cfg, self.device)
         self.cur = map_store.MapCursors()
         self.state = TrackingState.NO_IMAGES_YET

@@ -1,11 +1,14 @@
-"""The twelve CUDA kernels of the PyTorch port against their plain
-versions, on the card, at the main path's shapes (640x480 levels, 1024
+"""The fifteen CUDA kernels of the PyTorch port against their plain
+versions, on the card, at the main path's and the relocalization path's
+shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
 points + 256 lines, line octaves of 640x480 and 320x240 with 256 / 128
 anchors, 64 segments, 8-level keypoint selection at 1024 and 2048
 keypoints and the LSD anchor selection, 12 x 2048 null-vector systems,
 the [256, 2048] observer grid, local BA with 16 keyframes, 2048 points
-and 256 lines). Marked `gpu`: they skip without a CUDA device. Run
+and 256 lines; the BoW transform of 24 keyframes x 1024 descriptors and a
+[256, 4096] database query, RANSAC PnP over 16 candidates x 256
+hypotheses x 1024 points). Marked `gpu`: they skip without a CUDA device. Run
 on the card:
 
     python -m pytest -o addopts="" -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
@@ -31,7 +34,14 @@ rounds as the plain version's op does; the bound leaves room for an ulp
 of atan2f / cosf / sinf). Local BA: poses and landmarks within 1e-3
 (the plain version's own bound against JAX; sums over landmarks and the
 LU solve run in another order), inlier masks equal on >= 99.5% of
-edges, two launches bit-identical, and no host synchronization.
+edges, two launches bit-identical, and no host synchronization. BoW
+transform: words and vectors exactly equal (integer histogram, one IEEE
+division); query: scores exactly equal (the plain version sums in the
+kernel's order). RANSAC PnP: the same chosen hypothesis and count on
+every candidate, poses within 1e-4, per-hypothesis counts equal on >= 99%
+(the kernel's float64 Jacobi null vector and the plain version's float32
+SVD differ in the last bits, which can move a point across the chi2
+border), and every hypothesis orthonormal.
 """
 
 import numpy as np
@@ -42,7 +52,8 @@ from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.config import (CameraConfig, FrontendConfig, OptimConfig,
                                                       SLAMConfig)
 from structure_slam_pointline_tpu_torch.io import synthetic
-from structure_slam_pointline_tpu_torch.ops import extract, fast, hamming, lbd, lsd, orb, pyramid
+from structure_slam_pointline_tpu_torch.ops import (bow, extract, fast, hamming, lbd, lsd, orb,
+                                                   pnp, pyramid)
 from structure_slam_pointline_tpu_torch.optim import local_ba, pose_opt
 from structure_slam_pointline_tpu_torch.utils import fmath, linalg
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
@@ -423,7 +434,8 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     for mod, name in ((fast, "select_keypoints_levels_plain"), (linalg, "null_vector_4_plain"),
                       (local_ba, "bundle_adjust_plain"),
                       (map_store, "compute_obs_bits_plain"),
-                      (map_store, "votes_from_bits_plain")):
+                      (map_store, "votes_from_bits_plain"), (bow, "transform_plain"),
+                      (bow, "query_database_plain"), (pnp, "ransac_pnp_plain")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -432,4 +444,109 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         16, dtype=torch.bool, device=cuda), st.kf_valid)
     prob, lines, intr = ba_problem(KL=4, PL=64, LL=8, F=128, LF=16)
     local_ba.bundle_adjust(_to(prob, cuda), intr, OptimConfig(), lines=_to(lines, cuda))
+    voc, desc, valid = bow_problem(n_sets=2, n=64)
+    _, vec = bow.transform(voc, desc.to(cuda), valid.to(cuda))
+    bow.query_database(vec[0], vec, torch.ones(2, dtype=torch.bool, device=cuda))
+    pts, uv, mask, sets, _ = pnp_problem(C=2, N=64, I=8)
+    pnp.ransac_pnp(pts.to(cuda), uv.to(cuda), mask.to(cuda), sets.to(cuda), PNP_INTR)
     torch.cuda.synchronize()
+
+
+def bow_problem(n_sets=24, n=1024, seed=11):
+    """A vocabulary trained (branching 8, depth 4) on clustered descriptors
+    and `n_sets` sets of `n` descriptors from the same clusters, ~10%
+    invalid, seeded with numpy."""
+    g = np.random.default_rng(seed)
+    protos = g.integers(0, 2 ** 32, (120, 8), dtype=np.uint32)
+
+    def draw(m):
+        bits = np.unpackbits(protos[g.choice(120, m)].view(np.uint8), axis=1)
+        bits ^= (g.uniform(size=bits.shape) < 0.1).astype(np.uint8)
+        return np.packbits(bits, axis=1).view(np.uint32)
+
+    voc = bow.train_vocabulary(draw(6000), 8, 4, seed=3)
+    desc = torch.from_numpy(draw(n_sets * n).view(np.int32).reshape(n_sets, n, 8).copy())
+    return voc, desc, torch.from_numpy(g.uniform(size=(n_sets, n)) > 0.1)
+
+
+def test_bow_transform_matches_plain(cuda):
+    voc, desc, valid = bow_problem()
+    before = kernels.COUNTS["bow_transform"]
+    for d, v in ((desc, valid), (desc[0], valid[0])):
+        wk, bk = bow.transform(voc, d.to(cuda), v.to(cuda))
+        wp, bp = bow.transform_plain(voc.nodes(cuda), d.to(cuda), v.to(cuda), 8, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(wk, wp)
+        assert torch.equal(bk.view(torch.int32), bp.view(torch.int32))
+        assert torch.equal(wk.cpu(), bow.transform(voc, d, v)[0])
+    assert kernels.COUNTS["bow_transform"] == before + 2
+
+
+def test_bow_query_matches_plain(cuda):
+    voc, desc, valid = bow_problem(n_sets=4)
+    g = np.random.default_rng(5)
+    kf_bows = torch.from_numpy(g.dirichlet(np.full(4096, 0.05), 256).astype(np.float32))
+    kf_bows[:4] = bow.transform(voc, desc, valid)[1]
+    kf_bows[200:] = 0.0                      # rows never indexed
+    q = bow.transform(voc, desc[1], valid[1])[1]
+    kf_valid = torch.from_numpy(g.uniform(size=256) > 0.2)
+    for min_score in (0.0, 0.3):
+        sk = bow.query_database(q.to(cuda), kf_bows.to(cuda), kf_valid.to(cuda), min_score)
+        sp = bow.query_database_plain(q.to(cuda), kf_bows.to(cuda), kf_valid.to(cuda),
+                                      min_score)
+        torch.cuda.synchronize()
+        assert torch.equal(sk, sp)
+    assert (sk.cpu() - bow.query_database(q, kf_bows, kf_valid, 0.3)).abs().max() <= 1e-6
+
+
+PNP_INTR = Intrinsics.from_config(CameraConfig(fy=480.0))
+
+
+def pnp_problem(C=16, N=1024, I=256, seed=13):
+    """C candidates: the same pixels, each with its own 3D points (a pose
+    per candidate, 0.5 px noise, 30% outliers), ~5% masked, and I sample
+    sets of six unmasked points each; seeded with numpy."""
+    from structure_slam_pointline_tpu_torch.utils import lie
+
+    g = np.random.default_rng(seed)
+    intr = PNP_INTR
+    uv = np.stack([g.uniform(0, 640, N), g.uniform(0, 480, N)], 1).astype(np.float32)
+    pts, Ts, masks, sets = [], [], [], []
+    for _ in range(C):
+        T = lie.se3_exp(torch.from_numpy(g.normal(0, 0.3, 6).astype(np.float32))).numpy()
+        depth = g.uniform(2, 8, N)
+        pc = np.stack([(uv[:, 0] - intr.cx) / intr.fx * depth,
+                       (uv[:, 1] - intr.cy) / intr.fy * depth, depth], 1)
+        pc[:, :2] += g.normal(0, 0.5 / intr.fx, (N, 2)) * depth[:, None]
+        out = g.uniform(size=N) < 0.3
+        pc[out] += g.normal(0, 0.5, (int(out.sum()), 3))
+        pts.append((pc - T[:3, 3]) @ T[:3, :3])
+        Ts.append(T)
+        m = g.uniform(size=N) > 0.05
+        masks.append(m)
+        sel = np.nonzero(m)[0]
+        sets.append(np.stack([g.choice(sel, 6, replace=False) for _ in range(I)]))
+    f = lambda a, dt: torch.from_numpy(np.asarray(a)).to(dt)  # noqa: E731
+    return (f(np.stack(pts), torch.float32), f(uv, torch.float32), f(np.stack(masks), torch.bool),
+            f(np.stack(sets), torch.int32), np.stack(Ts))
+
+
+def test_ransac_pnp_matches_plain(cuda):
+    pts, uv, mask, sets, T_gt = pnp_problem()
+    args = [t.to(cuda) for t in (pts, uv, mask, sets)]
+    before = kernels.COUNTS["ransac_pnp"]
+    rk = pnp.ransac_pnp(*args, PNP_INTR, min_inliers=10)
+    rp = pnp.ransac_pnp_plain(*args, PNP_INTR, min_inliers=10)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["ransac_pnp"] == before + 3
+    assert torch.equal(rk.n_inliers, rp.n_inliers)
+    assert torch.equal(rk.success, rp.success) and bool(rk.success.all())
+    assert torch.equal(torch.argmax(rk.counts, 1), torch.argmax(rp.counts, 1))
+    assert (rk.T_cw - rp.T_cw).abs().max().item() <= 1e-4
+    assert (rk.counts == rp.counts).float().mean().item() >= 0.99
+    assert torch.equal(rk.inliers, pnp.inlier_masks_plain(
+        rk.hyp, args[0], args[1], args[2], PNP_INTR)[torch.arange(16), torch.argmax(rk.counts, 1)])
+    R = rk.hyp[..., :3].double()
+    eye = torch.eye(3, dtype=torch.float64, device=cuda)
+    assert (R.transpose(-1, -2) @ R - eye).abs().max().item() <= 1e-5
+    assert np.abs(rk.T_cw.cpu().numpy()[:, :3, 3] - T_gt[:, :3, 3]).max() <= 0.05
