@@ -33,7 +33,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
       tracked, ATE-Sim3 over the tracked frames <= 0.08. Prints the rung
       counters, the vocabulary training seconds (host numpy) and the wall
       time of every `_attempt_relocalization`. Kernels 1-12 are required
-      on path a only; 13-15 run only when a frame is lost.
+      on path a only; 13-15 run only when a frame is lost;
+   d. the loop-closing path, the reference's own loop test
+      (tests/test_loop_scenarios.py:65-100): `make_cylinder_scene(700, 48,
+      seed=0)`, `loop_trajectory(200, laps=1.3)`, noise 2.0, the default
+      configuration; bootstrap through `track()` within 12 frames, the
+      rest through one `track_sequence()`; once with loop closing off,
+      then on (counters zeroed just before the second run, read just
+      after). Both runs must track >= 90% of their frames with ATE-Sim3
+      <= 0.06; the second must correct a loop, end with >= 100 map lines,
+      launch kernels 16-18 and run kernel 12 at 64 keyframes (global BA).
+      The ATE difference and the loop counters are printed beside the
+      reference's, not judged; so is the wall time of every correcting
+      `_run_loop_closing` and its split into detect, verify, correct and
+      global BA.
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
    through its plain PyTorch version: FAST/NMS maps, Hamming best / second
@@ -54,16 +67,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    per candidate, poses within 1e-4 on live candidates and per-hypothesis
    counts equal on >= 99%. Phase 2c's shapes of every wrapper are checked
    too (the batched [16, 1024, 1024] Hamming call, the pose LM with
-   1024 points and one masked line). Each kernel is
+   1024 points and one masked line), and phase 2d's: Sim(3) RANSAC with
+   the same chosen hypothesis and count, S12 within 1e-4 and
+   per-hypothesis counts equal on >= 99%; the Sim(3) pair refinement with
+   S12 within 1e-4 and inlier masks equal on >= 99.5%; the pose graph
+   with every valid vertex within 1e-4, two launches bit-identical and
+   one call under set_sync_debug_mode("error"); local BA at 64
+   keyframes within 1e-3 (masks >= 99.5%); the Hamming calls at
+   [4096, 1024] and [8, 4096, 1024] equal; detect's database scores
+   within 1e-6. Each kernel is
    timed on the device (torch.profiler's device events per call, host
    launch gaps left out) and from the caller (median of CUDA events around
    one call, gaps included); the null vector also against
    torch.linalg.eigh on the same Gram matrices, the database query against
-   torch.cdist(p=1), RANSAC PnP against torch.linalg.svd of its DLT batch
+   torch.cdist(p=1), RANSAC PnP against torch.linalg.svd of its DLT batch,
+   Sim(3) RANSAC against torch.linalg.eigh of its Horn matrices, the pose
+   graph against torch.linalg.solve of its assembled system
    (library_ms). The kernel
-   table's row that still runs as torch ops (the fuse functions) is counted
-   over phase 2a, and one call of each is timed the same way beside its
-   bound.
+   table's rows that still run as torch ops around kernel 3 (row 11, the
+   fuse functions, counted over phase 2a; row 18, the loop closer's
+   helpers, counted over phase 2d) have one call each timed the same way
+   beside its bound.
 4. Where the time goes: 20 further frames of the main path under
    torch.profiler; prints the wall time, the device-busy time per frame and
    the top device kernels.
@@ -144,9 +168,17 @@ KERNELS = {
                   "structure_slam_pointline_tpu_torch/csrc/bow.cu"),
     "ransac_pnp": ("structure_slam_pointline_tpu/ops/pnp.py:34",
                    "structure_slam_pointline_tpu_torch/csrc/pnp.cu"),
+    "ransac_sim3": ("structure_slam_pointline_tpu/optim/sim3_solver.py:81",
+                    "structure_slam_pointline_tpu_torch/csrc/sim3_ransac.cu"),
+    "sim3_pair": ("structure_slam_pointline_tpu/optim/pose_graph.py:134",
+                  "structure_slam_pointline_tpu_torch/csrc/sim3_pair.cu"),
+    "pose_graph": ("structure_slam_pointline_tpu/optim/pose_graph.py:50",
+                   "structure_slam_pointline_tpu_torch/csrc/pose_graph.cu"),
 }
-# kernels that run only when a frame is lost (phase 2c)
+# kernels that run only when a frame is lost (phase 2c), and only with loop
+# closing on (phase 2d)
 RELOC_KERNELS = ("bow_transform", "bow_query", "ransac_pnp")
+LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph")
 FP64_OPS_PER_S = 34e12   # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 # per RANSAC PnP hypothesis, a floor for its float64 work: the least a
 # 12x12 null vector needs, Gaussian elimination (2/3 n^3) and the back
@@ -155,6 +187,19 @@ FP64_OPS_PER_S = 34e12   # H100 SXM float64 outside the tensor cores (NVIDIA dat
 # winner's inlier row of each candidate
 OPS_PNP_HYP_FP64 = 2 * 12 ** 3 // 3 + 12 ** 2
 OPS_PNP_POINT = 30
+# floors of the loop-closing kernels' work: per Sim(3) hypothesis the float64
+# Horn alignment (centroids and the 3x3 covariance, ~80; Horn's N, ~20; one
+# Jacobi sweep over the six pairs of a 4x4, ~300); per pair and hypothesis the
+# two float32 reprojection tests (~60); per pair and LM iteration of the pair
+# refinement the two projections, the 4x7 Jacobian, the 35 normal-equation
+# terms and the two cost passes (~400); per edge and tangent lane of the pose
+# graph one dual-number pass through exp, two products, the inverse and the
+# log (~1500), and per edge the two cost evaluations (~500 each)
+OPS_SIM3_HYP_FP64 = 400
+OPS_SIM3_PAIR_TEST = 60
+OPS_SIM3_PAIR_ITER = 400
+OPS_PG_LANE = 1500
+OPS_PG_COST = 500
 POINT_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "obs_bits",
                  "null_vector4", "kp_select", "local_ba")
 
@@ -210,16 +255,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, flush=None) -> float:
+def device_ms(fn, reps: int = 20, flush=None, expect: str | None = None) -> float:
     """Device milliseconds of one call: the device-side events (kernels,
     copies) that torch.profiler records over `reps` calls, summed, per
     call. Launch gaps on the host are left out. With `flush`, the L2 is
     evicted before each call and the flush's own kernel (bitwise_not) is
     left out of the sum. The profiler on the card has returned no device
     events at all for a session now and then (the same call measured in
-    the run before): such a session is repeated, up to three times, and
-    then the call is timed with CUDA events instead (launch gaps
-    included), with a note on stderr."""
+    the run before), and once only the small events around a kernel that
+    it missed: such a session (no device time, or no event whose name
+    holds `expect`) is repeated, up to three times, and then the call is
+    timed with CUDA events instead (launch gaps included), with a note on
+    stderr."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,21 +279,38 @@ def device_ms(fn, reps: int = 20, flush=None) -> float:
                     flush()
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not (flush is not None and "bitwise_not" in e.key))
-        if us > 0:
+        evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not (flush is not None and "bitwise_not" in e.key)]
+        us = sum(e.self_device_time_total for e in evs)
+        if us > 0 and (expect is None or any(expect in e.key for e in evs)):
             return us / 1e3 / reps
     print(f"[note] torch.profiler recorded no device time for {getattr(fn, '__name__', fn)};"
           " timed with CUDA events instead", file=sys.stderr, flush=True)
     return time_ms(fn, reps=reps, flush=flush)
 
 
-def timings(kernel_fn, plain_fn, flush=None) -> dict:
+def reps_for(fn, budget_ms: float = 250.0) -> int:
+    """Repetitions for timing `fn`: 20, fewer (down to 3) when one call
+    takes more than budget_ms / 20 from the caller. The plain versions
+    are thousands of small torch ops, and the profiler's cost per op made
+    their 20 profiled repetitions most of the script's run time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    return int(max(3, min(20, budget_ms / max(one_ms, 1e-3))))
+
+
+def timings(kernel_fn, plain_fn, flush=None, expect: str | None = None) -> dict:
     """Device and caller-side milliseconds of the kernel and its plain version."""
-    return {"ms": device_ms(kernel_fn, flush=flush), "plain_ms": device_ms(plain_fn, flush=flush),
-            "wall_ms": time_ms(kernel_fn, flush=flush),
-            "plain_wall_ms": time_ms(plain_fn, flush=flush)}
+    rk, rp = reps_for(kernel_fn), reps_for(plain_fn)
+    return {"ms": device_ms(kernel_fn, reps=rk, flush=flush, expect=expect),
+            "plain_ms": device_ms(plain_fn, reps=rp, flush=flush),
+            "wall_ms": time_ms(kernel_fn, reps=rk, flush=flush),
+            "plain_wall_ms": time_ms(plain_fn, reps=rp, flush=flush)}
 
 
 class Recorder:
@@ -491,6 +555,148 @@ def run_relocalization(slam, cam, sync=lambda: None, one_call: bool = False) -> 
     return res
 
 
+# phase 2d: the loop scenario of the reference's own loop test
+# (tests/test_loop_scenarios.py:65-100) at full width
+LOOP_FRAMES, LOOP_LAPS = 200, 1.3
+LOOP_INIT_MAX = 12
+LOOP_ATE_MAX = 0.06         # the reference test's bound
+LOOP_MIN_TRACKED = 0.9      # share of frames tracked, both runs
+LOOP_MIN_LINES = 100        # map lines made by the end of the loop-closing run
+# the JAX reference on its per-frame path (the path track_sequence mirrors),
+# run on XLA:CPU: reported beside the port's numbers, not judged
+LOOP_REFERENCE = {"ate_sim3_off": 0.02825, "ate_sim3_on": 0.02886, "loop_candidates": 223,
+                  "loop_verified": 1, "loop_corrected": 1, "vocab_retrained": 3,
+                  "gba_windows": 1, "n_kf_on": 57, "n_kf_off": 69}
+LOOP_COUNTERS = ("loop_candidates", "loop_verified", "loop_corrected", "vocab_retrained",
+                 "gba_windows", "landmarks_clipped")
+
+
+def loop_scenario(cam):
+    """(images [200, H, W], ground truth T_wc): 1.3 laps of a camera on a
+    circle of radius 2 looking out at a textured cylinder of radius 4 (700
+    point patches, 48 lines), noise 2.0."""
+    from structure_slam_pointline_tpu_torch.io import synthetic
+
+    scene = synthetic.make_cylinder_scene(n_points=700, n_lines=48, seed=0)
+    poses = synthetic.loop_trajectory(LOOP_FRAMES, laps=LOOP_LAPS)
+    return synthetic.render_sequence(scene, poses, cam, noise=2.0), poses
+
+
+def run_loop(cam, imgs, poses, enable: bool, device=None, sync=lambda: None) -> dict:
+    """Phase 2d's drive: a fresh `SLAMSystem(SLAMConfig(camera=cam,
+    enable_loop_closing=enable))`, bootstrap through `track()` within
+    LOOP_INIT_MAX frames, the rest through one `track_sequence()` call.
+    Returns the run's numbers (the caller judges them), with the wall time
+    of every `_run_loop_closing` call that corrected and where it went:
+    detect, verify, correct, global BA."""
+    from structure_slam_pointline_tpu_torch.config import SLAMConfig
+    from structure_slam_pointline_tpu_torch.io import synthetic
+    from structure_slam_pointline_tpu_torch.models.system import SLAMSystem
+    from structure_slam_pointline_tpu_torch.optim import global_ba
+
+    slam = SLAMSystem(SLAMConfig(camera=cam, enable_loop_closing=enable), device=device)
+    lc = slam._get_loop_closer()
+    spans, corrections = {}, []
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            sync()
+            t = time.time()
+            out = fn(*a, **k)
+            sync()
+            spans[key] = spans.get(key, 0.0) + (time.time() - t) * 1e3
+            return out
+        setattr(obj, name, wrapped)
+        return fn
+
+    for name in ("detect", "verify", "correct"):
+        timed(lc, name, f"{name}_ms")
+    gba = timed(global_ba, "global_bundle_adjust", "global_ba_ms")
+    run_lc = slam._run_loop_closing
+
+    def timed_reaction(*a, **k):
+        spans.clear()
+        before = slam.metrics.counters.get("loop_corrected", 0)
+        sync()
+        t = time.time()
+        run_lc(*a, **k)
+        sync()
+        if slam.metrics.counters.get("loop_corrected", 0) > before:
+            corrections.append({"keyframe": slam.cur.n_kf - 1 if not a else a[0],
+                                "wall_ms": (time.time() - t) * 1e3, **spans})
+
+    slam._run_loop_closing = timed_reaction
+    t0 = time.time()
+    try:
+        i = 0
+        while slam.carry is None and i < LOOP_INIT_MAX:
+            slam.track(imgs[i], i)
+            i += 1
+        if slam.carry is None:
+            return {"error": f"no bootstrap within {LOOP_INIT_MAX} frames"}
+        _, ok, _, _ = slam.track_sequence(imgs[i:], i)
+    finally:
+        global_ba.global_bundle_adjust = gba
+    sync()
+    traj = slam.trajectory()
+    ids = sorted(traj)
+    est = np.stack([np.linalg.inv(traj[k]) for k in ids])
+    c = slam.metrics.counters
+    slam.sync_cursors()
+    res = {"loop_closing": enable, "init_frame": i - 1, "frames": len(ok),
+           "tracked": int(ok.sum()), "ate_sim3": synthetic.ate_rmse(est, poses[ids])
+           if np.isfinite(est).all() else float("nan"), "n_kf": slam.cur.n_kf,
+           "n_ml": slam.cur.n_ml, "n_mp": slam.cur.n_mp, "seconds": time.time() - t0,
+           **{k: int(c.get(k, 0)) for k in LOOP_COUNTERS}, "corrections": corrections}
+    print(f"[loop {'on' if enable else 'off'}] bootstrap at frame {res['init_frame']} | "
+          f"tracked {res['tracked']}/{res['frames']} | ATE-Sim3 {res['ate_sim3']:.5f} | "
+          f"n_kf {res['n_kf']} n_mp {res['n_mp']} n_ml {res['n_ml']} | "
+          + " ".join(f"{k} {res[k]}" for k in LOOP_COUNTERS)
+          + f" | {res['seconds']:.1f} s | corrections {corrections}", flush=True)
+    return res
+
+
+def loop_glue_rows():
+    """Kernel-table row 18, the loop closer's torch glue around kernel 3:
+    row -> (JAX function, attribute of models/loop_closing.py, key of a
+    call, cost of a call as (bytes, operations)). Each call is timed from
+    the caller; the operation counts are floors (the Hamming pairs at
+    kernel 3's 27 operations, the window tests at 6)."""
+    from structure_slam_pointline_tpu_torch.models.loop_closing import LOOP_POOL
+
+    def pool_cost(a, kw, out):
+        st, kf_id, M = a[0], a[1], a[2]
+        B = M.shape[0] if M.dim() == 3 else 1
+        F = st.kf_xy.shape[1]
+        n = LOOP_POOL
+        return (n * (4 + 12 + 32) + B * F * (8 + 1 + 32) + B * n * 13,
+                B * n * F * (27 + 6))
+
+    def fuse_cost(a, kw, out):
+        st = a[0]
+        K, F = st.kf_kp_mp.shape
+        P = st.mp_valid.shape[0]
+        b, o = pool_cost((st, None, st.kf_T_cw[:len(a[1])]), kw, out)
+        return b + 2 * K * F * 4 + P * 5, o + K * F * 4
+
+    def widen_cost(a, kw, out):
+        F = a[0].kf_xy.shape[1]
+        return 2 * F * (4 + 12 + 8 + 32) + F * 13, F * F * (27 + 12)
+
+    return {
+        "18a": ("structure_slam_pointline_tpu/models/loop_closing.py:140 _loop_fuse",
+                "_loop_fuse", lambda *a, **k: ("fuse",), fuse_cost),
+        "18b": ("structure_slam_pointline_tpu/models/loop_closing.py:104 _project_pool_matches",
+                "_project_pool_matches", lambda st, kf, M, *a, **k: ("pool", tuple(M.shape)),
+                pool_cost),
+        "18c": ("structure_slam_pointline_tpu/models/loop_closing.py:55 _sim3_widen_matches",
+                "_sim3_widen_matches", lambda *a, **k: ("widen",), widen_cost),
+    }
+
+
+
 def main() -> int:
     import torch
 
@@ -579,7 +785,7 @@ def main() -> int:
     slam, e2e, counts = drive(cfg, N_TRACK, frame, poses, "lines")
     for r in (*rec.values(), *op_rec.values()):
         r.__exit__()
-    zero = [k for k, v in counts.items() if v == 0 and k not in RELOC_KERNELS]
+    zero = [k for k, v in counts.items() if v == 0 and k not in RELOC_KERNELS + LOOP_KERNELS]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
     if e2e["lines"] == 0 or e2e["live_lines"] == 0:
@@ -629,6 +835,66 @@ def main() -> int:
     e2e_reloc["one_call"] = {k: one.get(k) for k in (
         "tracked", "frames", "reloc_ref_kf", "reloc_success", "noise_tracked",
         "last6_tracked", "ate_sim3", "ok_flags", "error")}
+    # 2d: the loop scenario, loop closing off, then on (the counters zeroed
+    # just before and read just after; the first call of every new shape
+    # recorded for phase 3)
+    from structure_slam_pointline_tpu_torch.models import loop_closing
+    from structure_slam_pointline_tpu_torch.optim import pose_graph, sim3_solver
+
+    loop_imgs, loop_poses = loop_scenario(cam)
+    loop_off = run_loop(cam, loop_imgs, loop_poses, False, sync=torch.cuda.synchronize)
+    loop_rec = {
+        "ransac_sim3": Recorder(sim3_solver, "ransac_sim3",
+                                lambda p1, p2, m, sets, *a, **k: ("sim3", tuple(sets.shape),
+                                                                  p1.shape[0])),
+        "sim3_pair": Recorder(pose_graph, "optimize_sim3_pair",
+                              lambda S, X1, *a, **k: ("pair", X1.shape[0])),
+        "pose_graph": Recorder(pose_graph, "optimize_pose_graph",
+                               lambda prob, *a, **k: ("pg", prob.S_cw.shape[0],
+                                                      prob.edge_i.shape[0])),
+        "local_ba": Recorder(local_ba, "bundle_adjust",
+                             lambda prob, *a, **k: ("ba", prob.edge_mp.shape[0])),
+        "hamming_best2": Recorder(
+            hamming, "masked_best2",
+            lambda a, b, m: ("ham", tuple(a.shape), tuple(b.shape), tuple(m.shape))),
+        "bow_query": Recorder(bow, "query_database",
+                              lambda q, kb, *a, **kw: ("query", tuple(kb.shape))),
+    }
+    glue_rows = loop_glue_rows()
+    glue_rec = {row: Recorder(loop_closing, attr, key_fn)
+                for row, (_, attr, key_fn, _) in glue_rows.items()}
+    for r in (*loop_rec.values(), *glue_rec.values()):
+        r.__enter__()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    loop_on = run_loop(cam, loop_imgs, loop_poses, True, sync=torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    counts_loop = dict(kernels.COUNTS)
+    for r in (*loop_rec.values(), *glue_rec.values()):
+        r.__exit__()
+    print(f"[e2e loop] launches {counts_loop}", flush=True)
+    for run in (loop_off, loop_on):
+        if "error" in run:
+            fail(f"loop scenario (loop closing {run.get('loop_closing')}): {run['error']}")
+    checks = {
+        f">= {LOOP_MIN_TRACKED:.0%} of the frames tracked, both runs":
+            all(r["tracked"] >= LOOP_MIN_TRACKED * r["frames"] for r in (loop_off, loop_on)),
+        "a loop corrected": loop_on["loop_corrected"] >= 1,
+        f"ATE-Sim3 <= {LOOP_ATE_MAX}, both runs":
+            all(r["ate_sim3"] <= LOOP_ATE_MAX for r in (loop_off, loop_on)),
+        f">= {LOOP_MIN_LINES} map lines": loop_on["n_ml"] >= LOOP_MIN_LINES,
+        "kernels 16-18 launched": all(counts_loop[k] > 0 for k in LOOP_KERNELS),
+        "kernel 12 ran at 64 keyframes": loop_on["gba_windows"] >= 1
+        and ("ba", 64) in loop_rec["local_ba"].calls,
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"loop scenario failed: {bad}")
+    e2e_loop = {"off": loop_off, "on": loop_on,
+                "ate_on_minus_off": loop_on["ate_sim3"] - loop_off["ate_sim3"],
+                "reference": LOOP_REFERENCE}
+    print(f"[loop] ATE-Sim3 on - off {e2e_loop['ate_on_minus_off']:+.5f} (reported, not "
+          f"judged) | the reference's per-frame path: {LOOP_REFERENCE}", flush=True)
     print(f"[time] phase 2 done at {time.time() - t_start:.0f} s", flush=True)
     i = e2e["init_frame"] + 1
 
@@ -1032,6 +1298,205 @@ def main() -> int:
         ops=(Cp * Ip + Cp) * Np * OPS_PNP_POINT, ops_fp64=Cp * Ip * OPS_PNP_HYP_FP64,
         shape=f"{Cp} candidates x {Ip} hypotheses x {Np} points, counts equal on "
               f"{worst_cnt:.4f}"))
+    print(f"[time] main-path and relocalization checks done at {time.time() - t_start:.0f} s",
+          flush=True)
+    # ---- the loop-closing path's shapes (phase 2d) ----
+    # Sim(3) RANSAC (kernel 16): per call the same chosen hypothesis and
+    # count, S12 within 1e-4, per-hypothesis counts equal on >= 99%; the
+    # library yardstick is torch.linalg.eigh on the same Horn matrices
+    s3_calls = loop_rec["ransac_sim3"].calls
+    if not s3_calls:
+        fail("ransac_sim3: no call recorded in phase 2d")
+    s3_err, s3_cnt = 0.0, 1.0
+    for key, (args, kw) in s3_calls.items():
+        rk = sim3_solver.ransac_sim3(*args, **kw)
+        rp = sim3_solver.ransac_sim3_plain(*args, **kw)
+        if not (int(torch.argmax(rk.counts)) == int(torch.argmax(rp.counts))
+                and int(rk.n_inliers) == int(rp.n_inliers)):
+            fail(f"ransac_sim3 chose another hypothesis at {key}: kernel "
+                 f"{int(rk.n_inliers)} plain {int(rp.n_inliers)}")
+        s3_err = max(s3_err, (rk.S12 - rp.S12).abs().max().item())
+        s3_cnt = min(s3_cnt, (rk.counts == rp.counts).float().mean().item())
+    print(f"[check] ransac_sim3: {len(s3_calls)} shapes, S12 err {s3_err:.3e}, "
+          f"per-hypothesis counts equal on {s3_cnt:.4f}", flush=True)
+    if s3_err > 1e-4 or s3_cnt < 0.99:
+        fail(f"ransac_sim3 disagrees: S12 err {s3_err:.2e}, counts equal {s3_cnt:.4f}")
+    sargs, skw = next(iter(s3_calls.values()))
+    I_s, N_s = sargs[3].shape[0], sargs[0].shape[0]
+    ps1, ps2 = sargs[0][sargs[3].long()], sargs[1][sargs[3].long()]
+    horn_N = sim3_solver.horn_matrix(ps1 - ps1.mean(-2, keepdim=True),
+                                     ps2 - ps2.mean(-2, keepdim=True)).contiguous()
+    rows.append(dict(
+        name="ransac_sim3", max_abs_err=s3_err,
+        **timings(lambda: sim3_solver.ransac_sim3(*sargs, **skw),
+                  lambda: sim3_solver.ransac_sim3_plain(*sargs, **skw), expect="count_kernel"),
+        library_ms=device_ms(lambda: torch.linalg.eigh(horn_N)),
+        library_wall_ms=time_ms(lambda: torch.linalg.eigh(horn_N)),
+        bytes=N_s * (12 + 12 + 1 + 1) + I_s * (12 + 4 + 48 + 4) + 64 + 4,
+        ops=(I_s + 1) * N_s * OPS_SIM3_PAIR_TEST, ops_fp64=I_s * OPS_SIM3_HYP_FP64,
+        shape=f"{I_s} hypotheses x {N_s} pairs, counts equal on {s3_cnt:.4f}"))
+
+    # the Sim(3) pair refinement (kernel 17): S12 within 1e-4, inlier masks
+    # equal on >= 99.5%
+    pair_calls = loop_rec["sim3_pair"].calls
+    if not pair_calls:
+        fail("sim3_pair: no call recorded in phase 2d")
+    pr_err, pr_in = 0.0, 1.0
+    for key, (args, kw) in pair_calls.items():
+        rk = pose_graph.optimize_sim3_pair(*args, **kw)
+        rp = pose_graph.optimize_sim3_pair_plain(*args, **kw)
+        pr_err = max(pr_err, (rk.S12 - rp.S12).abs().max().item())
+        pr_in = min(pr_in, (rk.inliers == rp.inliers).float().mean().item())
+    print(f"[check] sim3_pair: S12 err {pr_err:.3e}, inliers equal {pr_in:.4f}", flush=True)
+    if pr_err > 1e-4 or pr_in < 0.995:
+        fail(f"sim3_pair disagrees: S12 err {pr_err:.2e}, inliers equal {pr_in:.4f}")
+    pargs, pkw = next(iter(pair_calls.values()))
+    N_p = pargs[1].shape[0]
+    rk = pose_graph.optimize_sim3_pair(*pargs, **pkw)
+    n_pair_rows = 5 * int(pargs[5].sum()) + 10 * int(rk.n_inliers)
+    print(f"[time] ransac_sim3 done at {time.time() - t_start:.0f} s", flush=True)
+    rows.append(dict(
+        name="sim3_pair", max_abs_err=pr_err,
+        ms=device_ms(lambda: pose_graph.optimize_sim3_pair(*pargs, **pkw),
+                     expect="sim3_pair_kernel"),
+        wall_ms=time_ms(lambda: pose_graph.optimize_sim3_pair(*pargs, **pkw)),
+        # one repetition: the plain version is ~10^4 small torch ops
+        plain_ms=device_ms(lambda: pose_graph.optimize_sim3_pair_plain(*pargs, **pkw), reps=1),
+        plain_wall_ms=time_ms(lambda: pose_graph.optimize_sim3_pair_plain(*pargs, **pkw),
+                              reps=2, warmup=1),
+        library_ms=None, bytes=N_p * (12 + 12 + 8 + 8 + 1 + 4 + 4 + 1) + 64 + 64 + 4,
+        ops=n_pair_rows * OPS_SIM3_PAIR_ITER,
+        shape=f"{N_p} pairs ({int(pargs[5].sum())} valid), 5 + 10 iterations"))
+
+    print(f"[time] sim3_pair done at {time.time() - t_start:.0f} s", flush=True)
+    # the pose graph (kernel 18): vertices within 1e-4 on every valid one,
+    # two launches bit-identical, one call with host synchronization made an
+    # error; the library yardstick is torch.linalg.solve on the first
+    # iteration's assembled system over the free vertices (the solve alone)
+    pg_calls = loop_rec["pose_graph"].calls
+    if not pg_calls:
+        fail("pose_graph: no call recorded in phase 2d")
+    pg_err = 0.0
+    for key, (args, kw) in pg_calls.items():
+        sk = pose_graph.optimize_pose_graph(*args, **kw)
+        sp = pose_graph.optimize_pose_graph_plain(*args, **kw)
+        pg_err = max(pg_err, (sk - sp)[args[0].kf_valid].abs().max().item())
+    print(f"[check] pose_graph: {len(pg_calls)} shapes, vertex err {pg_err:.3e}", flush=True)
+    if pg_err > 1e-4:
+        fail(f"pose_graph disagrees: vertex err {pg_err:.2e}")
+    gargs, gkw = pg_calls[max(pg_calls, key=lambda k: k[2])]
+    if not torch.equal(pose_graph.optimize_pose_graph(*gargs, **gkw),
+                       pose_graph.optimize_pose_graph(*gargs, **gkw)):
+        fail("pose_graph: two launches on the same input differ")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    pose_graph.optimize_pose_graph(*gargs, **gkw)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    gprob = gargs[0]
+    g_iters = gkw.get("n_iters", gargs[1] if len(gargs) > 1 else 20)
+    g_lam = gkw.get("lam_init", 1e-6)
+    free_v = torch.nonzero(gprob.kf_valid & ~gprob.kf_fixed)[:, 0]
+    free_rows = (7 * free_v[:, None] + torch.arange(7, device=free_v.device)).reshape(-1)
+    Hd, bd = pose_graph.normal_equations(gprob, gprob.S_cw, torch.tensor(g_lam, device="cuda"))
+    Hf, bf = Hd[free_rows][:, free_rows].contiguous(), bd[free_rows].contiguous()
+    n_sys, K_g, E_g = free_rows.shape[0], gprob.S_cw.shape[0], gprob.edge_i.shape[0]
+    rows.append(dict(
+        name="pose_graph", max_abs_err=pg_err,
+        ms=device_ms(lambda: pose_graph.optimize_pose_graph(*gargs, **gkw), reps=5,
+                     expect="pg_solve_kernel"),
+        wall_ms=time_ms(lambda: pose_graph.optimize_pose_graph(*gargs, **gkw), reps=5),
+        # one repetition: the plain version is ~10^5 small torch ops
+        plain_ms=device_ms(lambda: pose_graph.optimize_pose_graph_plain(*gargs, **gkw),
+                           reps=1),
+        plain_wall_ms=time_ms(lambda: pose_graph.optimize_pose_graph_plain(*gargs, **gkw),
+                              reps=1, warmup=0),
+        library_ms=device_ms(lambda: torch.linalg.solve(Hf, bf)),
+        library_wall_ms=time_ms(lambda: torch.linalg.solve(Hf, bf)),
+        bytes=2 * K_g * 64 + 2 * K_g + E_g * (64 + 4 + 4 + 4 + 1),
+        ops=g_iters * (2 * n_sys ** 3 // 3 + E_g * (14 * OPS_PG_LANE + 2 * OPS_PG_COST)),
+        shape=f"{K_g} vertices ({free_v.shape[0]} free), {E_g} edges, {g_iters} iterations, "
+              f"library: solve of the [{n_sys}, {n_sys}] system"))
+
+    print(f"[time] pose_graph done at {time.time() - t_start:.0f} s", flush=True)
+    # local BA at global BA's 64 keyframes (kernel 12): poses and landmarks
+    # within 1e-3, inlier masks equal on >= 99.5% of edges
+    ba64 = {k: v for k, v in loop_rec["local_ba"].calls.items() if k[1] > 32}
+    if not ba64:
+        fail("no 64-keyframe BA call recorded in phase 2d")
+    b64_pose = b64_lm = 0.0
+    b64_in = 1.0
+    for key, (args, kw) in ba64.items():
+        rk = local_ba.bundle_adjust(*args, **kw)
+        rp = local_ba.bundle_adjust_plain(*args, **kw)
+        b64_pose = max(b64_pose, (rk.kf_T_cw - rp.kf_T_cw).abs().max().item())
+        for a, b in ((rk.mp_xyz, rp.mp_xyz), (rk.ln_start, rp.ln_start), (rk.ln_end, rp.ln_end)):
+            if a is not None:
+                b64_lm = max(b64_lm, (a - b).abs().max().item())
+        b64_in = min(b64_in, (rk.edge_inlier == rp.edge_inlier).float().mean().item())
+        if rk.line_inlier is not None:
+            b64_in = min(b64_in, (rk.line_inlier == rp.line_inlier).float().mean().item())
+    print(f"[check] local_ba at 64 keyframes: pose err {b64_pose:.3e}, landmark err "
+          f"{b64_lm:.3e}, inlier masks equal {b64_in:.4f}", flush=True)
+    if b64_pose > 1e-3 or b64_lm > 1e-3 or b64_in < 0.995:
+        fail(f"local_ba at 64 keyframes disagrees: pose {b64_pose:.2e}, landmarks "
+             f"{b64_lm:.2e}, inliers {b64_in:.4f}")
+    (bprob, bintr, bocfg), bkw = next(iter(ba64.values()))
+    bln = bkw.get("lines")
+    b_rows = int(bprob.edge_valid.sum()) + (2 * int(bln.edge_valid.sum()) if bln else 0)
+    b_free = 6 * int((bprob.kf_free & bprob.kf_valid).sum())
+    b_iters = bocfg.local_ba_iters_first + bocfg.local_ba_iters_second
+    r64 = local_ba.bundle_adjust(bprob, bintr, bocfg, **bkw)
+    b64_bytes = nbytes(*bprob, *(bln or ()), *(t for t in r64 if isinstance(t, torch.Tensor)))
+    b64_ops = b_iters * (b_rows * OPS_BA_ROW + b_free ** 3 // 3)
+    ba_row = next(r for r in rows if r["name"] == "local_ba")
+    ba_row["kl64"] = dict(
+        ms=device_ms(lambda: local_ba.bundle_adjust(bprob, bintr, bocfg, **bkw), reps=3,
+                     expect="solve_kernel"),
+        wall_ms=time_ms(lambda: local_ba.bundle_adjust(bprob, bintr, bocfg, **bkw), reps=3),
+        plain_ms=device_ms(lambda: local_ba.bundle_adjust_plain(bprob, bintr, bocfg, **bkw),
+                           reps=1),
+        plain_wall_ms=time_ms(lambda: local_ba.bundle_adjust_plain(bprob, bintr, bocfg, **bkw),
+                              reps=1, warmup=1),
+        bound_ms=max(b64_bytes / HBM_BYTES_PER_S, b64_ops / CUDA_CORE_OPS_PER_S) * 1e3,
+        launches=counts_loop["local_ba"], max_abs_err=max(b64_pose, b64_lm),
+        shape=f"{bprob.edge_mp.shape[0]} keyframes ({int(bprob.kf_valid.sum())} valid, "
+              f"{b_free // 6} free), "
+              f"{bprob.mp_xyz.shape[0]} points, {bln.ln_start.shape[0] if bln else 0} lines, "
+              f"{b_rows} residual rows")
+
+    print(f"[time] local_ba at 64 keyframes done at {time.time() - t_start:.0f} s", flush=True)
+    # kernel 3 at the loop closer's shapes ([4096, 1024] pool matches, the
+    # batched [8, 4096, 1024] loop fuse): equal
+    lham = loop_rec["hamming_best2"].calls
+    for key, (args, _) in lham.items():
+        for a, b in zip(hamming.masked_best2(*args), hamming.masked_best2_plain(*args)):
+            if not torch.equal(a, b):
+                fail(f"hamming_best2 disagrees at the loop shape {key}: {int((a != b).sum())} rows")
+    ham_row = next(r for r in rows if r["name"] == "hamming_best2")
+    ham_row["loop_shapes"] = {}
+    for key in [k for k in lham if k[3][-2] == loop_closing.LOOP_POOL]:
+        a, b, m = lham[key][0]
+        Bh = m.shape[0] if m.dim() == 3 else 1
+        M, N = m.shape[-2:]
+        hb = Bh * M * 32 if a.dim() == 3 else M * 32
+        ham_row["loop_shapes"][str(tuple(m.shape))] = dict(
+            **timings(lambda: hamming.masked_best2(a, b, m),
+                      lambda: hamming.masked_best2_plain(a, b, m)),
+            bound_ms=max((hb + Bh * N * 32 + Bh * M * N + Bh * 16 * M) / HBM_BYTES_PER_S,
+                         27 * Bh * M * N / CUDA_CORE_OPS_PER_S) * 1e3)
+    if len(ham_row["loop_shapes"]) < 2:
+        fail(f"loop-closing Hamming shapes missing: {sorted(lham)}")
+
+    # kernel 14 as detect's scorer (nothing masked): equal, or within 1e-6
+    dq_err = 0.0
+    for key, (args, kw) in loop_rec["bow_query"].calls.items():
+        dq_err = max(dq_err, (bow.query_database(*args, **kw)
+                              - bow.query_database_plain(*args, **kw)).abs().max().item())
+    if dq_err > 1e-6:
+        fail(f"bow_query as detect's scorer disagrees: max err {dq_err:.3e}")
+    print(f"[check] loop shapes: hamming {sorted(lham)} equal; detect scores err "
+          f"{dq_err:.3e}", flush=True)
     print(f"[time] kernel checks done at {time.time() - t_start:.0f} s", flush=True)
 
     # the rows still run as torch ops: calls on the main path, one call of
@@ -1049,6 +1514,24 @@ def main() -> int:
         ops_table.append({
             "row": row, "function": attr, "replaces": replaces, "calls": sum(r.n.values()),
             # few repetitions: a fuse call is thousands of small torch ops
+            "ms": device_ms(lambda: fn(*args, **kw), reps=3),
+            "wall_ms": time_ms(lambda: fn(*args, **kw), reps=3, warmup=1),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "timed_call": str(key)})
+        print(f"[torch-op] row {row} {attr}: {ops_table[-1]['calls']} calls | device "
+              f"{ops_table[-1]['ms']:.4f} ms, caller {ops_table[-1]['wall_ms']:.4f} ms | "
+              f"bound {max(b_ms, o_ms):.5f} ms | timed {key}", flush=True)
+    for row, (replaces, attr, _, cost) in glue_rows.items():
+        r = glue_rec[row]
+        if not r.n:
+            fail(f"loop glue row {row} ({attr}) never ran in phase 2d")
+        key = max(r.n, key=r.n.get)
+        args, kw = r.calls[key]
+        fn = getattr(loop_closing, attr)
+        b, o = cost(args, kw, None)
+        b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / CUDA_CORE_OPS_PER_S * 1e3
+        ops_table.append({
+            "row": row, "function": attr, "replaces": replaces, "calls": sum(r.n.values()),
             "ms": device_ms(lambda: fn(*args, **kw), reps=3),
             "wall_ms": time_ms(lambda: fn(*args, **kw), reps=3, warmup=1),
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -1096,7 +1579,8 @@ def main() -> int:
         # the larger of the two times, not their sum
         o_ms = max(r["ops"] / CUDA_CORE_OPS_PER_S, r.get("ops_fp64", 0) / FP64_OPS_PER_S) * 1e3
         replaces, source = KERNELS[r["name"]]
-        launches = (counts_reloc if r["name"] in RELOC_KERNELS else counts)[r["name"]]
+        launches = (counts_reloc if r["name"] in RELOC_KERNELS else
+                    counts_loop if r["name"] in LOOP_KERNELS else counts)[r["name"]]
         table.append({
             "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -1105,14 +1589,15 @@ def main() -> int:
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
             "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("frame_wall_ms", "frame_plain_wall_ms", "library_wall_ms",
-                                 "votes") if k in r}})
+                                 "votes", "kl64", "loop_shapes") if k in r}})
         print(f"[kernel] {r['name']}: {r['shape']} | device: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms | caller: kernel {r['wall_ms']:.4f} ms, "
               f"plain {r['plain_wall_ms']:.4f} ms | bound {max(b_ms, o_ms):.5f} ms",
               flush=True)
     print(json.dumps({"e2e": e2e, "e2e_points_only": e2e_points, "launches_points_only":
                       counts_points, "e2e_relocalization": e2e_reloc,
-                      "launches_relocalization": counts_reloc, "profile": profile_out,
+                      "launches_relocalization": counts_reloc, "e2e_loop": e2e_loop,
+                      "launches_loop": counts_loop, "profile": profile_out,
                       "torch_ops": ops_table}), flush=True)
     print(f"[done] all phases passed in {time.time() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)

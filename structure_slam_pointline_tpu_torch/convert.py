@@ -8,9 +8,13 @@ SLAMCarry, models/tracking.py LocalSets and Frame). The reference's
 uint32 words (descriptors, observer bitmasks) are stored here as int32
 bit patterns: the conversion is a numpy view, lossless both ways.
 
-The relocalization state crosses too: a vocabulary (the reference's
-per-level [B^l, B, 8] uint32 centres, kept uint32 on the host) and a
-loop closer's BoW index (`kf_bows` [K, W], `kf_words` {k: [F] int32}).
+The loop closer's state crosses too: a vocabulary (the reference's
+per-level [B^l, B, 8] uint32 centres, kept uint32 on the host), its BoW
+index (`kf_bows` [K, W], `kf_words` {k: [F] int32}), and the rest of its
+host state (loop edges, consistency groups, the vocabulary-lifecycle
+counters, the number of corrections and the state of its numpy
+generator, which draws verify's RANSAC sets). A pose-graph problem
+crosses as a dict of its fields.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from structure_slam_pointline_tpu_torch.models import pipeline
 from structure_slam_pointline_tpu_torch.models.loop_closing import LoopCloser
 from structure_slam_pointline_tpu_torch.models.tracking import Frame, LocalSets
 from structure_slam_pointline_tpu_torch.ops.bow import Vocabulary
+from structure_slam_pointline_tpu_torch.optim.pose_graph import PoseGraphProblem
 from structure_slam_pointline_tpu_torch.world.map_store import MapState
 
 _CARRY_SCALARS = {"n_kf": int, "n_mp": int, "n_ml": int, "frames_since_kf": int,
@@ -115,7 +120,39 @@ def bow_index_from_numpy(lc: LoopCloser, voc: Vocabulary, kf_bows, kf_words: dic
     return lc
 
 
+def loop_closer_state(lc) -> dict:
+    """The host state of a loop closer, either package's (the attribute
+    names are the reference's), as plain Python and numpy values."""
+    return {"loop_edges": [(int(a), int(b), np.array(S, np.float32))
+                           for a, b, S in lc.loop_edges],
+            "consistent_groups": [(sorted(int(x) for x in g), int(n))
+                                  for g, n in lc._consistent_groups],
+            "descs_at_train": int(lc._descs_at_train), "descs_seen": int(lc._descs_seen),
+            "n_corrections": int(lc.n_corrections), "min_gap": int(lc.min_gap),
+            "consistency_th": int(lc.consistency_th),
+            "rng_state": lc.rng.bit_generator.state}
+
+
+def load_loop_closer_state(lc: LoopCloser, d: dict) -> LoopCloser:
+    """Set a port LoopCloser's host state from `loop_closer_state(...)`."""
+    lc.loop_edges = [(int(a), int(b), np.array(S, np.float32)) for a, b, S in d["loop_edges"]]
+    lc._consistent_groups = [(set(int(x) for x in g), int(n))
+                             for g, n in d["consistent_groups"]]
+    lc._descs_at_train = int(d["descs_at_train"])
+    lc._descs_seen = int(d["descs_seen"])
+    lc.n_corrections = int(d["n_corrections"])
+    lc.min_gap = int(d["min_gap"])
+    lc.consistency_th = int(d["consistency_th"])
+    lc.rng.bit_generator.state = d["rng_state"]
+    return lc
+
+
+def pose_graph_problem_from_numpy(d: dict, device) -> PoseGraphProblem:
+    return _tuple_from_numpy(PoseGraphProblem, d, device)
+
+
 __all__ = ["map_state_from_numpy", "map_state_to_numpy", "local_sets_from_numpy",
            "local_sets_to_numpy", "carry_from_numpy", "carry_to_numpy",
            "frame_from_numpy", "frame_to_numpy", "vocabulary_from_numpy",
-           "bow_index_from_numpy"]
+           "bow_index_from_numpy", "loop_closer_state", "load_loop_closer_state",
+           "pose_graph_problem_from_numpy"]

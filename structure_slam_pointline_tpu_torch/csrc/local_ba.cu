@@ -34,7 +34,10 @@
 //  ba_solve     one block: S + 1e-6 I (96x96 at KL = 16, 37 KB) in shared
 //               memory, LU with partial pivoting (first row on ties),
 //               back substitution, the 0.5 step clip and T <- exp(dx) T;
-//               the cost of the iteration is summed here too.
+//               the cost of the iteration is summed here too. Past 200 KB
+//               (global BA's KL = 64: up to 384x385, 591 KB) the same code
+//               runs on a global-memory (L2-resident) matrix instead, over
+//               the free cameras' rows only (see solve_kernel).
 //  ba_backsub   one thread per landmark column: dx_p = Hpp^-1 (bp - A^T dx_c),
 //               clipped to norm 0.5.
 //  ba_edges     one thread per edge: the final inlier masks on [KL, F] and
@@ -45,6 +48,10 @@
 // Schur products of the co-visible pairs and the 96^3 / 3 solve, against
 // ~0.5 MB of inputs. The single-block solve and the launch chain set the
 // time: the card is latency-bound here, not throughput-bound.
+//
+// Up to 64 cameras (global BA's window, optim/global_ba.py): a landmark's
+// edge sets are 64-bit masks. Local BA's 10-16 cameras run the same
+// arithmetic as with 32-bit masks and the shared-memory solve.
 //
 // Numerics: float32; every per-edge formula follows the plain version's
 // op order, but the sums over landmarks and cameras run in another order
@@ -57,7 +64,11 @@
 
 namespace {
 
-constexpr int MAXKL = 32;
+constexpr int MAXKL = 64;
+// the largest reduced camera system the solve keeps in shared memory
+constexpr size_t MAX_SOLVE_SMEM = 200 * 1024;
+
+typedef unsigned long long Bits;   // bit k: camera k
 constexpr int RED_THREADS = 256;
 constexpr int SOLVE_THREADS = 512;
 
@@ -83,9 +94,9 @@ struct Work {
   float* X;                 // [NJ, 3] points, line starts, line ends
   float* pgrid;             // [KL, PL, 4] u, v, info, count
   float* lgrid;             // [KL, LL, 5] l0, l1, l2, info, count
-  unsigned* edge_bits;      // [PL + LL] bit k: edge in camera k
-  unsigned* act_bits;       // [NJ] bit k: active edge of this phase
-  unsigned* inl_bits;       // [PL + LL] final inliers
+  Bits* edge_bits;          // [PL + LL] bit k: edge in camera k
+  Bits* act_bits;           // [NJ] bit k: active edge of this phase
+  Bits* inl_bits;           // [PL + LL] final inliers
   float* A;                 // [KL, NJ, 18]
   float* AHi;               // [KL, NJ, 18]
   float* HB;                // [KL, NJ, 27] Hcc upper 21, sum wJ r 6
@@ -96,6 +107,8 @@ struct Work {
   float* Hk;                // [KL, 33] Hcc 21, sum wJ r 6, A Hpp^-1 bp 6
   float* dxc;               // [KL, 6]
   float* cost;              // [1]
+  float* Sg;                // [6KL (6KL + 1)] the solve's matrix when it
+                            // does not fit in shared memory
 };
 
 struct Proj {
@@ -211,19 +224,19 @@ __global__ void classify_kernel(Work W, int mode) {
   if (t >= W.PL + W.LL) return;
   const bool is_pt = t < W.PL;
   const int l = t - W.PL;
-  unsigned bits = 0;
+  Bits bits = 0;
   if (mode == 0) {
     const bool valid = is_pt ? W.mp_valid[t] : W.ln_valid[l];
     for (int k = 0; k < W.KL; ++k) {
       const float cnt = is_pt ? W.pgrid[((size_t)k * W.PL + t) * 4 + 3]
                               : W.lgrid[((size_t)k * W.LL + l) * 5 + 4];
-      if (cnt > 0.5f && valid) bits |= 1u << k;
+      if (cnt > 0.5f && valid) bits |= 1ull << k;
     }
     W.edge_bits[t] = bits;
   } else {
-    const unsigned edge = W.edge_bits[t];
+    const Bits edge = W.edge_bits[t];
     for (int k = 0; k < W.KL; ++k) {
-      if (!((edge >> k) & 1u)) continue;
+      if (!((edge >> k) & 1ull)) continue;
       bool keep;
       if (is_pt) {
         float z;
@@ -232,14 +245,14 @@ __global__ void classify_kernel(Work W, int mode) {
       } else {
         keep = line_keep(W, k, l);
       }
-      if (keep) bits |= 1u << k;
+      if (keep) bits |= 1ull << k;
     }
     if (mode == 2) {
       W.inl_bits[t] = bits;
       return;
     }
   }
-  const unsigned act = __popc(bits) >= 2 ? bits : 0u;
+  const Bits act = __popcll(bits) >= 2 ? bits : 0ull;
   if (is_pt) {
     W.act_bits[t] = act;
   } else {
@@ -251,7 +264,7 @@ __global__ void classify_kernel(Work W, int mode) {
 // ---- ba_landmarks ----
 // Hpp^-1 (damped, trace-relative floor; `_plane_inv3`), the column's
 // A Hpp^-1 blocks, Hpi and bp = -g.
-__device__ void finish_column(const Work& W, int j, unsigned act, const float* H,
+__device__ void finish_column(const Work& W, int j, Bits act, const float* H,
                               const float* g) {
   float Hi[9];
 #pragma unroll
@@ -275,7 +288,7 @@ __device__ void finish_column(const Work& W, int j, unsigned act, const float* H
     Hi[3] = co01 * idet; Hi[4] = co11 * idet; Hi[5] = co12 * idet;
     Hi[6] = co02 * idet; Hi[7] = co12 * idet; Hi[8] = co22 * idet;
     for (int k = 0; k < W.KL; ++k) {
-      if (!((act >> k) & 1u)) continue;
+      if (!((act >> k) & 1ull)) continue;
       const float* a = W.A + blk(W, k, j) * 18;
       float* ah = W.AHi + blk(W, k, j) * 18;
 #pragma unroll
@@ -350,10 +363,10 @@ __global__ void landmarks_kernel(Work W) {
   float cost = 0.f;
   if (t < W.PL) {
     const int j = t;
-    const unsigned act = W.act_bits[j];
+    const Bits act = W.act_bits[j];
     float H[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, g[3] = {0.f, 0.f, 0.f};
     for (int k = 0; k < W.KL; ++k) {
-      if (!((act >> k) & 1u)) continue;
+      if (!((act >> k) & 1ull)) continue;
       float R[9], tt[3];
       load_cam(W.T, k, R, tt);
       const float* gr = W.pgrid + ((size_t)k * W.PL + j) * 4;
@@ -375,10 +388,10 @@ __global__ void landmarks_kernel(Work W) {
   }
   const int l = t - W.PL;
   const int js = W.PL + l, je = W.PL + W.LL + l;
-  const unsigned act = W.act_bits[js];
+  const Bits act = W.act_bits[js];
   float H[2][6] = {}, g[2][3] = {};
   for (int k = 0; k < W.KL; ++k) {
-    if (!((act >> k) & 1u)) continue;
+    if (!((act >> k) & 1ull)) continue;
     float R[9], tt[3];
     load_cam(W.T, k, R, tt);
     const float* gr = W.lgrid + ((size_t)k * W.LL + l) * 5;
@@ -440,8 +453,8 @@ __global__ void __launch_bounds__(RED_THREADS) reduce_kernel(Work W) {
 #pragma unroll
     for (int q = 0; q < 36; ++q) acc[q] = 0.f;
     for (int j = threadIdx.x; j < W.NJ; j += RED_THREADS) {
-      const unsigned bits = W.act_bits[j];
-      if (!((bits >> k1) & (bits >> k2) & 1u)) continue;
+      const Bits bits = W.act_bits[j];
+      if (!((bits >> k1) & (bits >> k2) & 1ull)) continue;
       const float* ah = W.AHi + blk(W, k1, j) * 18;
       const float* a = W.A + blk(W, k2, j) * 18;
       float av[18], hv[18];
@@ -463,7 +476,7 @@ __global__ void __launch_bounds__(RED_THREADS) reduce_kernel(Work W) {
 #pragma unroll
   for (int q = 0; q < 33; ++q) acc[q] = 0.f;
   for (int j = threadIdx.x; j < W.NJ; j += RED_THREADS) {
-    if (!((W.act_bits[j] >> k) & 1u)) continue;
+    if (!((W.act_bits[j] >> k) & 1ull)) continue;
     const float* hb = W.HB + blk(W, k, j) * 27;
 #pragma unroll
     for (int q = 0; q < 27; ++q) acc[q] += hb[q];
@@ -516,18 +529,38 @@ __device__ void se3_update(const float* x, float* T) {
   for (int q = 0; q < 12; ++q) T[q] = Tn[q];
 }
 
+// SHARED: the augmented system of all KL cameras in dynamic shared memory
+// (KL <= 32). Otherwise in W.Sg, global memory that stays in L2, and over
+// the free cameras only: a fixed or invalid camera's rows are
+// (1 + 1e-6) I with a zero right side and zero coupling, so its step is
+// exactly zero, the LU never pivots on it and eliminating with it changes
+// no other entry; dropping it gives the free rows the same values (only
+// the back substitution's lanes sum them in another order). Global BA's
+// window of 64 slots is partly invalid and fixes its first keyframe. The
+// shared form keeps every row, so local BA's sums keep their order.
+template <bool SHARED>
 __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(Work W) {
-  extern __shared__ float Sm[];
+  extern __shared__ float smem[];
+  float* Sm = SHARED ? smem : W.Sg;
   __shared__ float xs[6 * MAXKL];
   __shared__ float cred[SOLVE_THREADS / 32];
   __shared__ int piv;
-  const int n = 6 * W.KL, ld = n + 1;
+  __shared__ int cam_of[MAXKL];   // row block -> camera
+  __shared__ int nblk;
+  if (threadIdx.x == 0) {
+    int m = 0;
+    for (int k = 0; k < W.KL; ++k)
+      if (SHARED || W.cam_free[k]) cam_of[m++] = k;
+    nblk = m;
+  }
+  __syncthreads();
+  const int n = 6 * nblk, ld = n + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // S = -sum A Hpp^-1 A^T + Hcc (1 + lam on the diagonal) on free x free
   // blocks, identity on fixed cameras, + 1e-6 I; b = (bc - A Hpp^-1 bp) fm
   for (int idx = threadIdx.x; idx < n * n; idx += SOLVE_THREADS) {
     const int r = idx / n, c = idx % n;
-    const int kr = r / 6, kc = c / 6, ir = r % 6, ic = c % 6;
+    const int kr = cam_of[r / 6], kc = cam_of[c / 6], ir = r % 6, ic = c % 6;
     float v;
     if (W.cam_free[kr] && W.cam_free[kc]) {
       const float* s = W.Sred + 36 * (size_t)pair_index(min(kr, kc), max(kr, kc), W.KL);
@@ -540,7 +573,7 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(Work W) {
     Sm[r * ld + c] = v;
   }
   for (int r = threadIdx.x; r < n; r += SOLVE_THREADS) {
-    const int k = r / 6, i = r % 6;
+    const int k = cam_of[r / 6], i = r % 6;
     Sm[r * ld + n] = W.cam_free[k] ? -W.Hk[33 * k + 21 + i] - W.Hk[33 * k + 27 + i] : 0.f;
   }
   __syncthreads();
@@ -591,14 +624,18 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(Work W) {
     }
   }
   __syncthreads();
-  if (threadIdx.x < W.KL) {
-    const int k = threadIdx.x;
+  if (!SHARED && threadIdx.x < W.KL && !W.cam_free[threadIdx.x]) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) W.dxc[6 * threadIdx.x + i] = 0.f;
+  }
+  if (threadIdx.x < nblk) {
+    const int b = threadIdx.x, k = cam_of[b];
     const bool fr = W.cam_free[k];
     float d[6];
     float nrm = 0.f;
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-      d[i] = fr ? xs[6 * k + i] : 0.f;
+      d[i] = fr ? xs[6 * b + i] : 0.f;
       W.dxc[6 * k + i] = d[i];
       nrm += d[i] * d[i];
     }
@@ -627,11 +664,11 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(Work W) {
 __global__ void backsub_kernel(Work W) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= W.NJ) return;
-  const unsigned act = W.act_bits[j];
+  const Bits act = W.act_bits[j];
   if (!act) return;
   float acc[3] = {0.f, 0.f, 0.f};
   for (int k = 0; k < W.KL; ++k) {
-    if (!((act >> k) & 1u)) continue;
+    if (!((act >> k) & 1ull)) continue;
     const float* a = W.A + blk(W, k, j) * 18;
     const float* d = W.dxc + 6 * k;
 #pragma unroll
@@ -662,7 +699,7 @@ __global__ void edges_kernel(Work W, bool* __restrict__ inl_pt, bool* __restrict
     const int k = (int)(i / W.F);
     const int e = W.edge_mp[i];
     inl_pt[i] = W.edge_valid[i] && W.kf_valid[k] && e >= 0 && e < W.PL &&
-                ((W.inl_bits[e] >> k) & 1u);
+                ((W.inl_bits[e] >> k) & 1ull);
     return;
   }
   const long long i2 = i - np;
@@ -670,7 +707,7 @@ __global__ void edges_kernel(Work W, bool* __restrict__ inl_pt, bool* __restrict
   const int k = (int)(i2 / W.LF);
   const int e = W.edge_ln[i2];
   inl_ln[i2] = W.ln_edge_valid[i2] && e >= 0 && e < W.LL &&
-               ((W.inl_bits[W.PL + e] >> k) & 1u);
+               ((W.inl_bits[W.PL + e] >> k) & 1ull);
 }
 
 int grid_for(long long n, int threads) { return (int)((n + threads - 1) / threads); }
@@ -713,12 +750,17 @@ extern "C" int sspl_ba_solve(const void* ws, void* stream) {
   const Work& W = *(const Work*)ws;
   const int n = 6 * W.KL;
   const size_t smem = (size_t)n * (n + 1) * sizeof(float);
+  if (smem > MAX_SOLVE_SMEM) {
+    if (W.Sg == nullptr) return (int)cudaErrorInvalidValue;
+    solve_kernel<false><<<1, SOLVE_THREADS, 0, (cudaStream_t)stream>>>(W);
+    return (int)cudaGetLastError();
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        solve_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  solve_kernel<<<1, SOLVE_THREADS, smem, (cudaStream_t)stream>>>(W);
+  solve_kernel<true><<<1, SOLVE_THREADS, smem, (cudaStream_t)stream>>>(W);
   return (int)cudaGetLastError();
 }
 

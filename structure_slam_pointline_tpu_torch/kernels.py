@@ -9,8 +9,9 @@ parallel, one `nvcc` each, at the first kernel call (or by an explicit
 `build_all()`); nothing is built or imported when a module is imported,
 so the CPU-only tests import every module without a CUDA toolkit.
 
-A source may export several entry points (`ENTRIES`), and two kernels
-may share one source (kernels 13 and 14 in `bow.cu`: each is built into
+A source may export several entry points (`ENTRIES`), a source may
+include the shared headers (`csrc/*.cuh`), and two kernels may share one
+source (kernels 13 and 14 in `bow.cu`: each is built into
 its own library and counted on its own); every launch of
 any of them adds one to its kernel's `COUNTS[name]`, where the wrapper
 launches it and nowhere else; `reset_counts()` zeroes them.
@@ -49,6 +50,9 @@ SOURCES = {
     "bow_transform": "bow.cu",
     "bow_query": "bow.cu",
     "ransac_pnp": "pnp.cu",
+    "ransac_sim3": "sim3_ransac.cu",
+    "sim3_pair": "sim3_pair.cu",
+    "pose_graph": "pose_graph.cu",
 }
 
 # kernels whose source is built with nvcc's default -fmad=true (every other
@@ -63,6 +67,8 @@ ENTRIES["kp_select"] = ("kp_select_cells", "kp_select_rank")
 ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
                        "ba_solve", "ba_backsub", "ba_edges")
 ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_count", "pnp_select")
+ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
+ENTRIES["pose_graph"] = ("pg_jacobians", "pg_assemble", "pg_solve", "pg_cost", "pg_decide")
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -128,6 +134,24 @@ _ARGTYPES = {
     # hyp, counts, pts_w, uv, mask, C, I, N, fx, fy, cx, cy, thresh, T_cw,
     # inliers, n_best, stream
     "pnp_select": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
+    # p1, p2, sets, I, fix_scale, scale, hyp, stream
+    "sim3_hypotheses": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # p1, p2, mask, scale, hyp, I, N, fx, fy, cx, cy, th1, th2, counts, stream
+    "sim3_count": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P],
+    # p1, p2, mask, scale, hyp, counts, I, N, fx, fy, cx, cy, th1, th2, S12,
+    # inliers, n_best, stream
+    "sim3_select": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P],
+    # S12, X1, X2, uv1, uv2, valid, sigma2_1, sigma2_2, N, fx, fy, cx, cy,
+    # chi2, delta, n_first, n_second, fix_scale, S_out, inliers, n_inliers, stream
+    "sim3_pair": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I,
+                  _P, _P, _P, _P],
+    # pose graph: a pointer to the host-side work description
+    # (optim/pose_graph.py _PG), one entry per launch of an iteration
+    "pg_jacobians": [_P, _P],
+    "pg_assemble": [_P, _P],
+    "pg_solve": [_P, _P],
+    "pg_cost": [_P, _P],
+    "pg_decide": [_P, _P],
 }
 
 

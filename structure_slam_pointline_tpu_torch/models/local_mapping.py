@@ -672,7 +672,8 @@ def _local_set(table: torch.Tensor, kf_ok: torch.Tensor, valid: torch.Tensor, ca
 
 
 def _gather_ba_device(state: MapState, local_kf: torch.Tensor, free: torch.Tensor,
-                      cfg: SLAMConfig, n_mp_cap: int = BA_LOCAL_MP):
+                      cfg: SLAMConfig, n_mp_cap: int = BA_LOCAL_MP,
+                      n_ln_cap: int = BA_LOCAL_LN):
     """(prob, lines, local_kf, local_mp, local_ln, n_dropped): landmarks
     with edges in the window, indexed locally; `lines` / `local_ln` are
     None with `use_lines` off, `n_dropped` counts landmarks past the caps."""
@@ -693,7 +694,7 @@ def _gather_ba_device(state: MapState, local_kf: torch.Tensor, free: torch.Tenso
     if not cfg.use_lines:
         return prob, None, local_kf, local_mp, None, n_drop
     local_ln, edge_ln_local, n_ln = _local_set(state.kf_line_ml[rows], kf_ok,
-                                               state.ml_valid, BA_LOCAL_LN)
+                                               state.ml_valid, n_ln_cap)
     ln_safe = torch.clamp(local_ln, 0, state.ml_valid.shape[0] - 1).long()
     lsigma2 = _pow(cfg.frontend.line_scale_factor, 2.0 * state.kf_loctave[rows].float())
     lines = local_ba.BALineProblem(
@@ -701,7 +702,7 @@ def _gather_ba_device(state: MapState, local_kf: torch.Tensor, free: torch.Tenso
         ln_valid=(local_ln >= 0) & state.ml_valid[ln_safe],
         obs_l=state.kf_line2d[rows], obs_sigma2=lsigma2, edge_ln=edge_ln_local,
         edge_valid=(edge_ln_local >= 0) & state.kf_line_valid[rows])
-    n_drop = n_drop + torch.clamp(n_ln - BA_LOCAL_LN, min=0)
+    n_drop = n_drop + torch.clamp(n_ln - n_ln_cap, min=0)
     return prob, lines, local_kf, local_mp, local_ln, n_drop
 
 

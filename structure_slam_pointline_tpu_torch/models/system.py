@@ -10,13 +10,16 @@ and reacts at chunk ends; a Python loop gains nothing from chunking.)
 A lost frame runs the reference's recovery ladder
 (`_attempt_relocalization`): the reference-keyframe rung, then BoW + PnP
 relocalization (models/relocalization.py), with the vocabulary and BoW
-index of a lazily created `LoopCloser`.
+index of a lazily created `LoopCloser`. With `enable_loop_closing`, a
+keyframe runs the loop closer's detect / verify / correct and global BA
+(`_run_loop_closing`): `track_sequence` feeds it every keyframe inserted
+since its last call (the reference's per-frame `_step_with_recovery`),
+`track()` the newest keyframe only (its `_track_device`).
 
 `SLAMSystem(cfg)` runs on the CUDA device and raises if there is none;
-`device="cpu"` is the explicit opt-in the tests use. The host reactions
-that are not ported yet raise NotImplementedError naming their ROADMAP.md
-item instead of being skipped: loop closing (queue 1 item 15) and pool
-compaction (item 16).
+`device="cpu"` is the explicit opt-in the tests use. Pool compaction is
+not ported yet: reaching its trigger raises NotImplementedError naming
+ROADMAP.md queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -30,16 +33,15 @@ import torch
 
 from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.models import local_mapping as lm
-from structure_slam_pointline_tpu_torch.models import pipeline, relocalization
+from structure_slam_pointline_tpu_torch.models import pipeline, relocalization, tracking
 from structure_slam_pointline_tpu_torch.models.loop_closing import LoopCloser
 from structure_slam_pointline_tpu_torch.models.tracking import Frame
 from structure_slam_pointline_tpu_torch.ops import matching, twoview
-from structure_slam_pointline_tpu_torch.optim import local_ba
+from structure_slam_pointline_tpu_torch.optim import global_ba, local_ba
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.metrics import Metrics
 from structure_slam_pointline_tpu_torch.world import map_store
 
-_LOOP = "loop closing is not ported yet: ROADMAP.md queue 1 item 15"
 _COMPACT = "pool compaction is not ported yet: ROADMAP.md queue 1 item 16"
 
 
@@ -130,6 +132,8 @@ class SLAMSystem:
                     if T_rec is not None:
                         self.metrics.count("reloc_success")
                         T_j, ok_j = torch.as_tensor(T_rec, device=self.device), True
+            elif out.is_kf and self.cfg.enable_loop_closing:
+                self._loop_close_new_keyframes()
             Ts.append(T_j)
             ok_out[j], inl_out[j], kf_out[j] = ok_j, out.n_inliers, out.ok and out.is_kf
         T_out = torch.stack(Ts).cpu().numpy()   # one device -> host copy
@@ -144,8 +148,9 @@ class SLAMSystem:
 
     def _step(self, img, frame_id: int) -> pipeline.FrameOut:
         """One `slam_step`, its counters and the keyframe reactions (cursor
-        sync, the compaction check, loop closing); the caller reacts to a
-        lost frame."""
+        sync, the compaction check); the caller reacts to a lost frame and
+        runs loop closing, which differs between `track` and
+        `track_sequence` as in the reference."""
         self.carry, out = pipeline.slam_step(self.carry, self._img(img), frame_id,
                                              self.intr, self.cfg,
                                              not self.localization_mode)
@@ -155,8 +160,6 @@ class SLAMSystem:
         if out.ok and out.is_kf:
             self.sync_cursors()
             self.maybe_compact()
-            if self.cfg.enable_loop_closing:
-                raise NotImplementedError(_LOOP)
         return out
 
     def _count_frame(self, out: pipeline.FrameOut) -> None:
@@ -329,6 +332,8 @@ class SLAMSystem:
             T = out.T_cw.cpu().numpy()
             self.last_T = T
             self._log(frame_id, T, out.n_inliers, out.is_kf)
+            if out.is_kf and self.cfg.enable_loop_closing:
+                self._run_loop_closing()
             return T
         self.sync_cursors()
         if self.cur.n_kf <= 5:
@@ -367,8 +372,57 @@ class SLAMSystem:
 
     def _get_loop_closer(self) -> LoopCloser:
         if self._loop_closer is None:
-            self._loop_closer = LoopCloser(self.cfg)
+            self._loop_closer = LoopCloser(self.cfg, self.intr, seed=self.cfg.seed)
         return self._loop_closer
+
+    def _loop_close_new_keyframes(self) -> None:
+        """Feed every keyframe inserted since the last call through the
+        loop closer (its own cursor: the allocation cursors may have moved
+        since)."""
+        self.sync_cursors()
+        for k in range(max(self._lc_processed_kf, 2), self.cur.n_kf):
+            self._run_loop_closing(k)
+        self._lc_processed_kf = self.cur.n_kf
+
+    def _run_loop_closing(self, k: int | None = None) -> None:
+        """Detect, verify and correct a loop at keyframe k (default: the
+        newest), then global BA and the carry update: T_last keeps its pose
+        relative to the newest keyframe, velocity restarts at I, the local
+        sets are recomputed (the fuse invalidated merged landmarks)."""
+        lc = self._get_loop_closer()
+        self.sync_cursors()
+        n_kf = self.cur.n_kf
+        if k is None:
+            k = n_kf - 1
+        if lc.voc is not None and lc.maybe_retrain(self.map, n_kf):
+            self.metrics.count("vocab_retrained")
+        lc.add_keyframe(self.map, k)
+        for cand in lc.detect(self.map, n_kf, k):
+            self.metrics.count("loop_candidates")
+            ver = lc.verify(self.map, k, cand.kf_id)
+            if ver is None:
+                continue
+            self.metrics.count("loop_verified")
+            new_state = lc.correct(self.map, n_kf, k, cand.kf_id, ver[0])
+            self.metrics.count("loop_corrected")
+            self._lm_base = None   # the fuse removed landmarks: re-baseline
+            new_state = global_ba.global_bundle_adjust(new_state, n_kf, self.intr, self.cfg,
+                                                       metrics=self.metrics)
+            kl = n_kf - 1
+            T_kl_old = self.map.kf_T_cw[kl].cpu().numpy()
+            T_kl_new = new_state.kf_T_cw[kl].cpu().numpy()
+            T_last_old = self.carry.T_last.cpu().numpy()
+            T_last_new = (T_last_old @ np.linalg.inv(T_kl_old) @ T_kl_new).astype(np.float32)
+            self.map = new_state
+            self.carry = self.carry._replace(
+                state=new_state,
+                T_last=torch.as_tensor(T_last_new, device=self.device),
+                velocity=torch.eye(4, dtype=torch.float32, device=self.device),
+                local_sets=tracking.compute_local_sets(
+                    new_state, n_kf, self.cfg.map.local_window_kf,
+                    self.cfg.map.local_points_cap, self.cfg.map.local_lines_cap))
+            self.last_T = T_last_new
+            break
 
     def _log(self, frame_id, T, n_inl, is_kf):
         self.log.append(FrameLog(frame_id, T, n_inl, is_kf, self.state))
@@ -392,6 +446,7 @@ class SLAMSystem:
         self.ref_frame_id = -1
         self.carry: Optional[pipeline.SLAMCarry] = None
         self._lm_base = None
+        self._lc_processed_kf = 2   # keyframes already fed to loop closing
 
     def maybe_compact(self) -> None:
         """The reference reclaims culled slots when a bump cursor passes

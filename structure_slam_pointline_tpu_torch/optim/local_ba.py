@@ -12,10 +12,12 @@ residual row each ([KL, LL] grids). Schedule: 5 iterations, the chi2 cut,
 reference (local_ba.py:286-315).
 
 `bundle_adjust` is the wrapper of CUDA kernel 12 (csrc/local_ba.cu: the
-whole schedule as a fixed chain of launches, no host synchronization).
+whole schedule as a fixed chain of launches, no host synchronization),
+for local BA's 10-16 keyframes and global BA's 64 (optim/global_ba.py).
 `bundle_adjust_plain` is its plain version: the schedule as torch ops,
 each Schur product one matmul, the reduced system by torch.linalg.solve
-(the reference's jnp.linalg.solve).
+(the reference's jnp.linalg.solve), over the valid keyframes and the
+landmarks that have an edge.
 """
 
 from __future__ import annotations
@@ -174,10 +176,83 @@ def _backsub(A, Hpi, bp, dxc, freef):
     return dxp * torch.clamp(0.5 / torch.clamp(pn, min=1e-9), max=1.0)
 
 
+def _used_columns(edge_ids, edge_ok, col_valid):
+    """(kept column ids, old -> new column map with -1 for dropped ones) of
+    the landmarks that have an edge and are valid; column 0 alone when none
+    is (an edgeless column changes nothing)."""
+    n = col_valid.shape[0]
+    used = torch.zeros(n + 1, dtype=torch.bool, device=col_valid.device)
+    used[torch.where(edge_ok, edge_ids.long(), n).reshape(-1)] = True
+    cols = torch.nonzero(used[:n] & col_valid)[:, 0]
+    if cols.numel() == 0:
+        cols = cols.new_zeros(1)
+    remap = torch.full((n + 1,), -1, dtype=edge_ids.dtype, device=col_valid.device)
+    remap[cols] = torch.arange(cols.shape[0], dtype=edge_ids.dtype, device=col_valid.device)
+    return cols, remap
+
+
 def bundle_adjust_plain(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
                         lines: BALineProblem | None = None) -> BAResult:
     """Run the 5 + cut + 15 schedule on the local problem; with `lines`,
-    map-line endpoints are optimized with the points."""
+    map-line endpoints are optimized with the points.
+
+    Invalid keyframes and landmarks without an edge take no part in it:
+    their poses and positions come back unchanged (a zero step) and they
+    have no inlier edges. So the schedule runs on the problem without them
+    (global BA's 64-keyframe, 16384-point window is mostly padding) and the
+    result is scattered back; only the order of the sums over the dropped
+    zeros differs. An invalid keyframe's line edges count, as in the
+    reference (only its point edges are masked), so its row stays while it
+    has one."""
+    KL, F = prob.edge_mp.shape
+    PL = prob.mp_xyz.shape[0]
+    keep = prob.kf_valid
+    if lines is not None:
+        LL = lines.ln_start.shape[0]
+        ln_ok = lines.edge_valid & (lines.edge_ln >= 0) & (lines.edge_ln < LL)
+        keep = keep | ln_ok.any(1)
+    rows = torch.nonzero(keep)[:, 0]
+    if rows.numel() == 0:
+        rows = rows.new_zeros(1)
+    pt_ok = prob.edge_valid & (prob.edge_mp >= 0) & (prob.edge_mp < PL) & prob.kf_valid[:, None]
+    cols, remap = _used_columns(prob.edge_mp, pt_ok, prob.mp_valid)
+    sub = BAProblem(
+        kf_T_cw=prob.kf_T_cw[rows], kf_free=prob.kf_free[rows], kf_valid=prob.kf_valid[rows],
+        obs_uv=prob.obs_uv[rows], obs_sigma2=prob.obs_sigma2[rows],
+        edge_mp=torch.where(pt_ok, remap[torch.clamp(prob.edge_mp, 0, PL).long()], -1)[rows],
+        edge_valid=pt_ok[rows], mp_xyz=prob.mp_xyz[cols], mp_valid=prob.mp_valid[cols])
+    sub_lines = None
+    if lines is not None:
+        lcols, lremap = _used_columns(lines.edge_ln, ln_ok, lines.ln_valid)
+        sub_lines = BALineProblem(
+            ln_start=lines.ln_start[lcols], ln_end=lines.ln_end[lcols],
+            ln_valid=lines.ln_valid[lcols], obs_l=lines.obs_l[rows],
+            obs_sigma2=lines.obs_sigma2[rows],
+            edge_ln=torch.where(ln_ok, lremap[torch.clamp(lines.edge_ln, 0, LL).long()],
+                                -1)[rows],
+            edge_valid=ln_ok[rows])
+    res = _bundle_adjust_dense(sub, intr, cfg, sub_lines)
+
+    def put(full, part, idx):
+        out = full.clone()
+        out[idx] = part
+        return out
+
+    inlier = put(torch.zeros((KL, F), dtype=torch.bool, device=rows.device),
+                 res.edge_inlier, rows)
+    out = BAResult(kf_T_cw=put(prob.kf_T_cw, res.kf_T_cw, rows),
+                   mp_xyz=put(prob.mp_xyz, res.mp_xyz, cols), edge_inlier=inlier, cost=res.cost)
+    if lines is None:
+        return out
+    line_inlier = put(torch.zeros(lines.edge_ln.shape, dtype=torch.bool, device=rows.device),
+                      res.line_inlier, rows)
+    return out._replace(ln_start=put(lines.ln_start, res.ln_start, lcols),
+                        ln_end=put(lines.ln_end, res.ln_end, lcols), line_inlier=line_inlier)
+
+
+def _bundle_adjust_dense(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
+                         lines: BALineProblem | None = None) -> BAResult:
+    """The schedule on dense [KL, PL] (and [KL, LL]) planes."""
     KL, F = prob.edge_mp.shape
     PL = prob.mp_xyz.shape[0]
     dtype = prob.kf_T_cw.dtype
@@ -326,7 +401,9 @@ def bundle_adjust_plain(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
                     ln_start=Xs2.T, ln_end=Xe2.T, line_inlier=line_inlier)
 
 
-MAX_BA_KEYFRAMES = 32   # kernel 12 keeps a landmark's edges as 32 bits
+MAX_BA_KEYFRAMES = 64   # kernel 12 keeps a landmark's edges as 64 bits
+# reduced camera systems above this many bytes are solved in global memory
+_MAX_SOLVE_SMEM = 200 * 1024
 
 
 class _Work(ctypes.Structure):
@@ -341,7 +418,7 @@ class _Work(ctypes.Structure):
                     "edge_valid", "mp_valid", "obs_l", "ln_sigma2", "edge_ln",
                     "ln_edge_valid", "ln_valid", "T", "X", "pgrid", "lgrid", "edge_bits",
                     "act_bits", "inl_bits", "A", "AHi", "HB", "Hpi", "bp", "lm_cost",
-                    "Sred", "Hk", "dxc", "cost")])
+                    "Sred", "Hk", "dxc", "cost", "Sg")])
 
 
 def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
@@ -351,7 +428,7 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
     default 5 + 15 iterations; no host synchronization), or raise."""
     if prob.kf_T_cw.device.type == "cpu":
         return bundle_adjust_plain(prob, intr, cfg, lines=lines)
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    f32, i32, i64, b8 = torch.float32, torch.int32, torch.int64, torch.bool
     KL, F = prob.edge_mp.shape
     PL = prob.mp_xyz.shape[0]
     if not 1 <= KL <= MAX_BA_KEYFRAMES:
@@ -382,11 +459,14 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
         T=T, X=X, cam_free=cam_free,
         pgrid=torch.zeros((KL, PL, 4), dtype=f32, device=dev),
         lgrid=torch.zeros((KL, max(LL, 1), 5), dtype=f32, device=dev),
-        edge_bits=empty(PL + LL, dt=i32), act_bits=empty(NJ, dt=i32),
-        inl_bits=empty(PL + LL, dt=i32), A=empty(KL, NJ, 18), AHi=empty(KL, NJ, 18),
+        edge_bits=empty(PL + LL, dt=i64), act_bits=empty(NJ, dt=i64),
+        inl_bits=empty(PL + LL, dt=i64), A=empty(KL, NJ, 18), AHi=empty(KL, NJ, 18),
         HB=empty(KL, NJ, 27), Hpi=empty(NJ, 9), bp=empty(NJ, 3), lm_cost=empty(PL + LL),
         Sred=empty(KL * (KL + 1) // 2, 36), Hk=empty(KL, 33), dxc=empty(KL, 6),
         cost=empty(1))
+    n_red = 6 * KL
+    if n_red * (n_red + 1) * 4 > _MAX_SOLVE_SMEM:
+        buf["Sg"] = empty(n_red * (n_red + 1))
     work = _Work(KL=KL, F=F, PL=PL, LF=LF, LL=LL, NJ=NJ, fx=intr.fx, fy=intr.fy,
                  cx=intr.cx, cy=intr.cy, chi2_mono=cfg.chi2_mono,
                  chi2_mono4=cfg.chi2_mono * 4, chi2_line2=2.0 * cfg.chi2_line,

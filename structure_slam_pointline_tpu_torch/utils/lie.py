@@ -1,11 +1,13 @@
 """SO(3) / SE(3) operations on batched torch tensors.
 
-Counterpart of structure_slam_pointline_tpu/utils/lie.py (the SE(3) half;
-Sim(3) belongs to loop closing, a later slice). Poses are 4x4 (or
-[..., 4, 4]) homogeneous matrices T_cw; tangent vectors are
+Counterpart of structure_slam_pointline_tpu/utils/lie.py. Poses are 4x4
+(or [..., 4, 4]) homogeneous matrices T_cw; tangent vectors are
 xi = (omega[0:3], upsilon[3:6]), rotation first, and updates are LEFT
-multiplicative, T' = exp(xi) @ T. Small-angle branches use the same
-Taylor expansions and thresholds as the reference.
+multiplicative, T' = exp(xi) @ T. Sim(3) elements are [..., 4, 4] with
+sR in the rotation block and tangents (omega, upsilon, sigma). Small-angle
+branches use the same Taylor expansions, thresholds and "safe"
+denominators as the reference, so forward-mode derivatives through them
+(optim/pose_graph.py) stay finite on every branch.
 """
 
 from __future__ import annotations
@@ -137,7 +139,101 @@ def se3_normalize(T: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(Rn, T[..., :3, 3])
 
 
+# ---------------------------------------------------------------------------
+# Sim(3) (the reference's lie.py:189-297), used by loop closing
+# ---------------------------------------------------------------------------
+
+def sim3_make(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return rt_to_mat(s[..., None, None] * R, t)
+
+
+def sim3_scale(S: torch.Tensor) -> torch.Tensor:
+    """Scale from the sR block (its rows have norm s)."""
+    return torch.linalg.norm(S[..., 0, :3], dim=-1)
+
+
+def sim3_rotation(S: torch.Tensor) -> torch.Tensor:
+    return S[..., :3, :3] / sim3_scale(S)[..., None, None]
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    s = sim3_scale(S)
+    R = sim3_rotation(S)
+    t = S[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    sinv = 1.0 / s
+    return sim3_make(sinv, Rt, -(sinv[..., None] * (Rt @ t[..., None])[..., 0]))
+
+
+def sim3_apply(S: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...ij,...j->...i", S[..., :3, :3], p) + S[..., :3, 3]
+
+
+def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """W of the Sim(3) exponential, t = W @ upsilon (the reference's
+    `_sim3_W`: Sophus' calcW with Taylor limits for small sigma / theta)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    sigma2 = sigma * sigma
+    s = torch.exp(sigma)
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta2 < _EPS
+    one = torch.ones_like(sigma)
+    zero = torch.zeros_like(sigma)
+
+    sig_safe = torch.where(small_sig, one, sigma)
+    th_safe = torch.where(small_th, one, theta)
+    th2_safe = torch.where(small_th, one, theta2)
+
+    C = torch.where(small_sig, 1.0 + sigma * 0.5 + sigma2 / 6.0, (s - 1.0) / sig_safe)
+
+    a = s * torch.sin(theta)
+    b = s * torch.cos(theta)
+    c = theta2 + sigma2
+    c_safe = torch.where(c < _EPS, one, c)
+
+    A_gen = (a * sigma + (1.0 - b) * theta) / (th_safe * c_safe)
+    B_gen = (C - ((b - 1.0) * sigma + a * theta) / c_safe) / th2_safe
+    A_sig = torch.where(small_sig, zero,
+                        ((sigma - 1.0) * s + 1.0) / torch.where(small_sig, one, sigma2))
+    B_sig = torch.where(small_sig, zero,
+                        ((0.5 * sigma2 - sigma + 1.0) * s - 1.0)
+                        / torch.where(small_sig, one, sigma2 * sig_safe))
+    _, A0, B0 = _sinc_factors(theta2)
+
+    A = torch.where(small_sig, A0, torch.where(small_th, A_sig, A_gen))
+    B = torch.where(small_sig, B0, torch.where(small_th, B_sig, B_gen))
+
+    W = hat(w)
+    W2 = W @ W
+    return C[..., None, None] * _eye3(W) + A[..., None, None] * W + B[..., None, None] * W2
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Exp map [..., 7] (omega, upsilon, sigma) -> Sim(3) [..., 4, 4]."""
+    w = xi[..., 0:3]
+    v = xi[..., 3:6]
+    sigma = xi[..., 6]
+    R = so3_exp(w)
+    Wm = _sim3_W(w, sigma)
+    t = (Wm @ v[..., None])[..., 0]
+    return sim3_make(torch.exp(sigma), R, t)
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Log map [..., 4, 4] -> [..., 7]; upsilon solves W(omega, sigma) v = t."""
+    s = sim3_scale(S)
+    R = sim3_rotation(S)
+    t = S[..., :3, 3]
+    w = so3_log(R)
+    sigma = torch.log(s)
+    Wm = _sim3_W(w, sigma)
+    v = torch.linalg.solve(Wm, t[..., None])[..., 0]
+    return torch.cat([w, v, sigma[..., None]], dim=-1)
+
+
 __all__ = [
     "hat", "vee", "so3_exp", "so3_log", "se3_exp", "rt_to_mat", "se3_inverse",
-    "se3_normalize",
+    "se3_normalize", "sim3_make", "sim3_scale", "sim3_rotation", "sim3_inverse",
+    "sim3_apply", "sim3_exp", "sim3_log",
 ]

@@ -172,6 +172,29 @@ def covisibility_weights(state: MapState, kf_id) -> torch.Tensor:
     return torch.where(state.kf_valid, w, torch.zeros_like(w))
 
 
+def covisibility_matrix(state: MapState) -> torch.Tensor:
+    """[K, K] int32 landmarks (points + lines) shared by every pair of
+    keyframes: two [K, P] / [K, L] indicator products, as the reference
+    (map_store.py:210) leaves them to XLA. The entries are integer counts
+    below 2^24, so the float32 products are exact."""
+    K, F = state.kf_kp_mp.shape
+    P = state.mp_valid.shape[0]
+    L = state.ml_valid.shape[0]
+    dev = state.kf_kp_mp.device
+
+    def indicator(table, cap):
+        rows = torch.arange(K, device=dev)[:, None].expand_as(table)
+        M = torch.zeros((K, cap + 1), dtype=torch.float32, device=dev)
+        M[rows, torch.where(table >= 0, table, cap).long()] = 1.0
+        return M[:, :cap]
+
+    Mp = indicator(state.kf_kp_mp, P)
+    Ml = indicator(state.kf_line_ml, L)
+    C = Mp @ Mp.T + Ml @ Ml.T
+    C = C * (state.kf_valid[:, None] & state.kf_valid[None, :])
+    return (C - torch.diag(torch.diag(C))).to(torch.int32)
+
+
 def compute_obs_bits_plain(state: MapState) -> torch.Tensor:
     """[P, K/32] int32 observer bitmasks from the [K, F] edge grid: an
     integer add of 2^(k mod 32) into word k // 32, mod 2^32 as the
@@ -251,6 +274,6 @@ def kf_match_votes(state: MapState, matched_pt: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["MapState", "MapCursors", "DESC_RING", "init_map", "point_obs_counts",
-           "line_obs_counts", "covisibility_weights", "compute_obs_bits",
+           "line_obs_counts", "covisibility_weights", "covisibility_matrix", "compute_obs_bits",
            "compute_obs_bits_plain", "votes_from_bits", "votes_from_bits_plain",
            "kf_match_votes"]

@@ -1,4 +1,4 @@
-"""The fifteen CUDA kernels of the PyTorch port against their plain
+"""The eighteen CUDA kernels of the PyTorch port against their plain
 versions, on the card, at the main path's and the relocalization path's
 shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
@@ -8,7 +8,11 @@ keypoints and the LSD anchor selection, 12 x 2048 null-vector systems,
 the [256, 2048] observer grid, local BA with 16 keyframes, 2048 points
 and 256 lines; the BoW transform of 24 keyframes x 1024 descriptors and a
 [256, 4096] database query, RANSAC PnP over 16 candidates x 256
-hypotheses x 1024 points). Marked `gpu`: they skip without a CUDA device. Run
+hypotheses x 1024 points; on the loop-closing path Sim(3) RANSAC over 128
+hypotheses x 1024 pairs, the Sim(3) pair refinement over 1024 pairs, the
+pose graph at the 256-keyframe capacity with 60 valid vertices, and local
+BA at global BA's 64 keyframes, 16384 points and 1024 lines). Marked
+`gpu`: they skip without a CUDA device. Run
 on the card:
 
     python -m pytest -o addopts="" -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
@@ -41,7 +45,14 @@ kernel's order). RANSAC PnP: the same chosen hypothesis and count on
 every candidate, poses within 1e-4, per-hypothesis counts equal on >= 99%
 (the kernel's float64 Jacobi null vector and the plain version's float32
 SVD differ in the last bits, which can move a point across the chi2
-border), and every hypothesis orthonormal.
+border), and every hypothesis orthonormal. Sim(3) RANSAC: the same chosen
+hypothesis and count, S12 and the scales within 1e-4, counts equal on
+>= 99% (float64 Jacobi against float32 eigh, as for PnP). The pair
+refinement: S12 within 1e-4, inlier masks equal on >= 99.5% (analytic
+against forward-mode Jacobians, sums in another order). The pose graph:
+vertices within 1e-4, invalid ones untouched, two launches bit-identical,
+no host synchronization. Local BA at 64 keyframes: as at 16, and its 8
+invalid slots keep their poses with no inlier point edge.
 """
 
 import numpy as np
@@ -54,7 +65,7 @@ from structure_slam_pointline_tpu_torch.config import (CameraConfig, FrontendCon
 from structure_slam_pointline_tpu_torch.io import synthetic
 from structure_slam_pointline_tpu_torch.ops import (bow, extract, fast, hamming, lbd, lsd, orb,
                                                    pnp, pyramid)
-from structure_slam_pointline_tpu_torch.optim import local_ba, pose_opt
+from structure_slam_pointline_tpu_torch.optim import local_ba, pose_graph, pose_opt, sim3_solver
 from structure_slam_pointline_tpu_torch.utils import fmath, linalg
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.world import map_store
@@ -435,7 +446,10 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (local_ba, "bundle_adjust_plain"),
                       (map_store, "compute_obs_bits_plain"),
                       (map_store, "votes_from_bits_plain"), (bow, "transform_plain"),
-                      (bow, "query_database_plain"), (pnp, "ransac_pnp_plain")):
+                      (bow, "query_database_plain"), (pnp, "ransac_pnp_plain"),
+                      (sim3_solver, "ransac_sim3_plain"),
+                      (pose_graph, "optimize_sim3_pair_plain"),
+                      (pose_graph, "optimize_pose_graph_plain")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -449,6 +463,11 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     bow.query_database(vec[0], vec, torch.ones(2, dtype=torch.bool, device=cuda))
     pts, uv, mask, sets, _ = pnp_problem(C=2, N=64, I=8)
     pnp.ransac_pnp(pts.to(cuda), uv.to(cuda), mask.to(cuda), sets.to(cuda), PNP_INTR)
+    p1, p2, smask, ssets = sim3_problem(N=64, I=8)
+    sim3_solver.ransac_sim3(p1.to(cuda), p2.to(cuda), smask.to(cuda), ssets.to(cuda), PNP_INTR)
+    pose_graph.optimize_sim3_pair(*[t.to(cuda) for t in sim3_pair_problem(N=64)],
+                                  PNP_INTR.fx, PNP_INTR.fy, PNP_INTR.cx, PNP_INTR.cy)
+    pose_graph.optimize_pose_graph(_to(pose_graph_problem(K=16, n_valid=12), cuda), n_iters=3)
     torch.cuda.synchronize()
 
 
@@ -550,3 +569,171 @@ def test_ransac_pnp_matches_plain(cuda):
     eye = torch.eye(3, dtype=torch.float64, device=cuda)
     assert (R.transpose(-1, -2) @ R - eye).abs().max().item() <= 1e-5
     assert np.abs(rk.T_cw.cpu().numpy()[:, :3, 3] - T_gt[:, :3, 3]).max() <= 0.05
+
+
+def _sim3(xi):
+    from structure_slam_pointline_tpu_torch.utils import lie
+
+    return lie.sim3_exp(torch.as_tensor(np.asarray(xi, np.float32)))
+
+
+def sim3_problem(N=1024, I=128, seed=17):
+    """N matched pairs in two camera frames related by a Sim(3) (30%
+    outliers, ~25% masked) and I three-point sample sets of unmasked pairs."""
+    g = np.random.default_rng(seed)
+    p2 = np.stack([g.uniform(-2, 2, N), g.uniform(-1.5, 1.5, N), g.uniform(3, 8, N)], 1)
+    S = _sim3([0.05, -0.1, 0.08, 0.3, 0.1, -0.4, np.log(1.1)]).numpy()
+    p1 = p2 @ S[:3, :3].T + S[:3, 3]
+    out = g.uniform(size=N) < 0.3
+    p1[out] += g.normal(0, 0.5, (int(out.sum()), 3))
+    mask = g.uniform(size=N) > 0.25
+    sel = np.nonzero(mask)[0]
+    sets = np.stack([g.choice(sel, 3, replace=False) for _ in range(I)])
+    f = lambda a, dt: torch.from_numpy(np.asarray(a)).to(dt)  # noqa: E731
+    return (f(p1, torch.float32), f(p2, torch.float32), f(mask, torch.bool),
+            f(sets, torch.int32))
+
+
+def sim3_pair_problem(N=1024, seed=19):
+    """The arguments of optimize_sim3_pair before the camera: a perturbed
+    Sim(3), N pairs with 20% wrong matches, ~10% invalid, octave
+    variances."""
+    g = np.random.default_rng(seed)
+    X2 = np.stack([g.uniform(-2, 2, N), g.uniform(-1.5, 1.5, N), g.uniform(3, 8, N)], 1)
+    S = _sim3([0.03, -0.05, 0.02, 0.2, -0.1, 0.15, np.log(1.12)]).numpy()
+    X1 = X2 @ S[:3, :3].T + S[:3, 3]
+    intr = PNP_INTR
+
+    def proj(p):
+        return np.stack([p[:, 0] / p[:, 2] * intr.fx + intr.cx,
+                         p[:, 1] / p[:, 2] * intr.fy + intr.cy], 1)
+
+    uv1 = proj(X1) + g.normal(0, 0.5, (N, 2))
+    uv2 = proj(X2) + g.normal(0, 0.5, (N, 2))
+    bad = g.choice(N, N // 5, replace=False)
+    X2[bad] = X2[np.roll(bad, 3)]
+    S0 = _sim3([0.02, -0.01, 0.015, 0.05, 0.05, -0.05, 0.02]).numpy() @ S
+    sig1 = 1.2 ** (2 * g.integers(0, 4, N))
+    sig2 = 1.2 ** (2 * g.integers(0, 4, N))
+    f = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt)  # noqa: E731
+    return (f(S0), f(X1), f(X2), f(uv1), f(uv2), f(g.uniform(size=N) > 0.1, torch.bool),
+            f(sig1), f(sig2))
+
+
+def pose_graph_problem(K=256, n_valid=60, seed=23):
+    """An essential graph at the map's capacity: n_valid keyframes on a
+    drifted circle (the rest invalid), the odometry chain, covisibility
+    edges to the next 2-4 keyframes, one loop edge of weight 5, vertex 0
+    and the loop keyframe fixed."""
+    g = np.random.default_rng(seed)
+    gt = np.stack([_sim3([0.0, 2 * np.pi * k / n_valid, 0.0, np.cos(2 * np.pi * k / n_valid),
+                          0.0, np.sin(2 * np.pi * k / n_valid), 0.0]).numpy()
+                   for k in range(n_valid)])
+    S = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    drift = np.eye(4, dtype=np.float32)
+    for k in range(n_valid):
+        drift = _sim3(np.concatenate([g.normal(0, 0.005, 3), g.normal(0, 0.01, 3),
+                                      g.normal(0, 0.005, 1)])).numpy() @ drift
+        S[k] = drift @ gt[k]
+    ei, ej, w = [], [], []
+    for a in range(n_valid - 1):
+        for b in range(a + 1, min(a + 1 + g.integers(1, 4), n_valid)):
+            ei.append(a)
+            ej.append(b)
+            w.append(1.0)
+    ei.append(2)
+    ej.append(n_valid - 1)
+    w.append(5.0)
+    meas = np.stack([gt[j] @ np.linalg.inv(gt[i]) for i, j in zip(ei, ej)])
+    fixed = np.zeros(K, bool)
+    fixed[[0, 2]] = True
+    f = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt)  # noqa: E731
+    return pose_graph.PoseGraphProblem(
+        S_cw=f(S), kf_valid=f(np.arange(K) < n_valid, torch.bool), kf_fixed=f(fixed, torch.bool),
+        edge_i=f(ei, torch.int32), edge_j=f(ej, torch.int32), edge_Sji=f(meas),
+        edge_valid=torch.ones(len(ei), dtype=torch.bool), edge_weight=f(w))
+
+
+def _check_ransac_sim3(cuda):
+    args = [t.to(cuda) for t in sim3_problem()]
+    before = kernels.COUNTS["ransac_sim3"]
+    rk = sim3_solver.ransac_sim3(*args, PNP_INTR)
+    rp = sim3_solver.ransac_sim3_plain(*args, PNP_INTR)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["ransac_sim3"] == before + 3
+    assert torch.equal(torch.argmax(rk.counts), torch.argmax(rp.counts))
+    assert int(rk.n_inliers) == int(rp.n_inliers) and bool(rk.success)
+    assert (rk.S12 - rp.S12).abs().max().item() <= 1e-4
+    assert (rk.counts == rp.counts).float().mean().item() >= 0.99
+    assert (rk.scale - rp.scale).abs().max().item() <= 1e-4
+
+
+def _check_optimize_sim3_pair(cuda):
+    args = [t.to(cuda) for t in sim3_pair_problem()]
+    cam = (PNP_INTR.fx, PNP_INTR.fy, PNP_INTR.cx, PNP_INTR.cy)
+    before = kernels.COUNTS["sim3_pair"]
+    rk = pose_graph.optimize_sim3_pair(*args, *cam)
+    rp = pose_graph.optimize_sim3_pair_plain(*args, *cam)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["sim3_pair"] == before + 1
+    assert (rk.S12 - rp.S12).abs().max().item() <= 1e-4
+    assert (rk.inliers == rp.inliers).float().mean().item() >= 0.995
+    assert int(rk.n_inliers) >= 500       # of ~740 true pairs
+
+
+def _check_optimize_pose_graph(cuda):
+    prob = _to(pose_graph_problem(), cuda)
+    before = kernels.COUNTS["pose_graph"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk = pose_graph.optimize_pose_graph(prob, n_iters=25, lam_init=1e-16)
+        sk2 = pose_graph.optimize_pose_graph(prob, n_iters=25, lam_init=1e-16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sp = pose_graph.optimize_pose_graph_plain(prob, n_iters=25, lam_init=1e-16)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["pose_graph"] == before + 2 * 25 * 5
+    assert torch.equal(sk, sk2)
+    valid = prob.kf_valid
+    assert (sk - sp)[valid].abs().max().item() <= 1e-4
+    assert torch.equal(sk[~valid], prob.S_cw[~valid])
+    assert (sk - prob.S_cw)[valid].abs().max().item() > 1e-3
+
+
+def _check_local_ba_64_keyframes(cuda):
+    """Global BA's shape: 64 keyframes (the solve in global memory, over
+    the free cameras only), 16384 points and 1024 lines; the last 8 slots
+    invalid, as a window's padding is."""
+    prob, lines, intr = ba_problem(KL=64, PL=16384, LL=1024, F=1024, LF=64)
+    prob = prob._replace(kf_valid=torch.arange(64) < 56)
+    prob, lines = _to(prob, cuda), _to(lines, cuda)
+    cfg = OptimConfig()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rk = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
+        rk2 = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rp = local_ba.bundle_adjust_plain(prob, intr, cfg, lines=lines)
+    for a, b in zip(rk, rk2):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert (rk.kf_T_cw - rp.kf_T_cw).abs().max().item() <= 1e-3
+    for a, b in ((rk.mp_xyz, rp.mp_xyz), (rk.ln_start, rp.ln_start), (rk.ln_end, rp.ln_end)):
+        assert (a - b).abs().max().item() <= 1e-3
+    assert (rk.edge_inlier == rp.edge_inlier).float().mean().item() >= 0.995
+    assert (rk.line_inlier == rp.line_inlier).float().mean().item() >= 0.995
+    assert torch.equal(rk.kf_T_cw[56:], prob.kf_T_cw[56:])
+    assert not rk.edge_inlier[56:].any()
+
+
+def test_loop_closing_kernels_match_plain(cuda):
+    """Kernels 16, 17 and 18 and kernel 12 at 64 keyframes, each against
+    its plain version (one item: the suite's xdist schedule depends on
+    the number of items, tests/test_torch_loop_closing.py)."""
+    _check_ransac_sim3(cuda)
+    _check_optimize_sim3_pair(cuda)
+    _check_optimize_pose_graph(cuda)
+    _check_local_ba_64_keyframes(cuda)

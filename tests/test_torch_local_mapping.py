@@ -194,3 +194,97 @@ def test_apply_ba_result_and_culls():
     assert_tuple_close(st5_r, st5, atol=0.0)
     st6 = tlm.cull_keyframes(st5, k1, tc, obs=obs, cand_ids=torch.from_numpy(S["cand"]))
     assert_tuple_close(st6_r, st6, atol=0.0)
+
+
+def _padded_ba_problem():
+    """A synthetic BA problem with every kind of padding the windows carry:
+    8 camera slots on a 0.6 m baseline looking at 64 points and 8 lines
+    (slots 6 and 7 invalid, slot 6 still holding point and line edges; slot
+    0 fixed), 10 valid points and one valid line without an edge, 8
+    invalid points observed from slot 1, one invalid line; 0.5 px noise,
+    and poses and landmarks moved off their true values."""
+    from structure_slam_pointline_tpu_torch.utils import lie
+
+    g = np.random.default_rng(7)
+    _, tc = configs()
+    intr = Intrinsics.from_config(tc.camera)
+    KL, PL, LL = 8, 64, 8
+    Xw = np.stack([g.uniform(-1.2, 1.2, PL), g.uniform(-0.8, 0.8, PL),
+                   g.uniform(3.0, 6.0, PL)], 1).astype(np.float32)
+    Ls = np.stack([g.uniform(-1, 1, LL), g.uniform(-0.6, -0.2, LL), g.uniform(3.5, 5, LL)], 1)
+    Le = Ls + np.stack([g.uniform(-0.5, 0.5, LL), g.uniform(0.5, 0.9, LL),
+                        g.uniform(-0.3, 0.3, LL)], 1)
+    T = np.tile(np.eye(4, dtype=np.float32), (KL, 1, 1))
+    T[:, 0, 3] = np.linspace(-0.3, 0.3, KL)
+
+    def proj(k, X):
+        c = X @ T[k, :3, :3].T + T[k, :3, 3]
+        return np.stack([intr.fx * c[:, 0] / c[:, 2] + intr.cx,
+                         intr.fy * c[:, 1] / c[:, 2] + intr.cy], 1)
+
+    seen = np.r_[0:48, 56:64]                       # 48-55: valid, no edge
+    obs_uv = np.zeros((KL, PL, 2), np.float32)
+    edge_mp = np.full((KL, PL), -1, np.int32)
+    lines_seen = np.r_[0:6, 7]                      # 6: valid, no edge
+    obs_l = np.zeros((KL, LL, 3), np.float32)
+    edge_ln = np.full((KL, LL), -1, np.int32)
+    for k in range(KL - 1):                         # slot 7: no edge at all
+        pts = seen if k == 1 else seen[:48]
+        obs_uv[k, :len(pts)] = proj(k, Xw[pts]) + g.normal(0, 0.5, (len(pts), 2))
+        edge_mp[k, :len(pts)] = pts
+        a, b = proj(k, Ls[lines_seen]), proj(k, Le[lines_seen])
+        a, b = (np.concatenate([p + g.normal(0, 0.5, p.shape), np.ones((len(p), 1))], 1)
+                for p in (a, b))
+        ln = np.cross(a, b)
+        obs_l[k, :len(lines_seen)] = ln / np.hypot(ln[:, :1], ln[:, 1:2])
+        edge_ln[k, :len(lines_seen)] = lines_seen
+    xi = np.concatenate([g.normal(0, 0.01, (KL, 3)), g.normal(0, 0.03, (KL, 3))], 1)
+    T0 = (lie.se3_exp(torch.from_numpy(xi.astype(np.float32))).numpy() @ T).astype(np.float32)
+    T0[0] = T[0]
+    kf_valid = np.arange(KL) < 6
+    prob = tba.BAProblem(
+        kf_T_cw=torch.from_numpy(T0), kf_free=torch.from_numpy(np.arange(KL) > 0),
+        kf_valid=torch.from_numpy(kf_valid), obs_uv=torch.from_numpy(obs_uv),
+        obs_sigma2=torch.ones(KL, PL), edge_mp=torch.from_numpy(edge_mp),
+        edge_valid=torch.from_numpy(edge_mp >= 0),
+        mp_xyz=torch.from_numpy((Xw + g.normal(0, 0.05, Xw.shape)).astype(np.float32)),
+        mp_valid=torch.from_numpy(np.arange(PL) < 56))
+    move = lambda X: torch.from_numpy((X + g.normal(0, 0.05, X.shape)).astype(np.float32))  # noqa: E731
+    lines = tba.BALineProblem(
+        ln_start=move(Ls), ln_end=move(Le), ln_valid=torch.from_numpy(np.arange(LL) < 7),
+        obs_l=torch.from_numpy(obs_l), obs_sigma2=torch.ones(KL, LL),
+        edge_ln=torch.from_numpy(edge_ln), edge_valid=torch.from_numpy(edge_ln >= 0))
+    return prob, lines, intr, tc
+
+
+def test_bundle_adjust_plain_drops_only_padding():
+    """`bundle_adjust_plain` solves the problem without its invalid
+    keyframes and edgeless landmarks; on a padded problem it must give what
+    the dense schedule gives on every row and column (the path it
+    replaced): inlier masks equal, poses and points within 1e-5 and line
+    endpoints within 5e-5 (the same float32 arithmetic, only the sums'
+    blocking over the dropped zeros differs; measured 7e-6 and 1.7e-5: an
+    endpoint is held weakly along its line), padding returned unchanged.
+    Dropping the invalid slot's line edges instead moves the result by 0.5."""
+    prob, lines, intr, tc = _padded_ba_problem()
+    for ln in (None, lines):
+        out = tba.bundle_adjust_plain(prob, intr, tc.optim, lines=ln)
+        ref = tba._bundle_adjust_dense(prob, intr, tc.optim, lines=ln)
+        fields = ["kf_T_cw", "mp_xyz"] + (["ln_start", "ln_end"] if ln is not None else [])
+        masks = ["edge_inlier"] + (["line_inlier"] if ln is not None else [])
+        for f in masks:
+            np.testing.assert_array_equal(getattr(out, f).numpy(), getattr(ref, f).numpy(),
+                                          err_msg=f)
+        for f in fields:
+            np.testing.assert_allclose(getattr(out, f).numpy(), getattr(ref, f).numpy(),
+                                       atol=5e-5 if f.startswith("ln") else 1e-5, rtol=0,
+                                       err_msg=f)
+        assert out.edge_inlier[:6, :48].float().mean() > 0.9
+        assert not out.edge_inlier[6:].any() and not out.edge_inlier[1, 48:].any()
+        assert np.abs(out.kf_T_cw.numpy()[1:6] - prob.kf_T_cw.numpy()[1:6]).max() > 1e-3
+        np.testing.assert_array_equal(out.kf_T_cw.numpy()[[0, 6, 7]],
+                                      prob.kf_T_cw.numpy()[[0, 6, 7]])
+        np.testing.assert_array_equal(out.mp_xyz.numpy()[48:], prob.mp_xyz.numpy()[48:])
+        if ln is not None:
+            assert out.line_inlier[6, :6].any()     # the invalid slot's line edges count
+            np.testing.assert_array_equal(out.ln_start.numpy()[6:], lines.ln_start.numpy()[6:])

@@ -228,15 +228,15 @@ def _reloc_inputs():
     lc_j = JLoopCloser(jc, intr_j)
     assert lc_j.ensure_vocabulary(jstate, n_kf)
     tstate = convert.map_state_from_numpy(d["state"], "cpu")
+    intr_t = Intrinsics.from_config(tc.camera)
     lc_t = convert.bow_index_from_numpy(
-        TLoopCloser(tc),
+        TLoopCloser(tc, intr_t),
         convert.vocabulary_from_numpy([np.asarray(c) for c in lc_j.voc.centers], 8, 4),
         lc_j.kf_bows, lc_j.kf_words, "cpu")
     cam = jcfg_mod.CameraConfig(**CAM)
     scene = synthetic.make_room_scene(350, 40, seed=0)
     pose0 = synthetic.circular_trajectory(120, radius=0.5)[0]
     img = synthetic.render(scene, pose0, cam, noise=2.0, seed=4321)
-    intr_t = Intrinsics.from_config(tc.camera)
     revisit = convert.frame_to_numpy(tpipe.build_frame_device(torch.from_numpy(img), intr_t, tc))
     return dict(jc=jc, tc=tc, n_kf=n_kf, jstate=jstate, tstate=tstate, lc_j=lc_j, lc_t=lc_t,
                 intr_j=intr_j, intr_t=intr_t, d=d, revisit=revisit, next_frame=boot["frame"])
@@ -249,7 +249,7 @@ def _tframe(d):
 
 def test_index_matches_reference_and_own_training():
     r = _reloc_inputs()
-    own = TLoopCloser(r["tc"])
+    own = TLoopCloser(r["tc"], r["intr_t"])
     assert own.ensure_vocabulary(r["tstate"], r["n_kf"])
     np.testing.assert_array_equal(own.kf_bows.numpy(), np.asarray(r["lc_j"].kf_bows))
     assert sorted(own.kf_words) == sorted(r["lc_j"].kf_words)
