@@ -46,7 +46,26 @@ Phases, each fatal on failure (nonzero exit, no result line):
       The ATE difference and the loop counters are printed beside the
       reference's, not judged; so is the wall time of every correcting
       `_run_loop_closing` and its split into detect, verify, correct and
-      global BA.
+      global BA;
+   e. the dataset path: two TUM-layout PNG directories (`rgb/NNNN.png`,
+      `rgb.txt` at 30 fps) under the git-ignored `out_chip_smoke/`, each
+      run through the port's driver (`run_slam.run`: the native
+      prefetching loader, which must be the native one, and one `track()`
+      per frame). Run A is the whole bench sequence (610 frames) at the
+      default pools: bootstrap within 90 frames, at most 10 frames lost
+      after it, ATE-Sim3 < 0.05 read back from the written
+      MonoTrajectory.txt, and as many KeyFrameTrajectory.txt rows as live
+      keyframes. Run B is the reference's long-run test
+      (tests/test_compaction.py:96-128: pools of 16 keyframes, 2048
+      points, 128 lines, a keyframe every <= 3 frames, `make_room_scene(300,
+      12, seed=3)`, 60 frames of a circle of radius 0.5): >= 50 frames
+      tracked, ATE-Sim3 < 0.05, `compact_keyframes` >= 1, cursors within
+      the pools. Counters are zeroed before run A and read after run B:
+      kernels 1-12 and kernel 19 must have launched. Prints the fps through
+      the loader beside 2a's in-memory fps, the cursors, how often each
+      compaction pass fired and each pass's caller ms; then run A's map
+      goes through `save_map` / `load_map` on the card (every field
+      bit-equal, cursors equal).
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
    through its plain PyTorch version: FAST/NMS maps, Hamming best / second
@@ -75,7 +94,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    one call under set_sync_debug_mode("error"); local BA at 64
    keyframes within 1e-3 (masks >= 99.5%); the Hamming calls at
    [4096, 1024] and [8, 4096, 1024] equal; detect's database scores
-   within 1e-6. Each kernel is
+   within 1e-6. Kernel 19's three passes are bit-equal on every field
+   (live counts and `perm` too) on run B's first input of each pass (run B
+   must call all three) and on phase 2a's final map with a seeded half of
+   its live slots culled, where each pass is timed beside its bound
+   (bytes: the live rows of each field read, every row written, the edge
+   grid or the stamps read and written, the observer bits written). One
+   bench frame is also built on the card and on the CPU (plain versions):
+   every pyramid level and blurred level must be equal, and so must the
+   valid keypoints, their descriptors and the line descriptors, with line
+   endpoints within 1e-3 px; the first level or op that differs is
+   printed. Each kernel is
    timed on the device (torch.profiler's device events per call, host
    launch gaps left out) and from the caller (median of CUDA events around
    one call, gaps included); the null vector also against
@@ -86,8 +115,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (library_ms). The kernel
    table's rows that still run as torch ops around kernel 3 (row 11, the
    fuse functions, counted over phase 2a; row 18, the loop closer's
-   helpers, counted over phase 2d) have one call each timed the same way
-   beside its bound.
+   helpers, counted over phase 2d; the covisibility matrix, counted over
+   phase 2d) have one call each timed the same way beside its bound.
 4. Where the time goes: 20 further frames of the main path under
    torch.profiler; prints the wall time, the device-busy time per frame and
    the top device kernels.
@@ -97,6 +126,7 @@ Output: a JSON line of the end-to-end and profile numbers, the JSON line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -174,11 +204,14 @@ KERNELS = {
                   "structure_slam_pointline_tpu_torch/csrc/sim3_pair.cu"),
     "pose_graph": ("structure_slam_pointline_tpu/optim/pose_graph.py:50",
                    "structure_slam_pointline_tpu_torch/csrc/pose_graph.cu"),
+    "compact": ("structure_slam_pointline_tpu/world/compact.py:33",
+                "structure_slam_pointline_tpu_torch/csrc/compact.cu"),
 }
 # kernels that run only when a frame is lost (phase 2c), and only with loop
 # closing on (phase 2d)
 RELOC_KERNELS = ("bow_transform", "bow_query", "ransac_pnp")
 LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph")
+DATASET_KERNELS = ("compact",)   # runs only when a pool passes its trigger (phase 2e)
 FP64_OPS_PER_S = 34e12   # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 # per RANSAC PnP hypothesis, a floor for its float64 work: the least a
 # 12x12 null vector needs, Gaussian elimination (2/3 n^3) and the back
@@ -313,28 +346,46 @@ def timings(kernel_fn, plain_fn, flush=None, expect: str | None = None) -> dict:
             "plain_wall_ms": time_ms(plain_fn, reps=rp, flush=flush)}
 
 
+def clone_arg(a):
+    """A tensor cloned, a named tuple of tensors (a map state) cloned field
+    by field, anything else as it is."""
+    if hasattr(a, "clone"):
+        return a.clone()
+    if hasattr(a, "_fields"):
+        return type(a)(*map(clone_arg, a))
+    return a
+
+
 class Recorder:
     """Wraps a module-level wrapper function: records (clones of) the
     inputs of the first call of each distinct shape signature and passes
     every call through unchanged (no extra launches). Later calls of a
     known shape cost one dictionary lookup, so the timed run carries a few
-    dozen copies in all, made in its first frames and first keyframe."""
+    dozen copies in all, made in its first frames and first keyframe.
+    With `sync` (a device synchronize), every call is also timed from the
+    caller, synchronized before and after, into `ms`."""
 
-    def __init__(self, module, attr, key_fn):
-        self.module, self.attr, self.key_fn = module, attr, key_fn
+    def __init__(self, module, attr, key_fn, sync=None):
+        self.module, self.attr, self.key_fn, self.sync = module, attr, key_fn, sync
         self.fn = getattr(module, attr)
         self.calls = {}
         self.n = {}   # calls per key
+        self.ms = []  # caller ms per call, with `sync`
 
     def __enter__(self):
         def wrapped(*args, **kw):
             key = self.key_fn(*args, **kw)
             self.n[key] = self.n.get(key, 0) + 1
             if key not in self.calls:
-                self.calls[key] = (
-                    tuple(a.clone() if hasattr(a, "clone") else a for a in args),
-                    dict(kw))
-            return self.fn(*args, **kw)
+                self.calls[key] = (tuple(map(clone_arg, args)), dict(kw))
+            if self.sync is None:
+                return self.fn(*args, **kw)
+            self.sync()
+            t = time.perf_counter()
+            out = self.fn(*args, **kw)
+            self.sync()
+            self.ms.append((time.perf_counter() - t) * 1e3)
+            return out
 
         setattr(self.module, self.attr, wrapped)
         return self
@@ -697,6 +748,196 @@ def loop_glue_rows():
 
 
 
+# phase 2e: the dataset path (run A: the bench sequence at the default pools;
+# run B: the reference's long-run test, tests/test_compaction.py:96-128)
+DATASET_DIR = os.path.join(ROOT, "out_chip_smoke")   # git-ignored (out*/)
+LOST_AFTER_INIT_MAX = 10
+RUN_B_FRAMES = 60
+RUN_B_MIN_TRACKED = RUN_B_FRAMES - 10
+COMPACT_PASSES = ("compact_points", "compact_lines", "compact_keyframes")
+
+
+def write_tum_dir(path: str, frame, n: int) -> None:
+    """A TUM-layout sequence: rgb/NNNN.png (8-bit, clipped) and rgb.txt at
+    30 fps timestamps."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(path, "rgb"), exist_ok=True)
+    rows = ["# timestamp filename"]
+    for i in range(n):
+        rel = f"rgb/{i:04d}.png"
+        Image.fromarray(np.clip(frame(i), 0, 255).astype(np.uint8), "L").save(
+            os.path.join(path, rel), compress_level=1)
+        rows.append(f"{i / 30.0:.6f} {rel}")
+    with open(os.path.join(path, "rgb.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def run_dataset(cfg, seq_dir: str, poses, label: str, sync=lambda: None, device=None) -> dict:
+    """Phase 2e's drive: the port's dataset driver (`run_slam.run`, one
+    `track()` per frame through the native prefetching loader) on a TUM
+    directory; every compaction pass it calls is timed from the caller
+    (synchronized) and its first input kept. Returns the run's numbers,
+    with ATE-Sim3 read back from the written MonoTrajectory.txt; the
+    caller judges them."""
+    from structure_slam_pointline_tpu_torch import run_slam
+    from structure_slam_pointline_tpu_torch.io import datasets, synthetic
+    from structure_slam_pointline_tpu_torch.world import compact
+
+    out_dir = os.path.join(seq_dir, "out")
+    recs = {p: Recorder(compact, p, lambda st: ("first",), sync=sync) for p in COMPACT_PASSES}
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        res = run_slam.run(cfg, seq_dir, out_dir=out_dir, device=device)
+    slam = res["slam"]
+    ts, T_wc = datasets.read_trajectory_tum(os.path.join(out_dir, "MonoTrajectory.txt"))
+    ids = np.rint(ts * 30.0).astype(int)
+    kf_rows = np.loadtxt(os.path.join(out_dir, "KeyFrameTrajectory.txt"), ndmin=2)
+    tracked = [e.frame_id for e in slam.log if e.T_cw is not None]
+    init = tracked[0] if tracked else None
+    n = res["frames"]
+    lost_after = sum(1 for e in slam.log if init is not None and e.frame_id > init
+                     and e.T_cw is None)
+    live_kf = int(slam.map.kf_valid[:slam.cur.n_kf].sum())
+    steady = res["track_s"][init + 1:] if init is not None else []
+    c = slam.metrics.counters
+    out = {"frames": n, "decoder": res["decoder"], "init_frame": init,
+           "tracked": len(tracked), "lost_after_init": lost_after,
+           "ate_sim3": synthetic.ate_rmse(T_wc, poses[ids]) if len(ids) > 2 else float("nan"),
+           "trajectory_rows": len(ts), "keyframe_rows": len(kf_rows), "live_keyframes": live_kf,
+           "fps_wall": n / res["wall_s"],
+           "fps_track": len(steady) / sum(steady) if steady else float("nan"),
+           "median_track_ms": float(np.median(steady)) * 1e3 if steady else float("nan"),
+           "n_kf": slam.cur.n_kf, "n_mp": slam.cur.n_mp, "n_ml": slam.cur.n_ml,
+           **{p: int(c.get(p, 0)) for p in COMPACT_PASSES},
+           "pass_caller_ms": {p: r.ms for p, r in recs.items() if r.ms}}
+    print(f"[dataset {label}] {n} frames via the {res['decoder']} loader | bootstrap at frame "
+          f"{init} | tracked {out['tracked']}/{n}, lost after the bootstrap {lost_after} | "
+          f"ATE-Sim3 {out['ate_sim3']:.5f} (from MonoTrajectory.txt, {len(ts)} rows) | "
+          f"keyframe rows {len(kf_rows)} (live {live_kf}) | fps wall {out['fps_wall']:.2f}, "
+          f"track() {out['fps_track']:.2f} | cursors n_kf {out['n_kf']} n_mp {out['n_mp']} "
+          f"n_ml {out['n_ml']} | compactions "
+          + " ".join(f"{p} {out[p]}" for p in COMPACT_PASSES)
+          + f" | pass caller ms {out['pass_caller_ms']}", flush=True)
+    return {"e2e": out, "slam": slam,
+            "first_inputs": {p: r.calls[("first",)][0][0] for p, r in recs.items() if r.calls}}
+
+
+def compact_bytes(st, name: str) -> int:
+    """Bytes a compaction pass must move on this input: the valid mask
+    read; of each pool field the live rows read and every row written (a
+    dead row is a fill pattern, read from no field); `perm` written; the
+    edge grid (points, lines) or the four landmark stamp arrays
+    (keyframes) read and written whole; for keyframes the rebuilt
+    observer bits written (world/compact.py)."""
+    from structure_slam_pointline_tpu_torch.world import compact
+
+    fields, valid, remapped = {
+        "compact_points": (compact.POINT_FIELDS, st.mp_valid, ["kf_kp_mp"]),
+        "compact_lines": (compact.LINE_FIELDS, st.ml_valid, ["kf_line_ml"]),
+        "compact_keyframes": (compact.KEYFRAME_FIELDS, st.kf_valid, list(compact.STAMPS)),
+    }[name]
+    N, n_live = valid.shape[0], int(valid.sum())
+    row = sum(nbytes(getattr(st, f)) for f, _ in fields) // N
+    b = row * (n_live + N) + nbytes(valid) + 4 * N
+    b += 2 * nbytes(*(getattr(st, f) for f in remapped))
+    if name == "compact_keyframes":
+        b += nbytes(st.mp_obs_bits)
+    return b
+
+
+def check_compact(st, label: str) -> None:
+    """Kernel 19 against its plain version on the card: every field, the
+    live count and `perm` bit-equal (floats compared as their bits)."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.world import compact
+
+    for name in COMPACT_PASSES:
+        out_k = getattr(compact, name)(st)
+        out_p = getattr(compact, name + "_plain")(st)
+        for f in st._fields:
+            a, b = getattr(out_k[0], f), getattr(out_p[0], f)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"compact ({name}, {label}): field {f} differs in {int((a != b).sum())}")
+        if int(out_k[1]) != int(out_p[1]):
+            fail(f"compact ({name}, {label}): live count {int(out_k[1])} != {int(out_p[1])}")
+        if name == "compact_keyframes" and not torch.equal(out_k[2], out_p[2]):
+            fail(f"compact ({name}, {label}): perm differs")
+    print(f"[check] compact on {label}: all three passes bit-equal", flush=True)
+
+
+def frontend_card_vs_cpu(img: np.ndarray, cfg) -> dict:
+    """One bench frame built by the port on the card (kernels) and on the
+    CPU (plain versions): per pyramid level, the pixels of the card's
+    level and blurred level that differ from the CPU's, and of one card
+    op applied to the CPU's own input (resize from the CPU's previous
+    level, blur of the CPU's level), which isolates the op; then the
+    shares of keypoints, descriptors and lines that are equal. Fails
+    unless everything is equal (line endpoints within 1e-3 px)."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.models import pipeline
+    from structure_slam_pointline_tpu_torch.ops import pyramid
+    from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
+
+    fe = cfg.frontend
+    cpu = torch.from_numpy(img)
+    lv_c, bl_c = pyramid.build_blurred_pyramid(cpu.to(torch.bfloat16), fe.n_levels,
+                                               fe.scale_factor, fe.blur_sigma)
+    lv_g, bl_g = pyramid.build_blurred_pyramid(cpu.cuda().to(torch.bfloat16), fe.n_levels,
+                                               fe.scale_factor, fe.blur_sigma)
+    diff = lambda a, b: int((a.cpu().float() != b.float()).sum())  # noqa: E731
+    levels, first = [], None
+    for lv in range(len(lv_c)):
+        row = {"level": lv, "level_px": diff(lv_g[lv], lv_c[lv]),
+               "blurred_px": diff(bl_g[lv], bl_c[lv]),
+               "resize_alone_px": diff(pyramid.resize_bilinear(
+                   lv_c[lv - 1].cuda(), tuple(lv_c[lv].shape)), lv_c[lv]) if lv else 0,
+               "blur_alone_px": diff(pyramid.blur(lv_c[lv].cuda(), fe.blur_sigma), bl_c[lv])}
+        levels.append(row)
+        if first is None:
+            for op in ("resize_alone_px", "blur_alone_px"):
+                if row[op]:
+                    first = f"level {lv}: {op[:-9]}"
+                    break
+    intr = Intrinsics.from_config(cfg.camera)
+    f_c = pipeline.build_frame_device(cpu, intr, cfg)
+    f_g = pipeline.build_frame_device(cpu.cuda(), intr, cfg)
+    f_g = type(f_g)(*[t.cpu() for t in f_g])
+    kv = f_c.kp_valid & f_g.kp_valid
+    same_kp = kv & (f_c.xy == f_g.xy).all(1) & (f_c.octave == f_g.octave)
+    same_desc = same_kp & (f_c.desc == f_g.desc).all(1)
+    lv_ = f_c.line_valid & f_g.line_valid
+    same_ln = lv_ & ((f_c.line_ep - f_g.line_ep).abs().amax(1) <= 1e-3)
+    n_kp, n_ln = max(int(f_c.kp_valid.sum()), 1), max(int(f_c.line_valid.sum()), 1)
+    out = {"first_differing_op": first, "levels": levels,
+           "keypoints_valid": [int(f_c.kp_valid.sum()), int(f_g.kp_valid.sum())],
+           "keypoints_equal_share": int(same_kp.sum()) / n_kp,
+           "descriptors_equal_share": int(same_desc.sum()) / n_kp,
+           "lines_valid": [int(f_c.line_valid.sum()), int(f_g.line_valid.sum())],
+           "lines_equal_share": int(same_ln.sum()) / n_ln,
+           "line_descriptors_equal_share": int((same_ln & (f_c.ldesc == f_g.ldesc).all(1))
+                                               .sum()) / n_ln}
+    print(f"[frontend card vs cpu] first differing op: {first} | per level (level px, blurred "
+          f"px, resize alone, blur alone): "
+          + "; ".join(f"{r['level']}: {r['level_px']} {r['blurred_px']} "
+                      f"{r['resize_alone_px']} {r['blur_alone_px']}" for r in levels)
+          + f" | keypoints equal {out['keypoints_equal_share']:.4f}, descriptors "
+          f"{out['descriptors_equal_share']:.4f}, lines {out['lines_equal_share']:.4f}, line "
+          f"descriptors {out['line_descriptors_equal_share']:.4f}", flush=True)
+    bad = [f"level {r['level']}: {k}" for r in levels for k in ("level_px", "blurred_px")
+           if r[k]]
+    bad += [k for k in ("keypoints_valid", "lines_valid") if out[k][0] != out[k][1]]
+    bad += [k for k in out if k.endswith("_share") and out[k] != 1.0]
+    if first is not None or bad:
+        fail(f"frontend card vs cpu: the card's frame differs from the CPU's ({first}; {bad})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -785,7 +1026,8 @@ def main() -> int:
     slam, e2e, counts = drive(cfg, N_TRACK, frame, poses, "lines")
     for r in (*rec.values(), *op_rec.values()):
         r.__exit__()
-    zero = [k for k, v in counts.items() if v == 0 and k not in RELOC_KERNELS + LOOP_KERNELS]
+    zero = [k for k, v in counts.items()
+            if v == 0 and k not in RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
     if e2e["lines"] == 0 or e2e["live_lines"] == 0:
@@ -863,6 +1105,7 @@ def main() -> int:
     glue_rows = loop_glue_rows()
     glue_rec = {row: Recorder(loop_closing, attr, key_fn)
                 for row, (_, attr, key_fn, _) in glue_rows.items()}
+    glue_rec["covis"] = Recorder(map_store, "covisibility_matrix", lambda st: ("covis",))
     for r in (*loop_rec.values(), *glue_rec.values()):
         r.__enter__()
     torch.cuda.synchronize()
@@ -895,6 +1138,78 @@ def main() -> int:
                 "reference": LOOP_REFERENCE}
     print(f"[loop] ATE-Sim3 on - off {e2e_loop['ate_on_minus_off']:+.5f} (reported, not "
           f"judged) | the reference's per-frame path: {LOOP_REFERENCE}", flush=True)
+    print(f"[time] phase 2d done at {time.time() - t_start:.0f} s", flush=True)
+    # 2e: the dataset path, runs A and B through the port's driver and the
+    # native loader; the counters zeroed just before run A, read after run B
+    from structure_slam_pointline_tpu_torch.config import KeyframeConfig, MapConfig
+    from structure_slam_pointline_tpu_torch.io import native_loader
+    from structure_slam_pointline_tpu_torch.world import compact, serialize
+
+    if native_loader.get_lib() is None:
+        fail("the native loader (native/libsspl_io.so, make -C native) is not available")
+    n_a = len(poses)
+    t0 = time.time()
+    write_tum_dir(os.path.join(DATASET_DIR, "bench"), frame, n_a)
+    cfg_b = SLAMConfig(camera=cam, map=MapConfig(max_keyframes=16, max_points=2048,
+                                                 max_lines=128),
+                       keyframe=KeyframeConfig(max_frames=3))
+    scene_b = synthetic.make_room_scene(n_points=300, n_lines=12, seed=3)
+    poses_b = synthetic.circular_trajectory(RUN_B_FRAMES, radius=0.5)
+    imgs_b = synthetic.render_sequence(scene_b, poses_b, cam, noise=2.0)
+    write_tum_dir(os.path.join(DATASET_DIR, "tiny"), lambda j: imgs_b[j], RUN_B_FRAMES)
+    print(f"[dataset] {n_a} + {RUN_B_FRAMES} frames rendered and written as PNG in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    run_a = run_dataset(cfg, os.path.join(DATASET_DIR, "bench"), poses, "A",
+                        sync=torch.cuda.synchronize)
+    run_b = run_dataset(cfg_b, os.path.join(DATASET_DIR, "tiny"), poses_b, "B",
+                        sync=torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    counts_2e = dict(kernels.COUNTS)
+    print(f"[e2e dataset] launches {counts_2e}", flush=True)
+    ea, eb = run_a["e2e"], run_b["e2e"]
+    checks = {
+        "native decoder in both runs": ea["decoder"] == eb["decoder"] == "native",
+        f"run A: bootstrap within {INIT_MAX} frames":
+            ea["init_frame"] is not None and ea["init_frame"] < INIT_MAX,
+        f"run A: at most {LOST_AFTER_INIT_MAX} frames lost after it":
+            ea["lost_after_init"] <= LOST_AFTER_INIT_MAX,
+        f"run A: ATE-Sim3 < {ATE_MAX} from MonoTrajectory.txt": ea["ate_sim3"] < ATE_MAX,
+        "run A: keyframe rows = live keyframes": ea["keyframe_rows"] == ea["live_keyframes"],
+        f"run B: >= {RUN_B_MIN_TRACKED} frames tracked": eb["tracked"] >= RUN_B_MIN_TRACKED,
+        f"run B: ATE-Sim3 < {ATE_MAX}": eb["ate_sim3"] < ATE_MAX,
+        "run B: compact_keyframes >= 1": eb["compact_keyframes"] >= 1,
+        "run B: cursors within the pools": eb["n_kf"] <= 16 and eb["n_mp"] <= 2048
+        and eb["n_ml"] <= 128,
+        "kernel 19 launched": counts_2e["compact"] > 0,
+        "kernels 1-12 launched": all(counts_2e[k] > 0 for k in KERNELS if k not in
+                                     RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS),
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"dataset path failed: {bad}")
+    # the map through save_map / load_map on the card: bit-equal, cursors equal
+    slam_a = run_a["slam"]
+    t0 = time.time()
+    path = os.path.join(DATASET_DIR, "map.npz")
+    serialize.save_map(path, slam_a.map, slam_a.cur)
+    st2, cur2 = serialize.load_map(path, "cuda")
+    for f in st2._fields:
+        a, b = getattr(slam_a.map, f), getattr(st2, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.device != b.device or not torch.equal(a, b):
+            fail(f"save_map / load_map: field {f} differs")
+    if (cur2.n_kf, cur2.n_mp, cur2.n_ml) != (slam_a.cur.n_kf, slam_a.cur.n_mp, slam_a.cur.n_ml):
+        fail(f"save_map / load_map: cursors {cur2} != {slam_a.cur}")
+    e2e_dataset = {"A": ea, "B": eb, "fps_in_memory_2a": e2e["fps"],
+                   "save_load_s": time.time() - t0,
+                   "map_npz_bytes": os.path.getsize(path)}
+    print(f"[dataset] run A through the loader: {ea['fps_track']:.2f} fps in track() "
+          f"({ea['fps_wall']:.2f} wall, bootstrap included) against phase 2a's in-memory "
+          f"{e2e['fps']:.2f} | save / load of run A's map: bit-equal, "
+          f"{e2e_dataset['map_npz_bytes']} bytes, {e2e_dataset['save_load_s']:.1f} s", flush=True)
     print(f"[time] phase 2 done at {time.time() - t_start:.0f} s", flush=True)
     i = e2e["init_frame"] + 1
 
@@ -1497,6 +1812,47 @@ def main() -> int:
         fail(f"bow_query as detect's scorer disagrees: max err {dq_err:.3e}")
     print(f"[check] loop shapes: hamming {sorted(lham)} equal; detect scores err "
           f"{dq_err:.3e}", flush=True)
+    # kernel 19: bit-equal on run B's first input of each pass, then at full
+    # capacity on phase 2a's final map with a seeded half of its live slots
+    # culled, where each pass is timed (no single PyTorch call computes a
+    # pass: library_ms is null)
+    for name in COMPACT_PASSES:
+        if name not in run_b["first_inputs"]:
+            fail(f"compact: run B never called {name}, so it has no input to hold the kernel on")
+        check_compact(run_b["first_inputs"][name], f"run B's first {name} input")
+    g = np.random.default_rng(19)
+    culled = {}
+    for f in ("kf_valid", "mp_valid", "ml_valid"):
+        v = getattr(slam.map, f).clone()
+        live = torch.nonzero(v).flatten().cpu().numpy()
+        v[torch.as_tensor(g.choice(live, len(live) // 2, replace=False), device=v.device,
+                          dtype=torch.long)] = False
+        culled[f] = v
+    st_half = slam.map._replace(**culled)
+    check_compact(st_half, "phase 2a's map, half culled")
+    passes = {}
+    for name in COMPACT_PASSES:
+        fn, plain = getattr(compact, name), getattr(compact, name + "_plain")
+        t = timings(lambda: fn(st_half), lambda: plain(st_half), expect="gather_kernel")
+        b = compact_bytes(st_half, name)
+        v = culled[{"compact_points": "mp_valid", "compact_lines": "ml_valid",
+                    "compact_keyframes": "kf_valid"}[name]]
+        passes[name] = dict(t, bytes=b, bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                            live=int(v.sum()), slots=v.shape[0], calls_2e=ea[name] + eb[name])
+        print(f"[kernel] compact {name}: device {t['ms']:.4f} ms, caller {t['wall_ms']:.4f} ms"
+              f" | plain {t['plain_ms']:.4f} ({t['plain_wall_ms']:.4f}) ms | {int(v.sum())} of "
+              f"{v.shape[0]} slots live | {b} bytes, bound {passes[name]['bound_ms']:.5f} ms",
+              flush=True)
+    K, F = slam.map.kf_kp_mp.shape
+    rows.append(dict(
+        name="compact", max_abs_err=0.0, library_ms=None,
+        **{k: sum(p[k] for p in passes.values())
+           for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms", "bytes")}, ops=0,
+        passes=passes,
+        shape=f"one pass of each pool (times and bytes summed): {K} keyframes x {F} features,"
+              f" {slam.map.mp_valid.shape[0]} points, {slam.map.ml_valid.shape[0]} lines, "
+              f"half of phase 2a's live slots culled"))
+    frontend = frontend_card_vs_cpu(frame(i), cfg)
     print(f"[time] kernel checks done at {time.time() - t_start:.0f} s", flush=True)
 
     # the rows still run as torch ops: calls on the main path, one call of
@@ -1521,6 +1877,25 @@ def main() -> int:
         print(f"[torch-op] row {row} {attr}: {ops_table[-1]['calls']} calls | device "
               f"{ops_table[-1]['ms']:.4f} ms, caller {ops_table[-1]['wall_ms']:.4f} ms | "
               f"bound {max(b_ms, o_ms):.5f} ms | timed {key}", flush=True)
+    # the covisibility matrix (torch.matmul of the indicator matrices),
+    # counted over phase 2d's loop-closing run; bound by bytes: the two
+    # edge grids and the validity mask in, the [K, K] int32 matrix out
+    r = glue_rec["covis"]
+    if not r.n:
+        fail("covisibility_matrix never ran in phase 2d")
+    (st_cv,), _ = r.calls[("covis",)]
+    b = nbytes(st_cv.kf_kp_mp, st_cv.kf_line_ml, st_cv.kf_valid) + st_cv.kf_valid.shape[0] ** 2 * 4
+    ops_table.append({
+        "row": "covis", "function": "covisibility_matrix",
+        "replaces": "structure_slam_pointline_tpu/world/map_store.py:210 covisibility_matrix",
+        "calls": sum(r.n.values()),
+        "ms": device_ms(lambda: map_store.covisibility_matrix(st_cv), reps=5),
+        "wall_ms": time_ms(lambda: map_store.covisibility_matrix(st_cv), reps=5),
+        "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "timed_call": str(tuple(st_cv.kf_kp_mp.shape))})
+    print(f"[torch-op] covisibility_matrix: {ops_table[-1]['calls']} calls | device "
+          f"{ops_table[-1]['ms']:.4f} ms, caller {ops_table[-1]['wall_ms']:.4f} ms | bound "
+          f"{ops_table[-1]['bound_ms']:.5f} ms", flush=True)
     for row, (replaces, attr, _, cost) in glue_rows.items():
         r = glue_rec[row]
         if not r.n:
@@ -1580,7 +1955,8 @@ def main() -> int:
         o_ms = max(r["ops"] / CUDA_CORE_OPS_PER_S, r.get("ops_fp64", 0) / FP64_OPS_PER_S) * 1e3
         replaces, source = KERNELS[r["name"]]
         launches = (counts_reloc if r["name"] in RELOC_KERNELS else
-                    counts_loop if r["name"] in LOOP_KERNELS else counts)[r["name"]]
+                    counts_loop if r["name"] in LOOP_KERNELS else
+                    counts_2e if r["name"] in DATASET_KERNELS else counts)[r["name"]]
         table.append({
             "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -1589,7 +1965,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
             "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("frame_wall_ms", "frame_plain_wall_ms", "library_wall_ms",
-                                 "votes", "kl64", "loop_shapes") if k in r}})
+                                 "votes", "kl64", "loop_shapes", "passes") if k in r}})
         print(f"[kernel] {r['name']}: {r['shape']} | device: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms | caller: kernel {r['wall_ms']:.4f} ms, "
               f"plain {r['plain_wall_ms']:.4f} ms | bound {max(b_ms, o_ms):.5f} ms",
@@ -1597,8 +1973,9 @@ def main() -> int:
     print(json.dumps({"e2e": e2e, "e2e_points_only": e2e_points, "launches_points_only":
                       counts_points, "e2e_relocalization": e2e_reloc,
                       "launches_relocalization": counts_reloc, "e2e_loop": e2e_loop,
-                      "launches_loop": counts_loop, "profile": profile_out,
-                      "torch_ops": ops_table}), flush=True)
+                      "launches_loop": counts_loop, "e2e_dataset": e2e_dataset,
+                      "launches_dataset": counts_2e, "frontend_card_vs_cpu": frontend,
+                      "profile": profile_out, "torch_ops": ops_table}), flush=True)
     print(f"[done] all phases passed in {time.time() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

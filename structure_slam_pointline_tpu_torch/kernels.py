@@ -53,6 +53,7 @@ SOURCES = {
     "ransac_sim3": "sim3_ransac.cu",
     "sim3_pair": "sim3_pair.cu",
     "pose_graph": "pose_graph.cu",
+    "compact": "compact.cu",
 }
 
 # kernels whose source is built with nvcc's default -fmad=true (every other
@@ -69,6 +70,7 @@ ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
 ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_count", "pnp_select")
 ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
 ENTRIES["pose_graph"] = ("pg_jacobians", "pg_assemble", "pg_solve", "pg_cost", "pg_decide")
+ENTRIES["compact"] = ("compact_scan", "compact_gather", "compact_remap")
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -152,6 +154,14 @@ _ARGTYPES = {
     "pg_solve": [_P, _P],
     "pg_cost": [_P, _P],
     "pg_decide": [_P, _P],
+    # valid, N, perm, old2new, stamp_map (or NULL), n_live, stream
+    "compact_scan": [_P, _I, _P, _P, _P, _P, _P],
+    # perm, N, n_fields, then host arrays of n_fields sources, destinations,
+    # row bytes (int64), copy units (int32) and 64-byte fill patterns, stream
+    "compact_gather": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # n_arrays, host arrays of sources, destinations and lengths (int64),
+    # table, table_len, clip, stream
+    "compact_remap": [_I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

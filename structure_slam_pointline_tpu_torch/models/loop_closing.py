@@ -246,6 +246,25 @@ class LoopCloser:
             self.kf_words[k] = words[i]
         self._descs_seen += int(valid.sum())
 
+    def remap_keyframes(self, perm) -> None:
+        """Follow a keyframe compaction (world/compact.compact_keyframes):
+        `perm` is the [K] new -> old id table (-1 padded). The BoW rows are
+        gathered on their device, dead rows zeroed; the word cache, the
+        consistency groups and the loop edges are renumbered on the host,
+        an entry of a culled keyframe dropped."""
+        perm = np.asarray(perm)
+        old2new = {int(old): new for new, old in enumerate(perm) if old >= 0}
+        if self.kf_bows is not None:
+            p = torch.as_tensor(perm, dtype=torch.long, device=self.kf_bows.device)
+            live = (p >= 0)[:, None]
+            self.kf_bows = torch.where(live, self.kf_bows[p.clamp(min=0)],
+                                       torch.zeros_like(self.kf_bows))
+        self.kf_words = {old2new[k]: v for k, v in self.kf_words.items() if k in old2new}
+        self.loop_edges = [(old2new[a], old2new[b], S) for a, b, S in self.loop_edges
+                           if a in old2new and b in old2new]
+        self._consistent_groups = [(set(old2new[j] for j in grp if j in old2new), n)
+                                   for grp, n in self._consistent_groups]
+
     def add_keyframe(self, state: MapState, k: int) -> None:
         if self.voc is not None and k not in self.kf_words:
             self._index_keyframes(state, [k])

@@ -16,10 +16,15 @@ keyframe runs the loop closer's detect / verify / correct and global BA
 since its last call (the reference's per-frame `_step_with_recovery`),
 `track()` the newest keyframe only (its `_track_device`).
 
+Pool compaction (`maybe_compact`, world/compact.py) runs after every
+keyframe event of `_step`, from `track()` and `track_sequence` alike. The
+reference's `track()` does the same; its `track_sequence` checks at the
+end of each 100-frame scan chunk, and its per-frame remainder never
+compacts. The outputs are the reference's: `save_trajectory_tum`,
+`save_keyframe_trajectory_tum` (TUM text), `shutdown`.
+
 `SLAMSystem(cfg)` runs on the CUDA device and raises if there is none;
-`device="cpu"` is the explicit opt-in the tests use. Pool compaction is
-not ported yet: reaching its trigger raises NotImplementedError naming
-ROADMAP.md queue 1 item 16.
+`device="cpu"` is the explicit opt-in the tests use.
 """
 
 from __future__ import annotations
@@ -40,9 +45,8 @@ from structure_slam_pointline_tpu_torch.ops import matching, twoview
 from structure_slam_pointline_tpu_torch.optim import global_ba, local_ba
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.metrics import Metrics
+from structure_slam_pointline_tpu_torch.world import compact as wc
 from structure_slam_pointline_tpu_torch.world import map_store
-
-_COMPACT = "pool compaction is not ported yet: ROADMAP.md queue 1 item 16"
 
 
 class TrackingState(enum.Enum):
@@ -87,6 +91,10 @@ class SLAMSystem:
         self.init_rng = np.random.default_rng(self.cfg.seed)
         # created at the first lost frame; reset() keeps it, as the reference does
         self._loop_closer: Optional[LoopCloser] = None
+        # landmark-rate baseline (cursors and live counts of the last keyframe
+        # event); None after a host-side renumbering (compaction, a loop
+        # correction). reset() keeps it, as the reference does
+        self._lm_base = None
         self.reset()
 
     # ------------------------------------------------------------------ #
@@ -445,20 +453,58 @@ class SLAMSystem:
         self.ref_frame: Optional[Frame] = None
         self.ref_frame_id = -1
         self.carry: Optional[pipeline.SLAMCarry] = None
-        self._lm_base = None
         self._lc_processed_kf = 2   # keyframes already fed to loop closing
 
+    def shutdown(self) -> None:
+        """Wait for the device's outstanding work and sync the cursors (the
+        reference's System::Shutdown; there are no threads to join)."""
+        if self.carry is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.sync_cursors()
+
     def maybe_compact(self) -> None:
-        """The reference reclaims culled slots when a bump cursor passes
-        COMPACT_FRAC of its pool; not ported yet, so reaching that point
-        raises."""
+        """Reclaim culled slots when a bump cursor passes its high-water
+        mark (COMPACT_FRAC of the point and line pools, K - 8 keyframes):
+        live entries renumber to the front and every reference follows
+        (world/compact.py). Each pass reads its live count once; the carry
+        takes the new cursors and fresh local sets (the old ones hold stale
+        landmark ids), the loop closer and its cursor follow the keyframe
+        permutation, and the landmark-rate baseline restarts."""
         if self.carry is None:
             return
         cap = self.map.capacity
-        if (self.cur.n_mp > self.COMPACT_FRAC * cap["P"]
-                or self.cur.n_ml > self.COMPACT_FRAC * cap["L"]
-                or self.cur.n_kf > cap["K"] - 8):
-            raise NotImplementedError(_COMPACT)
+        st = self.carry.state
+        n_kf, n_mp, n_ml = self.cur.n_kf, self.cur.n_mp, self.cur.n_ml
+        changed = False
+        if n_mp > self.COMPACT_FRAC * cap["P"]:
+            st, n_live = wc.compact_points(st)
+            n_mp = int(n_live)
+            changed = True
+            self.metrics.count("compact_points")
+        if n_ml > self.COMPACT_FRAC * cap["L"]:
+            st, n_live = wc.compact_lines(st)
+            n_ml = int(n_live)
+            changed = True
+            self.metrics.count("compact_lines")
+        if n_kf > cap["K"] - 8:
+            st, _, perm = wc.compact_keyframes(st)
+            perm_np = perm.cpu().numpy()   # the pass's one read: n_live is the live prefix
+            n_kf = int((perm_np >= 0).sum())
+            changed = True
+            self.metrics.count("compact_keyframes")
+            if self._loop_closer is not None:
+                self._loop_closer.remap_keyframes(perm_np)
+            self._lc_processed_kf = _remap_kf_cursor(perm_np, self._lc_processed_kf)
+        if changed:
+            self._lm_base = None
+            self.map = st
+            self.carry = self.carry._replace(
+                state=st, n_kf=n_kf, n_mp=n_mp, n_ml=n_ml,
+                local_sets=tracking.compute_local_sets(
+                    st, n_kf, self.cfg.map.local_window_kf, self.cfg.map.local_points_cap,
+                    self.cfg.map.local_lines_cap))
+            self.cur.n_kf, self.cur.n_mp, self.cur.n_ml = n_kf, n_mp, n_ml
 
     def sync_cursors(self) -> None:
         if self.carry is not None:
@@ -469,6 +515,64 @@ class SLAMSystem:
     def trajectory(self) -> dict:
         """frame_id -> T_cw for all tracked frames."""
         return {e.frame_id: e.T_cw for e in self.log if e.T_cw is not None}
+
+    def save_keyframe_trajectory_tum(self, path: str, timestamps=None) -> None:
+        """TUM text (`t tx ty tz qx qy qz qw` of T_wc), the valid keyframes
+        below the cursor in id order; one copy of the keyframe fields."""
+        self.sync_cursors()
+        T_cw = self.map.kf_T_cw.cpu().numpy()
+        fids = self.map.kf_frame_id.cpu().numpy()
+        valid = self.map.kf_valid.cpu().numpy()
+        with open(path, "w") as f:
+            for k in range(self.cur.n_kf):
+                if valid[k]:
+                    fid = int(fids[k])
+                    f.write(_tum_row(timestamps[fid] if timestamps is not None else float(fid),
+                                     T_cw[k]))
+
+    def save_trajectory_tum(self, path: str, timestamps=None) -> None:
+        """TUM text of every tracked frame of the log, in log order."""
+        with open(path, "w") as f:
+            for e in self.log:
+                if e.T_cw is not None:
+                    f.write(_tum_row(timestamps[e.frame_id] if timestamps is not None
+                                     else float(e.frame_id), e.T_cw))
+
+
+def _tum_row(ts: float, T_cw: np.ndarray) -> str:
+    """One TUM line of the camera-to-world pose of T_cw."""
+    T_wc = np.linalg.inv(T_cw)
+    t = T_wc[:3, 3]
+    q = _rot_to_quat(T_wc[:3, :3])
+    return (f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+            f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n")
+
+
+def _rot_to_quat(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (x, y, z, w), the reference's branches."""
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        return np.array([(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+                         (R[1, 0] - R[0, 1]) / s, 0.25 * s])
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(R[i, i] - R[j, j] - R[k, k] + 1.0, 1e-12)) * 2
+    q = np.zeros(4)
+    q[i] = 0.25 * s
+    q[3] = (R[k, j] - R[j, k]) / s
+    q[j] = (R[j, i] + R[i, j]) / s
+    q[k] = (R[k, i] + R[i, k]) / s
+    return q
+
+
+def _remap_kf_cursor(perm: np.ndarray, cursor: int) -> int:
+    """A 'keyframes [0, cursor) processed' cursor through a compaction
+    permutation ([K] new -> old, -1 padded): the number of surviving
+    keyframes whose old id was below it (so culls below the cursor do not
+    make it skip unprocessed keyframes above it)."""
+    live = perm[perm >= 0]
+    return int((live < cursor).sum())
 
 
 def _init_match_device(ref: Frame, cur: Frame, cfg: SLAMConfig):

@@ -39,6 +39,17 @@ class Intrinsics(NamedTuple):
         )
 
 
+def distort(intr: Intrinsics, xn: torch.Tensor) -> torch.Tensor:
+    """Apply radtan distortion to normalized coords [..., 2]."""
+    k1, k2, p1, p2, k3 = intr.dist
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_normalized(intr: Intrinsics, xd: torch.Tensor,
                          iters: int = 5) -> torch.Tensor:
     """Invert radtan by a fixed number of fixed-point iterations."""
@@ -81,6 +92,12 @@ def project(intr: Intrinsics, p_cam: torch.Tensor, eps: float = 1e-6):
     return normalized_to_pixel(intr, xn), z
 
 
+def backproject(intr: Intrinsics, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Undistorted pixels + depth -> camera-frame 3D points [..., 3]."""
+    xn = pixel_to_normalized(intr, uv)
+    return torch.cat([xn * depth[..., None], depth[..., None]], dim=-1)
+
+
 def in_image(cam: CameraConfig, uv: torch.Tensor,
              margin: float = 0.0) -> torch.Tensor:
     """Frustum bounds check against the (undistorted) image rectangle."""
@@ -93,6 +110,6 @@ def in_image(cam: CameraConfig, uv: torch.Tensor,
 
 
 __all__ = [
-    "Intrinsics", "undistort_normalized", "pixel_to_normalized",
-    "normalized_to_pixel", "undistort_pixels", "project", "in_image",
+    "Intrinsics", "distort", "undistort_normalized", "pixel_to_normalized",
+    "normalized_to_pixel", "undistort_pixels", "project", "backproject", "in_image",
 ]

@@ -121,11 +121,37 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(R, t)
 
 
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """Log map [..., 4, 4] -> [..., 6] (omega, upsilon)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    w = so3_log(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    A, B, _ = _sinc_factors(theta2)
+    W = hat(w)
+    W2 = W @ W
+    # V^{-1} = I - W/2 + (1/theta2)(1 - A/(2B)) W^2
+    coef = torch.where(theta2 < _SMALL_THETA2, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - A / (2.0 * B)) / torch.clamp(theta2, min=_SMALL_THETA2))
+    Vinv = _eye3(W) - 0.5 * W + coef[..., None, None] * W2
+    v = (Vinv @ t[..., None])[..., 0]
+    return torch.cat([w, v], dim=-1)
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
     return rt_to_mat(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def se3_apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Transform points: T [..., 4, 4] x p [..., 3] -> [..., 3]."""
+    return torch.einsum("...ij,...j->...i", T[..., :3, :3], p) + T[..., :3, 3]
+
+
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
 
 
 def se3_normalize(T: torch.Tensor) -> torch.Tensor:
@@ -233,7 +259,7 @@ def sim3_log(S: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "hat", "vee", "so3_exp", "so3_log", "se3_exp", "rt_to_mat", "se3_inverse",
-    "se3_normalize", "sim3_make", "sim3_scale", "sim3_rotation", "sim3_inverse",
-    "sim3_apply", "sim3_exp", "sim3_log",
+    "hat", "vee", "so3_exp", "so3_log", "se3_exp", "se3_log", "rt_to_mat", "se3_inverse",
+    "se3_apply", "se3_compose", "se3_normalize", "sim3_make", "sim3_scale", "sim3_rotation",
+    "sim3_inverse", "sim3_apply", "sim3_exp", "sim3_log",
 ]

@@ -2,7 +2,10 @@
 
 Copy of the `Metrics` registry of the JAX package
 (structure_slam_pointline_tpu/utils/metrics.py), kept here so the port
-imports nothing of that package.
+imports nothing of that package, with its process-wide `GLOBAL` registry
+and `device_trace`, which records a torch.profiler trace (host ops and,
+on a CUDA device, kernels and copies) where the reference records a
+jax.profiler one.
 """
 
 from __future__ import annotations
@@ -66,4 +69,23 @@ class Metrics:
         self.series.clear()
 
 
-__all__ = ["Metrics"]
+GLOBAL = Metrics()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """torch.profiler trace around a region, written to
+    `log_dir/trace.json` (Chrome trace format) when the region ends."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+__all__ = ["Metrics", "GLOBAL", "device_trace"]

@@ -1,4 +1,4 @@
-"""The eighteen CUDA kernels of the PyTorch port against their plain
+"""The nineteen CUDA kernels of the PyTorch port against their plain
 versions, on the card, at the main path's and the relocalization path's
 shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
@@ -11,8 +11,12 @@ and 256 lines; the BoW transform of 24 keyframes x 1024 descriptors and a
 hypotheses x 1024 points; on the loop-closing path Sim(3) RANSAC over 128
 hypotheses x 1024 pairs, the Sim(3) pair refinement over 1024 pairs, the
 pose graph at the 256-keyframe capacity with 60 valid vertices, and local
-BA at global BA's 64 keyframes, 16384 points and 1024 lines). Marked
-`gpu`: they skip without a CUDA device. Run
+BA at global BA's 64 keyframes, 16384 points and 1024 lines; the three
+compaction passes of kernel 19 on random maps at the default capacities).
+Marked `gpu`: they skip without a CUDA device. Kernels that share a
+fixture or a problem share one test item (each check a function of its
+own, each message naming its kernel and case): the suite's item count
+sets pytest-xdist's schedule (ROADMAP.md, Tier-1 notes). Run
 on the card:
 
     python -m pytest -o addopts="" -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
@@ -38,7 +42,8 @@ rounds as the plain version's op does; the bound leaves room for an ulp
 of atan2f / cosf / sinf). Local BA: poses and landmarks within 1e-3
 (the plain version's own bound against JAX; sums over landmarks and the
 LU solve run in another order), inlier masks equal on >= 99.5% of
-edges, two launches bit-identical, and no host synchronization. BoW
+edges, two launches bit-identical, and no host synchronization.
+Compaction: every field bit-equal, the live counts and `perm` equal. BoW
 transform: words and vectors exactly equal (integer histogram, one IEEE
 division); query: scores exactly equal (the plain version sums in the
 kernel's order). RANSAC PnP: the same chosen hypothesis and count on
@@ -68,7 +73,7 @@ from structure_slam_pointline_tpu_torch.ops import (bow, extract, fast, hamming,
 from structure_slam_pointline_tpu_torch.optim import local_ba, pose_graph, pose_opt, sim3_solver
 from structure_slam_pointline_tpu_torch.utils import fmath, linalg
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
-from structure_slam_pointline_tpu_torch.world import map_store
+from structure_slam_pointline_tpu_torch.world import compact, map_store
 
 pytestmark = pytest.mark.gpu
 
@@ -119,24 +124,23 @@ def _descs(g, n):
     return torch.tensor(g.integers(-2 ** 31, 2 ** 31, (n, 8)), dtype=torch.int32)
 
 
-@pytest.mark.parametrize("shape", [(2048, 1024), (2048, 2048), (5, 1), (37, 700)])
-def test_hamming_best2_matches_plain(cuda, shape):
-    g = np.random.default_rng(shape[0] * 7 + shape[1])
-    M, N = shape
-    a = _descs(g, M)
-    b = _descs(g, N)
-    # near-duplicates force ties at the same distance in several columns
-    b[N // 2:] = b[: N - N // 2]
-    a[: M // 3] = b[torch.from_numpy(g.integers(0, N, M // 3))] ^ 1
-    allow = torch.from_numpy(g.uniform(size=(M, N)) < 0.05)
-    allow[:3] = False        # rows without candidates
-    out_k = hamming.masked_best2(a.to(cuda), b.to(cuda), allow.to(cuda))
-    out_p = hamming.masked_best2_plain(a, b, allow)
-    for x, y in zip(out_k, out_p):
-        assert torch.equal(x.cpu(), y)
-
-
-def test_hamming_best2_batched_matches_plain(cuda):
+def test_hamming_best2_matches_plain(cuda):
+    """Kernel 3 at four [M, N] shapes, then batched ([4, 1024, 1024] and
+    one query set against a batch)."""
+    for shape in [(2048, 1024), (2048, 2048), (5, 1), (37, 700)]:
+        g = np.random.default_rng(shape[0] * 7 + shape[1])
+        M, N = shape
+        a = _descs(g, M)
+        b = _descs(g, N)
+        # near-duplicates force ties at the same distance in several columns
+        b[N // 2:] = b[: N - N // 2]
+        a[: M // 3] = b[torch.from_numpy(g.integers(0, N, M // 3))] ^ 1
+        allow = torch.from_numpy(g.uniform(size=(M, N)) < 0.05)
+        allow[:3] = False        # rows without candidates
+        out_k = hamming.masked_best2(a.to(cuda), b.to(cuda), allow.to(cuda))
+        out_p = hamming.masked_best2_plain(a, b, allow)
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert torch.equal(x.cpu(), y), f"hamming_best2 at {shape}: output {i}"
     g = np.random.default_rng(3)
     a = torch.stack([_descs(g, 1024) for _ in range(4)])
     b = torch.stack([_descs(g, 1024) for _ in range(4)])
@@ -144,12 +148,17 @@ def test_hamming_best2_batched_matches_plain(cuda):
     for aa in (a, a[0]):
         out_k = hamming.masked_best2(aa.to(cuda), b.to(cuda), allow.to(cuda))
         out_p = hamming.masked_best2_plain(aa, b, allow)
-        for x, y in zip(out_k, out_p):
-            assert torch.equal(x.cpu(), y)
+        for i, (x, y) in enumerate(zip(out_k, out_p)):
+            assert torch.equal(x.cpu(), y), f"hamming_best2 batched {tuple(aa.shape)}: output {i}"
 
 
-@pytest.mark.parametrize("line_weight", [0.0, 1.0])
-def test_pose_lm_matches_plain(cuda, line_weight):
+def test_pose_lm_matches_plain(cuda):
+    """Kernel 4 with line weight 0 (the main path) and 1 (line rows on)."""
+    for line_weight in (0.0, 1.0):
+        _check_pose_lm(cuda, line_weight)
+
+
+def _check_pose_lm(cuda, line_weight):
     g = np.random.default_rng(int(line_weight) + 11)
     intr = Intrinsics.from_config(CameraConfig(fy=480.0))
     N, M = 2048, 256
@@ -176,10 +185,11 @@ def test_pose_lm_matches_plain(cuda, line_weight):
     cfg = OptimConfig()
     rp = pose_opt.pose_optimize_plain(*args, intr, cfg)
     rk = pose_opt.pose_optimize(*[a.to(cuda) for a in args], intr, cfg)
-    assert (rk.T_cw.cpu() - rp.T_cw).abs().max().item() <= 1e-4
+    err = (rk.T_cw.cpu() - rp.T_cw).abs().max().item()
+    assert err <= 1e-4, f"pose_lm (line weight {line_weight}): pose err {err}"
     same = torch.cat([rk.point_inliers.cpu() == rp.point_inliers,
                       rk.line_inliers.cpu() == rp.line_inliers]).float().mean().item()
-    assert same >= 0.995
+    assert same >= 0.995, f"pose_lm (line weight {line_weight}): inliers equal {same}"
 
 
 @pytest.fixture(scope="module")
@@ -191,7 +201,15 @@ def octaves(cuda):
     return [img, lsd.half_octave(img).contiguous()]
 
 
-def test_lsd_support_matches_plain(octaves):
+def test_line_kernels_match_plain(octaves):
+    """Kernels 5 (LSD dense support), 6 (LSD refinement) and 7 (LBD) on
+    both octaves of one bench frame."""
+    _check_lsd_support(octaves)
+    _check_lsd_refine(octaves)
+    _check_lbd(octaves)
+
+
+def _check_lsd_support(octaves):
     fe = FrontendConfig()
     before = kernels.COUNTS["lsd_support"]
     for img in octaves:
@@ -199,13 +217,13 @@ def test_lsd_support_matches_plain(octaves):
         best_k, packed_k = lsd.lsd_support(img, *args)
         best_p, packed_p = lsd.lsd_support_plain(img, *args)
         torch.cuda.synchronize()
-        assert torch.equal(best_k, best_p)
-        assert torch.equal(packed_k, packed_p)
-        assert (best_k > 0).sum().item() > 100
-    assert kernels.COUNTS["lsd_support"] == before + 2
+        assert torch.equal(best_k, best_p), f"lsd_support score at {tuple(img.shape)}"
+        assert torch.equal(packed_k, packed_p), f"lsd_support plane at {tuple(img.shape)}"
+        assert (best_k > 0).sum().item() > 100, "lsd_support: too few scored pixels"
+    assert kernels.COUNTS["lsd_support"] == before + 2, "lsd_support: launch count"
 
 
-def test_lsd_refine_matches_plain(octaves):
+def _check_lsd_refine(octaves):
     fe = FrontendConfig()
     for img, K, S in zip(octaves, (256, 128), (48, 24)):
         best, packed = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
@@ -217,19 +235,20 @@ def test_lsd_refine_matches_plain(octaves):
         out_k = lsd.lsd_refine(img, packed, ax, ay, *args)
         out_p = lsd.lsd_refine_plain(img, packed, ax, ay, *args)
         err = (out_k[:, :4] - out_p[:, :4]).abs().amax(1)[avalid]
-        assert avalid.sum().item() > 50
-        assert (err <= 1e-3).float().mean().item() >= 0.999
+        assert avalid.sum().item() > 50, "lsd_refine: too few valid anchors"
+        share = (err <= 1e-3).float().mean().item()
+        assert share >= 0.999, f"lsd_refine at {tuple(img.shape)}: {share} within 1e-3 px"
 
 
-def test_lbd_matches_plain(octaves):
+def _check_lbd(octaves):
     img = octaves[0]
     lines = lsd.detect_lines_pyramid(img, FrontendConfig())
-    assert lines.valid.sum().item() >= 32
+    assert lines.valid.sum().item() >= 32, "lbd_describe: too few segments"
     wk, dk = lbd.describe_lines(img, lines.endpoints.contiguous(), lines.valid)
     wp, dp = lbd.describe_lines_plain(img, lines.endpoints, lines.valid)
     same = (wk == wp).all(1).float().mean().item()
     err = (dk - dp).abs().max().item()
-    assert same >= 0.99 and err <= 1e-5, (same, err)
+    assert same >= 0.99 and err <= 1e-5, f"lbd_describe: words equal {same}, err {err}"
 
 
 def test_atan2_matches_plain(cuda):
@@ -247,15 +266,22 @@ def test_atan2_matches_plain(cuda):
     assert torch.equal(bits, fmath.atan2_plain(y, x).view(torch.int32))
 
 
-def _assert_selection_equal(out_k, out_p):
-    for (xk, rk, vk), (xp, rp, vp) in zip(out_k, out_p):
-        assert torch.equal(vk, vp)
-        assert torch.equal(rk[vk], rp[vp])
-        assert torch.equal(xk[vk], xp[vp])
+def _assert_selection_equal(out_k, out_p, what):
+    for lv, ((xk, rk, vk), (xp, rp, vp)) in enumerate(zip(out_k, out_p)):
+        assert torch.equal(vk, vp), f"kp_select {what} level {lv}: valid"
+        assert torch.equal(rk[vk], rp[vp]), f"kp_select {what} level {lv}: resp"
+        assert torch.equal(xk[vk], xp[vp]), f"kp_select {what} level {lv}: xy"
 
 
-@pytest.mark.parametrize("n_kp", [1024, 2048])
-def test_kp_select_matches_plain(levels, n_kp):
+def test_kp_select_matches_plain(levels, octaves):
+    """Kernel 11 on the ORB levels at 1024 and 2048 keypoints, and as the
+    LSD anchor selection of both octaves."""
+    for n_kp in (1024, 2048):
+        _check_kp_select(levels, n_kp)
+    _check_kp_select_lsd_anchors(octaves)
+
+
+def _check_kp_select(levels, n_kp):
     fe = FrontendConfig()
     ks = extract.level_budgets(n_kp, fe.n_levels, fe.scale_factor)
     score_raw = []
@@ -268,12 +294,12 @@ def test_kp_select_matches_plain(levels, n_kp):
     out_k = fast.select_keypoints_levels(score_raw, ks, **kw)
     out_p = fast.select_keypoints_levels_plain(score_raw, ks, **kw)
     torch.cuda.synchronize()
-    assert kernels.COUNTS["kp_select"] == before + 2
-    assert sum(int(v.sum()) for _, _, v in out_k) > n_kp // 2
-    _assert_selection_equal(out_k, out_p)
+    assert kernels.COUNTS["kp_select"] == before + 2, "kp_select: launch count"
+    assert sum(int(v.sum()) for _, _, v in out_k) > n_kp // 2, "kp_select: too few keypoints"
+    _assert_selection_equal(out_k, out_p, f"ORB {n_kp}")
 
 
-def test_kp_select_lsd_anchors_match_plain(octaves):
+def _check_kp_select_lsd_anchors(octaves):
     fe = FrontendConfig()
     for img, K in zip(octaves, (256, 128)):
         best, _ = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
@@ -281,8 +307,8 @@ def test_kp_select_lsd_anchors_match_plain(octaves):
         kw = dict(cell=16, cell_cap=1, threshold=1.0, min_threshold=1.0, border=4)
         out_k = fast.select_keypoints(best, K, **kw)
         out_p = fast.select_keypoints_levels_plain([(best, None)], [K], **kw)[0]
-        assert out_k[2].sum().item() > 50
-        _assert_selection_equal([out_k], [out_p])
+        assert out_k[2].sum().item() > 50, "kp_select: too few anchors"
+        _assert_selection_equal([out_k], [out_p], f"LSD anchors {tuple(img.shape)}")
 
 
 def _obs_grid(g, K=256, F=2048, P=32768):
@@ -395,8 +421,14 @@ def _to(t, dev):
     return type(t)(*[x.to(dev) for x in t])
 
 
-@pytest.mark.parametrize("with_lines", [True, False])
-def test_local_ba_matches_plain(cuda, with_lines):
+def test_local_ba_matches_plain(cuda):
+    """Kernel 12 at 16 keyframes, with lines and points only."""
+    for with_lines in (True, False):
+        _check_local_ba(cuda, with_lines)
+
+
+def _check_local_ba(cuda, with_lines):
+    what = f"local_ba ({'lines' if with_lines else 'points only'})"
     prob, lines, intr = ba_problem()
     prob = _to(prob, cuda)
     lines = _to(lines, cuda) if with_lines else None
@@ -409,19 +441,20 @@ def test_local_ba_matches_plain(cuda, with_lines):
         rk2 = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert kernels.COUNTS["local_ba"] == before + 2 * 85
+    assert kernels.COUNTS["local_ba"] == before + 2 * 85, f"{what}: launch count"
     rp = local_ba.bundle_adjust_plain(prob, intr, cfg, lines=lines)
     for a, b in zip(rk, rk2):
         if a is not None:
-            assert torch.equal(a, b)                 # deterministic reductions
-    assert (rk.kf_T_cw - rp.kf_T_cw).abs().max().item() <= 1e-3
-    assert (rk.mp_xyz - rp.mp_xyz).abs().max().item() <= 1e-3
-    assert (rk.edge_inlier == rp.edge_inlier).float().mean().item() >= 0.995
-    assert rk.edge_inlier.sum().item() > 0.8 * prob.edge_valid.sum().item()
+            assert torch.equal(a, b), f"{what}: two launches differ"   # deterministic reductions
+    assert (rk.kf_T_cw - rp.kf_T_cw).abs().max().item() <= 1e-3, f"{what}: poses"
+    assert (rk.mp_xyz - rp.mp_xyz).abs().max().item() <= 1e-3, f"{what}: points"
+    assert (rk.edge_inlier == rp.edge_inlier).float().mean().item() >= 0.995, f"{what}: masks"
+    assert rk.edge_inlier.sum().item() > 0.8 * prob.edge_valid.sum().item(), f"{what}: inliers"
     if with_lines:
-        assert (rk.ln_start - rp.ln_start).abs().max().item() <= 1e-3
-        assert (rk.ln_end - rp.ln_end).abs().max().item() <= 1e-3
-        assert (rk.line_inlier == rp.line_inlier).float().mean().item() >= 0.995
+        assert (rk.ln_start - rp.ln_start).abs().max().item() <= 1e-3, f"{what}: line starts"
+        assert (rk.ln_end - rp.ln_end).abs().max().item() <= 1e-3, f"{what}: line ends"
+        assert (rk.line_inlier == rp.line_inlier).float().mean().item() >= 0.995, \
+            f"{what}: line masks"
 
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
@@ -449,7 +482,9 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (bow, "query_database_plain"), (pnp, "ransac_pnp_plain"),
                       (sim3_solver, "ransac_sim3_plain"),
                       (pose_graph, "optimize_sim3_pair_plain"),
-                      (pose_graph, "optimize_pose_graph_plain")):
+                      (pose_graph, "optimize_pose_graph_plain"),
+                      (compact, "compact_points_plain"), (compact, "compact_lines_plain"),
+                      (compact, "compact_keyframes_plain")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -468,7 +503,60 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     pose_graph.optimize_sim3_pair(*[t.to(cuda) for t in sim3_pair_problem(N=64)],
                                   PNP_INTR.fx, PNP_INTR.fy, PNP_INTR.cx, PNP_INTR.cy)
     pose_graph.optimize_pose_graph(_to(pose_graph_problem(K=16, n_valid=12), cuda), n_iters=3)
+    for fn in (compact.compact_points, compact.compact_lines, compact.compact_keyframes):
+        fn(st)
     torch.cuda.synchronize()
+
+
+def compact_problem(seed=19, prefix_cull=False):
+    """A MapState at the default capacities (256 keyframes x 1024 features x
+    64 lines, 32768 points, 2048 lines) with every field random on the
+    CPU: validity masks with ~half the slots live, edge grids holding live,
+    culled and -1 references, stamps on live and culled keyframes; with
+    `prefix_cull` the first keyframes are culled."""
+    g = np.random.default_rng(seed)
+    st = map_store.init_map(SLAMConfig(), "cpu")
+    out = {}
+    for f in st._fields:
+        a = getattr(st, f)
+        if a.dtype == torch.bool:
+            v = g.uniform(size=a.shape) < 0.5
+        elif a.dtype == torch.float32:
+            v = g.normal(size=a.shape).astype(np.float32)
+        else:
+            v = g.integers(-2 ** 31, 2 ** 31, a.shape, dtype=np.int64).astype(np.int32)
+        out[f] = torch.from_numpy(v)
+    K, P, L = st.kf_valid.shape[0], st.mp_valid.shape[0], st.ml_valid.shape[0]
+    out["kf_kp_mp"] = torch.from_numpy(g.integers(-1, P, st.kf_kp_mp.shape).astype(np.int32))
+    out["kf_line_ml"] = torch.from_numpy(g.integers(-1, L, st.kf_line_ml.shape).astype(np.int32))
+    for f, n in (("mp_first_kf", P), ("mp_last_kf", P), ("ml_first_kf", L), ("ml_last_kf", L)):
+        out[f] = torch.from_numpy(g.integers(-1, K, n).astype(np.int32))
+    if prefix_cull:
+        out["kf_valid"][:5] = False
+    return map_store.MapState(**out)
+
+
+def test_compact_matches_plain(cuda):
+    """Kernel 19: the three passes at the default capacities, bit-equal to
+    the plain versions on every field (gathers and table lookups), the
+    live counts and `perm` equal, three launches per pass."""
+    for seed, prefix in ((19, False), (20, True)):
+        st = compact_problem(seed, prefix)
+        st_c = _to(st, cuda)
+        for name in ("compact_points", "compact_lines", "compact_keyframes"):
+            before = kernels.COUNTS["compact"]
+            out_k = getattr(compact, name)(st_c)
+            out_p = getattr(compact, name + "_plain")(st)
+            torch.cuda.synchronize()
+            assert kernels.COUNTS["compact"] == before + 3, f"{name}: launch count"
+            for f in st._fields:
+                a, b = getattr(out_k[0], f).cpu(), getattr(out_p[0], f)
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b), f"{name} (seed {seed}): field {f}"
+            assert int(out_k[1]) == int(out_p[1]), f"{name} (seed {seed}): live count"
+            if name == "compact_keyframes":
+                assert torch.equal(out_k[2].cpu(), out_p[2]), f"{name} (seed {seed}): perm"
 
 
 def bow_problem(n_sets=24, n=1024, seed=11):
@@ -488,20 +576,29 @@ def bow_problem(n_sets=24, n=1024, seed=11):
     return voc, desc, torch.from_numpy(g.uniform(size=(n_sets, n)) > 0.1)
 
 
-def test_bow_transform_matches_plain(cuda):
+def test_bow_kernels_match_plain(cuda):
+    """Kernel 13 (the BoW transform, batched and one set) and kernel 14
+    (the database query, two score floors)."""
+    _check_bow_transform(cuda)
+    _check_bow_query(cuda)
+
+
+def _check_bow_transform(cuda):
     voc, desc, valid = bow_problem()
     before = kernels.COUNTS["bow_transform"]
     for d, v in ((desc, valid), (desc[0], valid[0])):
         wk, bk = bow.transform(voc, d.to(cuda), v.to(cuda))
         wp, bp = bow.transform_plain(voc.nodes(cuda), d.to(cuda), v.to(cuda), 8, 4)
         torch.cuda.synchronize()
-        assert torch.equal(wk, wp)
-        assert torch.equal(bk.view(torch.int32), bp.view(torch.int32))
-        assert torch.equal(wk.cpu(), bow.transform(voc, d, v)[0])
-    assert kernels.COUNTS["bow_transform"] == before + 2
+        assert torch.equal(wk, wp), f"bow_transform {tuple(d.shape)}: words"
+        assert torch.equal(bk.view(torch.int32), bp.view(torch.int32)), \
+            f"bow_transform {tuple(d.shape)}: vectors"
+        assert torch.equal(wk.cpu(), bow.transform(voc, d, v)[0]), \
+            f"bow_transform {tuple(d.shape)}: against the CPU"
+    assert kernels.COUNTS["bow_transform"] == before + 2, "bow_transform: launch count"
 
 
-def test_bow_query_matches_plain(cuda):
+def _check_bow_query(cuda):
     voc, desc, valid = bow_problem(n_sets=4)
     g = np.random.default_rng(5)
     kf_bows = torch.from_numpy(g.dirichlet(np.full(4096, 0.05), 256).astype(np.float32))
@@ -514,8 +611,9 @@ def test_bow_query_matches_plain(cuda):
         sp = bow.query_database_plain(q.to(cuda), kf_bows.to(cuda), kf_valid.to(cuda),
                                       min_score)
         torch.cuda.synchronize()
-        assert torch.equal(sk, sp)
-    assert (sk.cpu() - bow.query_database(q, kf_bows, kf_valid, 0.3)).abs().max() <= 1e-6
+        assert torch.equal(sk, sp), f"bow_query (min score {min_score})"
+    assert (sk.cpu() - bow.query_database(q, kf_bows, kf_valid, 0.3)).abs().max() <= 1e-6, \
+        "bow_query against the CPU"
 
 
 PNP_INTR = Intrinsics.from_config(CameraConfig(fy=480.0))

@@ -1,8 +1,12 @@
 """utils/ parity: lie, camera, robust, linalg of the PyTorch port against
-the JAX package on the same numpy inputs (float32 on the CPU).
+the JAX package on the same numpy inputs (float32 on the CPU), the
+helpers no path calls included (se3_log / apply / compose, distort,
+backproject).
 
 Tolerances: 1e-5 absolute on unit-scale outputs (rotations, tangent
-vectors, null vectors) and 1e-3 px on pixel coordinates: both sides run
+vectors, null vectors; points up to ~6 units after se3_apply), 1e-6 on
+distorted normalized coordinates, 1e-4 on backprojected points (depths up
+to 9 times pixel errors of 1e-5) and 1e-3 px on pixel coordinates: both sides run
 the same float32 formulas, so only transcendental-function ulps and
 summation order differ.
 """
@@ -47,9 +51,22 @@ def test_exp_maps(fn):
 
 @pytest.mark.parametrize("fn", ["so3_log", "se3_inverse", "se3_normalize"])
 def test_log_inverse_normalize(fn):
+    """Also se3_log with so3_log, se3_apply and se3_compose with
+    se3_inverse (helpers no path calls, ported for parity)."""
     T = np.asarray(jlie.se3_exp(jnp.asarray(_tangents())))
     if fn == "so3_log":
+        np.testing.assert_allclose(tlie.se3_log(_t(T)).numpy(),
+                                   np.asarray(jlie.se3_log(jnp.asarray(T))), atol=1e-5)
         T = T[:, :3, :3]
+    if fn == "se3_inverse":
+        p = G.normal(0, 2, (T.shape[0], 3)).astype(np.float32)
+        np.testing.assert_allclose(tlie.se3_apply(_t(T), _t(p)).numpy(),
+                                   np.asarray(jlie.se3_apply(jnp.asarray(T), jnp.asarray(p))),
+                                   atol=1e-5)
+        np.testing.assert_allclose(tlie.se3_compose(_t(T), _t(T[::-1])).numpy(),
+                                   np.asarray(jlie.se3_compose(jnp.asarray(T),
+                                                               jnp.asarray(T[::-1]))),
+                                   atol=1e-5)
     a = np.asarray(getattr(jlie, fn)(jnp.asarray(T)))
     b = getattr(tlie, fn)(_t(T)).numpy()
     np.testing.assert_allclose(b, a, atol=1e-5)
@@ -70,6 +87,11 @@ def test_camera_project_undistort_in_image():
         tcam.in_image(TCam(**kw), b, 4.0).numpy(),
         np.asarray(jcam.in_image(JCam(**kw), jnp.asarray(b.numpy()), 4.0)))
     np.testing.assert_allclose(ti.K().numpy(), np.asarray(ji.K), atol=0)
+    xn = np.stack([G.uniform(-0.6, 0.6, 200), G.uniform(-0.5, 0.5, 200)], 1).astype(np.float32)
+    np.testing.assert_allclose(tcam.distort(ti, _t(xn)).numpy(),
+                               np.asarray(jcam.distort(ji, jnp.asarray(xn))), atol=1e-6)
+    np.testing.assert_allclose(tcam.backproject(ti, uv_b, z_b).numpy(),
+                               np.asarray(jcam.backproject(ji, uv_a, z_a)), atol=1e-4)
 
 
 def test_robust():
