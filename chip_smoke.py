@@ -65,7 +65,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
       the loader beside 2a's in-memory fps, the cursors, how often each
       compaction pass fired and each pass's caller ms; then run A's map
       goes through `save_map` / `load_map` on the card (every field
-      bit-equal, cursors equal).
+      bit-equal, cursors equal);
+   f. the half-resolution line-support configuration,
+      `SLAMConfig(frontend=FrontendConfig(line_support_downsample=2))`:
+      bootstrap within 90 frames, then 200 frames through
+      `track_sequence()` on the bench scene, the counters zeroed just
+      before and read just after (kernels 1-12 nonzero), ATE-Sim3 <= 0.05,
+      map lines made and live. Prints tracked / lost, ATE-Sim3, fps and the
+      lines; phase 3 prints kernel 5's device time per frame at the half
+      shape beside phase 2a's at full shape.
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
    through its plain PyTorch version: FAST/NMS maps, Hamming best / second
@@ -112,7 +120,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    torch.cdist(p=1), RANSAC PnP against torch.linalg.svd of its DLT batch,
    Sim(3) RANSAC against torch.linalg.eigh of its Horn matrices, the pose
    graph against torch.linalg.solve of its assembled system
-   (library_ms). The kernel
+   (library_ms). Phase 2f's shapes: kernel 5 at the half shape (the
+   support on the 2x2 box half image, the ridge plane at full resolution)
+   equal, timed as its own row; kernel 6 on its half-pixel anchors within
+   1e-3 px on >= 99.9% of valid anchors; kernel 11 at 8 px cells and a 2 px
+   border as above. The functions no path calls, each driven once through
+   its entry point with the counters zeroed just before and read just
+   after, then held to its plain version: kernels 20 and 21
+   (`fuse_duplicate_points_3d` / `fuse_duplicate_lines_3d`) on phase 2a's
+   final map with seeded duplicates, `best` and `has` equal and merges
+   found; kernel 10's eigensolver entry (`jacobi_eigh_4x4`) on the null
+   vector's Gram matrices, within 1e-6 (vectors, and values relative to
+   max(|v|, 1)), beside torch.linalg.eigh. `relocalize(wide=True)` runs
+   once on phase 2c's final map and a teleport frame, and must recover it
+   (reported beside the 0.75-cut call). The kernel
    table's rows that still run as torch ops around kernel 3 (row 11, the
    fuse functions, counted over phase 2a; row 18, the loop closer's
    helpers, counted over phase 2d; the covisibility matrix, counted over
@@ -165,6 +186,19 @@ OPS_NULL_SYSTEM = 2000
 # per active BA residual row per iteration: projection, Jacobians, the
 # 6x6 / 6x3 / 3x3 block terms and the Schur product (~300 operations)
 OPS_BA_ROW = 300
+# kernel 5 at line_support_downsample = 2: per full-resolution pixel the
+# packed ridge plane alone (three bf16 Scharr gradients, one atan2, the
+# ridge snap and packing), per half-resolution pixel the box average and
+# the mask and peak (three gradients, one atan2, 16 angle gates)
+OPS_PACKED_PX = 230
+OPS_MASK_PX = 240
+# per 4x4 eigensolver system: 30 Jacobi rotations (~60 operations each)
+OPS_EIGH_SYSTEM = 1800
+# kernels 20 / 21 per pair that passes the age gate: the squared distance
+# (~14 operations); a line's segment frame, direction test and the two
+# perpendicular distances (~60); per pair, the two gate reads (2)
+OPS_FUSE_PT_PAIR = 14
+OPS_FUSE_LN_PAIR = 60
 
 # kernel -> (JAX function it replaces, CUDA source)
 KERNELS = {
@@ -206,12 +240,24 @@ KERNELS = {
                    "structure_slam_pointline_tpu_torch/csrc/pose_graph.cu"),
     "compact": ("structure_slam_pointline_tpu/world/compact.py:33",
                 "structure_slam_pointline_tpu_torch/csrc/compact.cu"),
+    "fuse_points_3d": ("structure_slam_pointline_tpu/models/local_mapping.py:593",
+                       "structure_slam_pointline_tpu_torch/csrc/fuse3d.cu"),
+    "fuse_lines_3d": ("structure_slam_pointline_tpu/models/local_mapping.py:639",
+                      "structure_slam_pointline_tpu_torch/csrc/fuse3d.cu"),
+    "jacobi_eigh4": ("structure_slam_pointline_tpu/utils/linalg.py:89",
+                     "structure_slam_pointline_tpu_torch/csrc/null_vector4.cu"),
 }
+# table rows that time one kernel at another path's shape: row -> (kernel,
+# the JAX lines that shape replaces)
+ROW_KERNEL = {"lsd_support_half": ("lsd_support", "structure_slam_pointline_tpu/ops/lsd.py:219")}
 # kernels that run only when a frame is lost (phase 2c), and only with loop
 # closing on (phase 2d)
 RELOC_KERNELS = ("bow_transform", "bow_query", "ransac_pnp")
 LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph")
 DATASET_KERNELS = ("compact",)   # runs only when a pool passes its trigger (phase 2e)
+# no path calls these, in either package: phase 3 drives their entry points
+UNCALLED_KERNELS = ("fuse_points_3d", "fuse_lines_3d", "jacobi_eigh4")
+OFF_MAIN_PATH = RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS + UNCALLED_KERNELS
 FP64_OPS_PER_S = 34e12   # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 # per RANSAC PnP hypothesis, a floor for its float64 work: the least a
 # 12x12 null vector needs, Gaussian elimination (2/3 n^3) and the back
@@ -870,6 +916,42 @@ def check_compact(st, label: str) -> None:
     print(f"[check] compact on {label}: all three passes bit-equal", flush=True)
 
 
+def seed_duplicates(st, cur, g, n_points: int = 300, n_lines: int = 40):
+    """A map state with duplicates of live landmarks seeded as first seen
+    at keyframe cur.n_kf, in the free slots past the cursors: each moved by
+    0.2% of its distance, its descriptor 3% of its bits apart, every fifth
+    80% apart (fuse_duplicate_*_3d's case, run with n_kf = cur.n_kf + 2)."""
+    import torch
+
+    seeded = {}
+    for pre, n_cur, n_seed in (("mp", cur.n_mp, n_points), ("ml", cur.n_ml, n_lines)):
+        valid = getattr(st, f"{pre}_valid").clone()
+        first = getattr(st, f"{pre}_first_kf").clone()
+        desc = getattr(st, f"{pre}_desc").clone()
+        geo_name = "mp_xyz" if pre == "mp" else "ml_endpoints"
+        geo = getattr(st, geo_name).clone()
+        dev = geo.device
+        live = torch.nonzero(valid).flatten().cpu().numpy()
+        src = torch.as_tensor(g.choice(live, min(n_seed, len(live)), replace=False),
+                              device=dev)
+        dst = torch.arange(n_cur, n_cur + len(src), device=dev)
+        if len(src) == 0 or dst[-1] >= valid.shape[0]:
+            fail(f"seed_duplicates: no live {pre} landmarks or no free slots")
+        x = geo[src]
+        scale = torch.linalg.norm(x[:, :3], dim=1, keepdim=True)
+        step = torch.from_numpy(g.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+        geo[dst] = x + 0.002 * scale * step / torch.linalg.norm(step, dim=1, keepdim=True)
+        flips = g.uniform(size=(len(src), 256)) < 0.03
+        flips[::5] = g.uniform(size=(flips[::5].shape[0], 256)) < 0.8
+        words = np.packbits(flips, axis=1, bitorder="little").view(np.uint32).view(np.int32)
+        desc[dst] = desc[src] ^ torch.from_numpy(words.copy()).to(dev)
+        valid[dst] = True
+        first[dst] = cur.n_kf
+        seeded.update({f"{pre}_valid": valid, f"{pre}_first_kf": first, f"{pre}_desc": desc,
+                       geo_name: geo})
+    return st._replace(**seeded)
+
+
 def frontend_card_vs_cpu(img: np.ndarray, cfg) -> dict:
     """One bench frame built by the port on the card (kernels) and on the
     CPU (plain versions): per pyramid level, the pixels of the card's
@@ -978,6 +1060,15 @@ def main() -> int:
             imgs[i] = synthetic.render(scene, poses[i], cam, noise=2.0, seed=i)
         return imgs[i]
 
+    def support_key(img, *a):
+        return ("lsd_support", tuple(img.shape), a[3] if len(a) > 3 else 1)
+
+    def refine_key(img, packed, ax, ay, steps, *a):
+        return ("lsd_refine", tuple(img.shape), ax.shape[0], steps)
+
+    def select_key(score_raw, ks, **kw):
+        return ("sel", tuple(ks), kw.get("cell"), kw.get("cell_cap"))
+
     rec = {
         "fast_nms": Recorder(fast, "fast_score_nms",
                              lambda img: ("fast", tuple(img.shape))),
@@ -989,19 +1080,14 @@ def main() -> int:
         "pose_lm": Recorder(pose_opt, "pose_optimize",
                             lambda *a: ("pose", a[1].shape[0], a[5].shape[0],
                                         a[11].pose_rounds, a[11].pose_iters)),
-        "lsd_support": Recorder(lsd, "lsd_support",
-                                lambda img, *a: ("lsd_support", tuple(img.shape))),
-        "lsd_refine": Recorder(lsd, "lsd_refine",
-                               lambda img, packed, ax, ay, steps, *a: (
-                                   "lsd_refine", tuple(img.shape), ax.shape[0], steps)),
+        "lsd_support": Recorder(lsd, "lsd_support", support_key),
+        "lsd_refine": Recorder(lsd, "lsd_refine", refine_key),
         "lbd_describe": Recorder(lbd, "describe_lines",
                                  lambda img, ep, valid: ("lbd", tuple(img.shape), ep.shape[0])),
         "atan2_glibc": Recorder(fmath, "atan2",
                                 lambda y, x: ("atan2", tuple(torch.broadcast_shapes(
                                     y.shape, x.shape)))),
-        "kp_select": Recorder(fast, "select_keypoints_levels",
-                              lambda score_raw, ks, **kw: ("sel", tuple(ks), kw.get("cell"),
-                                                           kw.get("cell_cap"))),
+        "kp_select": Recorder(fast, "select_keypoints_levels", select_key),
         "null_vector4": Recorder(linalg, "null_vector_4",
                                  lambda A, **kw: ("null", tuple(A.shape))),
         "local_ba": Recorder(local_ba, "bundle_adjust",
@@ -1026,8 +1112,7 @@ def main() -> int:
     slam, e2e, counts = drive(cfg, N_TRACK, frame, poses, "lines")
     for r in (*rec.values(), *op_rec.values()):
         r.__exit__()
-    zero = [k for k, v in counts.items()
-            if v == 0 and k not in RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS]
+    zero = [k for k, v in counts.items() if v == 0 and k not in OFF_MAIN_PATH]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
     if e2e["lines"] == 0 or e2e["live_lines"] == 0:
@@ -1070,6 +1155,29 @@ def main() -> int:
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"relocalization scenario failed: {bad}")
+    # relocalize(wide=True) once: phase 2c's final map, the first teleport
+    # frame; it must recover the frame (the 0.75-cut call beside it)
+    from structure_slam_pointline_tpu_torch.models import relocalization
+
+    r_imgs, _, r_seg = relocalization_scenario(cam)
+    r_frame = reloc_slam.build_frame(r_imgs[r_seg["teleport"][0]])
+    wide_out = {}
+    for wide in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        T_w = relocalization.relocalize(reloc_slam.map, reloc_slam.cur.n_kf, r_frame,
+                                        reloc_slam._get_loop_closer(), reloc_slam.intr, cfg,
+                                        np.random.default_rng(7), wide=wide)
+        torch.cuda.synchronize()
+        wide_out["wide" if wide else "cut"] = {"recovered": T_w is not None,
+                                               "ms": (time.time() - t0) * 1e3, "T": T_w}
+    Tw, Tc = wide_out["wide"].pop("T"), wide_out["cut"].pop("T")
+    if Tw is None:
+        fail("relocalize(wide=True) did not recover the teleport frame")
+    wide_out["pose_diff_wide_vs_cut"] = (None if Tc is None else
+                                         float(np.abs(np.asarray(Tw) - np.asarray(Tc)).max()))
+    e2e_reloc["wide"] = wide_out
+    print(f"[reloc] relocalize on the first teleport frame: {wide_out}", flush=True)
     # the same frames through one track_sequence call after the bootstrap:
     # reported, not judged (the reference-keyframe rung then starts from
     # the bootstrap's pose; see run_relocalization)
@@ -1184,7 +1292,7 @@ def main() -> int:
         and eb["n_ml"] <= 128,
         "kernel 19 launched": counts_2e["compact"] > 0,
         "kernels 1-12 launched": all(counts_2e[k] > 0 for k in KERNELS if k not in
-                                     RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS),
+                                     OFF_MAIN_PATH),
     }
     bad = [k for k, v in checks.items() if not v]
     if bad:
@@ -1210,6 +1318,25 @@ def main() -> int:
           f"({ea['fps_wall']:.2f} wall, bootstrap included) against phase 2a's in-memory "
           f"{e2e['fps']:.2f} | save / load of run A's map: bit-equal, "
           f"{e2e_dataset['map_npz_bytes']} bytes, {e2e_dataset['save_load_s']:.1f} s", flush=True)
+    # 2f: the half-resolution line-support configuration; kernels 5, 6 and
+    # 11's new shapes recorded for phase 3
+    from structure_slam_pointline_tpu_torch.config import FrontendConfig
+
+    cfg_ds2 = SLAMConfig(camera=cam, frontend=FrontendConfig(line_support_downsample=2))
+    rec_ds2 = {"lsd_support": Recorder(lsd, "lsd_support", support_key),
+               "lsd_refine": Recorder(lsd, "lsd_refine", refine_key),
+               "kp_select": Recorder(fast, "select_keypoints_levels", select_key)}
+    for r in rec_ds2.values():
+        r.__enter__()
+    _, e2e_ds2, counts_ds2 = drive(cfg_ds2, N_TRACK, frame, poses, "lines ds=2")
+    for r in rec_ds2.values():
+        r.__exit__()
+    zero = [k for k, v in counts_ds2.items() if v == 0 and k not in OFF_MAIN_PATH]
+    if zero:
+        fail(f"kernels never launched at line_support_downsample = 2: {zero}")
+    if e2e_ds2["lines"] == 0 or e2e_ds2["live_lines"] == 0:
+        fail(f"ds = 2: the line map stayed empty: {e2e_ds2['lines']} made, "
+             f"{e2e_ds2['live_lines']} live")
     print(f"[time] phase 2 done at {time.time() - t_start:.0f} s", flush=True)
     i = e2e["init_frame"] + 1
 
@@ -1356,6 +1483,68 @@ def main() -> int:
         ops=samples * OPS_REFINE_SAMPLE, library_ms=None,
         shape=f"{len(ref_calls)} octaves, {n_anchor} anchors, {samples} samples"))
 
+    # phase 2f's shapes: kernel 5 at the half shape (both octaves of one
+    # frame, exactly equal, timed as its own row), kernel 6 on half-pixel
+    # anchors, kernel 11 at 8 px cells
+    sup2_calls = [v[0] for k, v in sorted(rec_ds2["lsd_support"].calls.items(),
+                                          key=lambda kv: -kv[0][1][0]) if k[2] == 2]
+    if len(sup2_calls) != 2:
+        fail(f"phase 2f: support shapes {sorted(rec_ds2['lsd_support'].calls)}")
+    px_full = px_half = scored = 0
+    for args in sup2_calls:
+        bk, pk = lsd.lsd_support(*args)
+        bp, pp = lsd.lsd_support_plain(*args)
+        if not (torch.equal(bk, bp) and torch.equal(pk, pp)):
+            fail(f"lsd_support (ds = 2) disagrees at {tuple(args[0].shape)}: score "
+                 f"{int((bk != bp).sum())} px, plane {int((pk != pp).sum())} px")
+        px_full += args[0].numel()
+        px_half += bp.numel()
+        scored += int((bp > 0).sum())
+    rows.append(dict(
+        name="lsd_support_half", max_abs_err=0.0,
+        **timings(lambda: [lsd.lsd_support(*a) for a in sup2_calls],
+                  lambda: [lsd.lsd_support_plain(*a) for a in sup2_calls]),
+        bytes=px_full * (4 + 4) + px_half * 4,
+        ops=px_full * OPS_PACKED_PX + px_half * OPS_MASK_PX + scored * OPS_SUPPORT_SCORED,
+        library_ms=None, shape=f"ds = 2: {len(sup2_calls)} octaves, {px_full} px, support on "
+                               f"{px_half} half-resolution px, {scored} scored"))
+    k5 = next(r for r in rows if r["name"] == "lsd_support")
+    print(f"[kernel 5] per frame (both octaves): device {k5['ms']:.4f} ms at full shape "
+          f"(phase 2a), {rows[-1]['ms']:.4f} ms at the half shape (phase 2f); caller "
+          f"{k5['wall_ms']:.4f} / {rows[-1]['wall_ms']:.4f} ms", flush=True)
+    ref2_calls = [v[0] for _, v in sorted(rec_ds2["lsd_refine"].calls.items(),
+                                          key=lambda kv: -kv[0][1][0])]
+    worst2, err2 = 1.0, 0.0
+    for args, sup_args in zip(ref2_calls, sup2_calls):
+        axy, _, avalid = fast.select_keypoints(lsd.lsd_support_plain(*sup_args)[0],
+                                               k=args[2].shape[0], cell=8, cell_cap=1,
+                                               threshold=1.0, min_threshold=1.0, border=2)
+        axy = axy * 2 + 0.5
+        if not (torch.equal(axy[:, 0], args[2]) and torch.equal(axy[:, 1], args[3])):
+            fail(f"lsd_refine (ds = 2): recorded anchors at {tuple(args[0].shape)} are not "
+                 "the recorded support call's")
+        if not torch.equal(torch.frac(args[2]), torch.full_like(args[2], 0.5)):
+            fail("lsd_refine (ds = 2): anchors off the half-pixel centres")
+        err = (lsd.lsd_refine(*args)[:, :4] - lsd.lsd_refine_plain(*args)[:, :4]).abs().amax(1)
+        err = err[avalid]
+        worst2 = min(worst2, (err <= 1e-3).float().mean().item())
+        err2 = max(err2, err.max().item())
+    print(f"[check] lsd_refine on half-pixel anchors (ds = 2): endpoints within 1e-3 px on "
+          f"{worst2:.4f} of valid anchors (worst octave), max err {err2:.3e} px", flush=True)
+    if worst2 < 0.999:
+        fail(f"lsd_refine (ds = 2) disagrees: {worst2:.4f} of valid anchors within 1e-3 px")
+    sel2 = {k: v for k, v in rec_ds2["kp_select"].calls.items() if k[2] == 8}
+    if len(sel2) != 2:
+        fail(f"phase 2f: 8 px cell selections {sorted(rec_ds2['kp_select'].calls)}")
+    for key, (args, kw) in sel2.items():
+        out_k = fast.select_keypoints_levels(*args, **kw)
+        out_p = fast.select_keypoints_levels_plain(*args, **kw)
+        for (xk, rk_, vk), (xp, rp_, vp) in zip(out_k, out_p):
+            if not (torch.equal(vk, vp) and torch.equal(rk_[vk], rp_[vp])
+                    and torch.equal(xk[vk], xp[vp])):
+                fail(f"kp_select disagrees at {key} (cell 8, border 2)")
+    print(f"[check] kp_select at 8 px cells, border 2: {sorted(sel2)} equal", flush=True)
+
     # LBD: the frame's segments, words equal on >= 99%, floats within 1e-5
     lbd_calls = [v[0] for v in rec["lbd_describe"].calls.values()]
     worst_eq, desc_err = 1.0, 0.0
@@ -1474,6 +1663,76 @@ def main() -> int:
         library_wall_ms=time_ms(lambda: torch.linalg.eigh(gram)),
         bytes=A_nv.numel() * 4 + n_sys * 16, ops=n_sys * OPS_NULL_SYSTEM,
         shape=f"{tuple(A_nv.shape[:-2])} systems of {tuple(A_nv.shape[-2:])}"))
+
+    # the functions no path calls: each entry point driven once with the
+    # counters zeroed just before and read just after, then each kernel held
+    # to its plain version and timed. Kernels 20 / 21 on phase 2a's final
+    # map with duplicates seeded as keyframe n_kf's (copies of live
+    # landmarks moved by 0.2% of their distance, descriptors 0-10 bits
+    # apart, every fifth 200 bits apart)
+    from structure_slam_pointline_tpu_torch.models import local_mapping
+
+    n_kf_f = slam.cur.n_kf
+    st_seed = seed_duplicates(slam.map, slam.cur, np.random.default_rng(23))
+    gram_eigh = gram.reshape(-1, 4, 4).contiguous()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    st_p = local_mapping.fuse_duplicate_points_3d(st_seed, n_kf_f, n_kf_f + 2, slam.intr, cfg)
+    st_l = local_mapping.fuse_duplicate_lines_3d(st_seed, n_kf_f, n_kf_f + 2, slam.intr, cfg)
+    linalg.jacobi_eigh_4x4(gram_eigh)
+    torch.cuda.synchronize()
+    counts_uncalled = dict(kernels.COUNTS)
+    merged = {"points": int(st_seed.mp_valid.sum() - st_p.mp_valid.sum()),
+              "lines": int(st_seed.ml_valid.sum() - st_l.ml_valid.sum())}
+    print(f"[fuse3d] merged {merged} of the seeded duplicates | launches "
+          f"{ {k: counts_uncalled[k] for k in UNCALLED_KERNELS} }", flush=True)
+    if merged["points"] < 100 or merged["lines"] < 5:
+        fail(f"fuse3d: too few seeded duplicates merged: {merged}")
+    for name, fn, plain, recent, pool, th, R, per_pair in (
+            ("fuse_points_3d", local_mapping.fuse3d_points_match,
+             local_mapping.fuse3d_points_match_plain, "mp",
+             (st_seed.mp_xyz, st_seed.mp_desc, st_seed.mp_valid, st_seed.mp_first_kf),
+             cfg.matching.th_low, local_mapping.FUSE3D_RECENT_MP, OPS_FUSE_PT_PAIR),
+            ("fuse_lines_3d", local_mapping.fuse3d_lines_match,
+             local_mapping.fuse3d_lines_match_plain, "ml",
+             (st_seed.ml_endpoints, st_seed.ml_desc, st_seed.ml_valid, st_seed.ml_first_kf),
+             cfg.matching.th_high, local_mapping.FUSE3D_RECENT_ML, OPS_FUSE_LN_PAIR)):
+        valid, first = pool[2], pool[3]
+        idx = torch.nonzero(valid & (first >= n_kf_f)).flatten()[:R]
+        bk, hk = fn(*pool, idx, th)
+        bp, hp = plain(*pool, idx, th)
+        if not (torch.equal(hk, hp) and torch.equal(bk, bp)):
+            fail(f"{name} disagrees: has {int((hk != hp).sum())}, best "
+                 f"{int((bk != bp).sum())} of {idx.numel()} rows")
+        older = int((valid[None, :] & (first[None, :] < first[idx][:, None])).sum())
+        n_pool = valid.shape[0]
+        row_b = sum(t[0].numel() * t.element_size() for t in pool)
+        rows.append(dict(
+            name=name, max_abs_err=0.0, library_ms=None,
+            **timings(lambda: fn(*pool, idx, th), lambda: plain(*pool, idx, th)),
+            # the pool's geometry, validity and ages read once, the rows'
+            # descriptors and the matched ones' (one per row at most), out
+            bytes=n_pool * (row_b - 32) + idx.numel() * (4 + 2 * 32 + 8 + 1),
+            ops=older * per_pair + 2 * idx.numel() * n_pool,
+            shape=f"{idx.numel()} recent x {n_pool} pool, {older} older pairs, "
+                  f"{int(hk.sum())} duplicates"))
+    vk, Vk = linalg.jacobi_eigh_4x4(gram_eigh)
+    vp, Vp = linalg.jacobi_eigh_4x4_plain(gram_eigh)
+    eigh_err = max((Vk - Vp).abs().max().item(),
+                   ((vk - vp).abs() / vp.abs().clamp(min=1.0)).max().item())
+    print(f"[check] jacobi_eigh4: max err {eigh_err:.3e} on {gram_eigh.shape[0]} systems",
+          flush=True)
+    if eigh_err > 1e-6:
+        fail(f"jacobi_eigh4 disagrees: max err {eigh_err:.3e}")
+    n_eig = gram_eigh.shape[0]
+    rows.append(dict(
+        name="jacobi_eigh4", max_abs_err=eigh_err,
+        **timings(lambda: linalg.jacobi_eigh_4x4(gram_eigh),
+                  lambda: linalg.jacobi_eigh_4x4_plain(gram_eigh)),
+        library_ms=device_ms(lambda: torch.linalg.eigh(gram_eigh)),
+        library_wall_ms=time_ms(lambda: torch.linalg.eigh(gram_eigh)),
+        bytes=n_eig * (64 + 16 + 64), ops=n_eig * OPS_EIGH_SYSTEM,
+        shape=f"{n_eig} symmetric 4x4 (the null vector's Gram matrices)"))
 
     # local BA: every recorded window size, poses and landmarks within 1e-3,
     # inlier masks on >= 99.5% of edges; the largest twice (bit-identical)
@@ -1953,10 +2212,14 @@ def main() -> int:
         # float32 and float64 work run on separate units, so the floor is
         # the larger of the two times, not their sum
         o_ms = max(r["ops"] / CUDA_CORE_OPS_PER_S, r.get("ops_fp64", 0) / FP64_OPS_PER_S) * 1e3
-        replaces, source = KERNELS[r["name"]]
-        launches = (counts_reloc if r["name"] in RELOC_KERNELS else
-                    counts_loop if r["name"] in LOOP_KERNELS else
-                    counts_2e if r["name"] in DATASET_KERNELS else counts)[r["name"]]
+        kernel, replaces = ROW_KERNEL.get(r["name"], (r["name"], None))
+        replaces = replaces or KERNELS[kernel][0]
+        source = KERNELS[kernel][1]
+        launches = (counts_ds2 if r["name"] in ROW_KERNEL else
+                    counts_reloc if kernel in RELOC_KERNELS else
+                    counts_loop if kernel in LOOP_KERNELS else
+                    counts_2e if kernel in DATASET_KERNELS else
+                    counts_uncalled if kernel in UNCALLED_KERNELS else counts)[kernel]
         table.append({
             "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -1974,7 +2237,9 @@ def main() -> int:
                       counts_points, "e2e_relocalization": e2e_reloc,
                       "launches_relocalization": counts_reloc, "e2e_loop": e2e_loop,
                       "launches_loop": counts_loop, "e2e_dataset": e2e_dataset,
-                      "launches_dataset": counts_2e, "frontend_card_vs_cpu": frontend,
+                      "launches_dataset": counts_2e, "e2e_ds2": e2e_ds2,
+                      "launches_ds2": counts_ds2, "fuse3d_merged": merged,
+                      "frontend_card_vs_cpu": frontend,
                       "profile": profile_out, "torch_ops": ops_table}), flush=True)
     print(f"[done] all phases passed in {time.time() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -22,7 +22,10 @@
 // since a centre an ulp off moves the next pass's samples; the anchor's gradient is the bilinear mix of the four
 // pixels' bf16 Scharr values; atan2 is glibc's, cos / sin are CUDA's
 // (one-ulp differences to the CPU move a sample across a pixel boundary
-// only rarely).
+// only rarely). At line_support_downsample = 2 every anchor sits on a half
+// pixel: the bilinear weights are 0.5, summed in the plain version's
+// order, and walk samples land on exact .5, where rintf rounds half to
+// even as torch.round and jnp.round do.
 
 #include "lines.cuh"
 

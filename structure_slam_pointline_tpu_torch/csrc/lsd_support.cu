@@ -5,7 +5,8 @@
 // (:207-211), the 4-bin directional NMS (:236-250), the 16-direction
 // support scan (:259-283, a lax.scan of whole-image zero-filled shifts and
 // log-doubling sums) and the packed ridge plane (:308-352, rolls and
-// selects over whole images). Two launches from one entry point:
+// selects over whole images). Two launches from one entry point at
+// line_support_downsample = 1:
 //
 //   A. one thread per pixel: the gradient at the pixel and at its two NMS
 //      neighbours (wrapped taps, like jnp.roll), the angle (glibc atan2f),
@@ -18,12 +19,24 @@
 //      each way is the support (the reference's 2 x 3 doublings count
 //      exactly these). The best score = support px x magnitude.
 //
+// At line_support_downsample = 2 (:219-233, the support scan on the 2x2
+// box half image) the entry point makes four launches: H, the half image
+// (0.25 x the window summed in row-major order, reduce_window's); A on the
+// full image for the packed ridge plane alone (the refinement reads it at
+// full resolution); A on the half image for the mask and the peaks alone,
+// at the 0.75 x threshold the caller passes; B on the half image with the
+// support scaled by 2 (full-resolution pixels). No launch computes a
+// plane that is thrown away. Any other ds scans at full resolution with
+// the support scaled by ds, as the reference does.
+//
 // Bound on the card: bytes, narrowly against operations. Per pixel A reads
 // the image taps (cached; one float per pixel from device memory), B reads
 // the mask at up to 16 x 16 x 3 points for peaks only (~5% of pixels) out
 // of L1/L2, and the outputs are 4 + 4 B (+ 2 + 4 B intermediates). The
 // reference's cost, ~200 whole-image shift passes, becomes one pass of
-// per-pixel arithmetic plus sparse gathers.
+// per-pixel arithmetic plus sparse gathers. At ds = 2 the mask and support
+// launches cover a quarter of the pixels; the ridge-plane launch still
+// covers them all.
 //
 // Numerics: the reference op for op (torch plain version lsd_support_plain):
 // bf16 rounding after every gradient op; the magnitude's square root is
@@ -57,6 +70,18 @@ __constant__ float c_vlen[16] = {
 
 __constant__ int c_nbr[4][2] = {{1, 0}, {1, 1}, {0, 1}, {-1, 1}};  // (dx, dy) per bin
 
+// 2x2 box half image: ((a + b) + c) + d in the window's row-major order, x 0.25
+__global__ void half_kernel(const float* __restrict__ img, int W, int hs, int ws,
+                            float* __restrict__ out) {
+  const int x = blockIdx.x * TX + threadIdx.x;
+  const int y = blockIdx.y * TY + threadIdx.y;
+  if (x >= ws || y >= hs) return;
+  const float* r0 = img + (size_t)(2 * y) * W + 2 * x;
+  const float* r1 = r0 + W;
+  out[(size_t)y * ws + x] = 0.25f * (((r0[0] + r0[1]) + r1[0]) + r1[1]);
+}
+
+// mask and peak, or packed, may be null: that plane is not computed
 __global__ void planes_kernel(const float* __restrict__ img, int H, int W, float grad_thresh,
                               float tol, uint16_t* __restrict__ mask,
                               float* __restrict__ peak, int32_t* __restrict__ packed) {
@@ -74,18 +99,21 @@ __global__ void planes_kernel(const float* __restrict__ img, int H, int W, float
   const Grad gp = scharr(img, H, W, yp, xp);
   const Grad gm = scharr(img, H, W, ym, xm);
   const float fp = bf(sqrtf(gp.sq)), fm = bf(sqrtf(gm.sq));
-  const bool is_peak = mag >= fp && mag >= fm && mag > grad_thresh;
-  const bool weak = mag > 0.5f * grad_thresh;
-  const float line_ang = jmod(gang + HALF_PI, PI);
-  uint32_t m = 0;
-  if (weak) {
-#pragma unroll
-    for (int d = 0; d < 16; ++d)
-      if (angle_diff(line_ang, c_theta[d]) < tol) m |= 1u << d;
-  }
   const size_t o = (size_t)y * W + x;
-  mask[o] = (uint16_t)m;
-  peak[o] = is_peak ? magf : 0.f;
+  if (mask != nullptr) {
+    const bool is_peak = mag >= fp && mag >= fm && mag > grad_thresh;
+    const bool weak = mag > 0.5f * grad_thresh;
+    const float line_ang = jmod(gang + HALF_PI, PI);
+    uint32_t m = 0;
+    if (weak) {
+#pragma unroll
+      for (int d = 0; d < 16; ++d)
+        if (angle_diff(line_ang, c_theta[d]) < tol) m |= 1u << d;
+    }
+    mask[o] = (uint16_t)m;
+    peak[o] = is_peak ? magf : 0.f;
+  }
+  if (packed == nullptr) return;
 
   // ridge plane: parabola snap along the bin direction, ridge angle/magnitude
   const float den = fm - 2.0f * magf + fp;
@@ -112,7 +140,7 @@ __device__ __forceinline__ int bit_at(const uint16_t* __restrict__ mask, int H, 
 
 __global__ void support_kernel(const uint16_t* __restrict__ mask,
                                const float* __restrict__ peak, int H, int W, float min_sup,
-                               float* __restrict__ best) {
+                               float scale, float* __restrict__ best) {
   const int x = blockIdx.x * TX + threadIdx.x;
   const int y = blockIdx.y * TY + threadIdx.y;
   if (x >= W || y >= H) return;
@@ -139,7 +167,7 @@ __global__ void support_kernel(const uint16_t* __restrict__ mask,
         const int k = i - 7;  // lattice offset of this pair's first point
         sup += pair * ((k >= 0 ? 1 : 0) + (k <= 0 ? 1 : 0));
       }
-      const float support_px = (float)sup * c_vlen[d];
+      const float support_px = (float)sup * (c_vlen[d] * scale);  // full-res px
       if (support_px >= min_sup) out = fmaxf(out, support_px * pm);
     }
   }
@@ -148,15 +176,27 @@ __global__ void support_kernel(const uint16_t* __restrict__ mask,
 
 }  // namespace
 
-extern "C" int sspl_lsd_support(const void* img, int H, int W, float grad_thresh, float tol,
-                                float min_sup, void* mask, void* peak, void* best,
-                                void* packed, void* stream) {
+extern "C" int sspl_lsd_support(const void* img, int H, int W, int ds, float grad_thresh,
+                                float tol, float min_sup, void* half, void* mask, void* peak,
+                                void* best, void* packed, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 block(TX, TY);
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  planes_kernel<<<grid, block, 0, s>>>((const float*)img, H, W, grad_thresh, tol,
-                                       (uint16_t*)mask, (float*)peak, (int32_t*)packed);
-  support_kernel<<<grid, block, 0, s>>>((const uint16_t*)mask, (const float*)peak, H, W,
-                                        min_sup, (float*)best);
+  const dim3 block(TX, TY);
+  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
+  if (ds != 2) {
+    planes_kernel<<<grid, block, 0, s>>>((const float*)img, H, W, grad_thresh, tol,
+                                         (uint16_t*)mask, (float*)peak, (int32_t*)packed);
+    support_kernel<<<grid, block, 0, s>>>((const uint16_t*)mask, (const float*)peak, H, W,
+                                          min_sup, (float)ds, (float*)best);
+    return (int)cudaGetLastError();
+  }
+  const int hs = H / 2, ws = W / 2;
+  const dim3 hgrid((ws + TX - 1) / TX, (hs + TY - 1) / TY);
+  half_kernel<<<hgrid, block, 0, s>>>((const float*)img, W, hs, ws, (float*)half);
+  planes_kernel<<<grid, block, 0, s>>>((const float*)img, H, W, grad_thresh, tol, nullptr,
+                                       nullptr, (int32_t*)packed);
+  planes_kernel<<<hgrid, block, 0, s>>>((const float*)half, hs, ws, grad_thresh, tol,
+                                        (uint16_t*)mask, (float*)peak, nullptr);
+  support_kernel<<<hgrid, block, 0, s>>>((const uint16_t*)mask, (const float*)peak, hs, ws,
+                                         min_sup, 2.0f, (float*)best);
   return (int)cudaGetLastError();
 }

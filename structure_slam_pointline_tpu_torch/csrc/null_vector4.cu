@@ -2,7 +2,11 @@
 // cyclic Jacobi on the 4x4 Gram matrix, one system per thread.
 //
 // Replaces the JAX package's structure_slam_pointline_tpu/utils/linalg.py
-// `null_vector_4` (:108, with `jacobi_eigh_4x4`'s sweep, :17-89). The
+// `null_vector_4` (:108, with `jacobi_eigh_4x4`'s sweep, :17-89). A second
+// entry, `sspl_jacobi_eigh4` (counted apart as `jacobi_eigh4`), replaces
+// `jacobi_eigh_4x4` (:89-105): the same sweeps on [N, 4, 4] matrices as
+// given (all 16 entries, as the reference reads them), returning the
+// unsorted diagonal and the eigenvector columns. The
 // reference keeps the 16 entries of every system as separate [N] vectors,
 // so each rotation is a few dozen whole-array passes on the TPU's vector
 // unit (~hundreds of torch ops per call as plain torch). Here one thread
@@ -62,6 +66,18 @@ __device__ __forceinline__ void rotate(float (&m)[4][4], float (&V)[4][4]) {
   }
 }
 
+// `sweeps` cyclic sweeps over the six (p, q) pairs in the reference's order
+__device__ __forceinline__ void jacobi(float (&m)[4][4], float (&V)[4][4], int sweeps) {
+  for (int sw = 0; sw < sweeps; ++sw) {
+    rotate<0, 1>(m, V);
+    rotate<0, 2>(m, V);
+    rotate<0, 3>(m, V);
+    rotate<1, 2>(m, V);
+    rotate<1, 3>(m, V);
+    rotate<2, 3>(m, V);
+  }
+}
+
 __global__ void null_vector4_kernel(const float* __restrict__ A, int N, int r,
                                     int sweeps, float* __restrict__ out) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -80,14 +96,7 @@ __global__ void null_vector4_kernel(const float* __restrict__ A, int N, int r,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) V[i][j] = i == j ? 1.f : 0.f;
-  for (int sw = 0; sw < sweeps; ++sw) {
-    rotate<0, 1>(m, V);
-    rotate<0, 2>(m, V);
-    rotate<0, 3>(m, V);
-    rotate<1, 2>(m, V);
-    rotate<1, 3>(m, V);
-    rotate<2, 3>(m, V);
-  }
+  jacobi(m, V, sweeps);
   float best_val = m[0][0];
   float best[4] = {V[0][0], V[1][0], V[2][0], V[3][0]};
 #pragma unroll
@@ -102,7 +111,37 @@ __global__ void null_vector4_kernel(const float* __restrict__ A, int N, int r,
   reinterpret_cast<float4*>(out)[n] = o;
 }
 
+__global__ void jacobi_eigh4_kernel(const float* __restrict__ M, int N, int sweeps,
+                                    float* __restrict__ vals, float* __restrict__ vecs) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const float* a = M + (size_t)n * 16;
+  float m[4][4], V[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m[i][j] = a[4 * i + j];
+      V[i][j] = i == j ? 1.f : 0.f;
+    }
+  jacobi(m, V, sweeps);
+  reinterpret_cast<float4*>(vals)[n] = make_float4(m[0][0], m[1][1], m[2][2], m[3][3]);
+  float4* v = reinterpret_cast<float4*>(vecs) + (size_t)n * 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = make_float4(V[i][0], V[i][1], V[i][2], V[i][3]);
+}
+
 }  // namespace
+
+extern "C" int sspl_jacobi_eigh4(const void* M, int N, int sweeps, void* vals, void* vecs,
+                                 void* stream) {
+  const int threads = 128;
+  const int blocks = (N + threads - 1) / threads;
+  if (blocks > 0)
+    jacobi_eigh4_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)M, N, sweeps, (float*)vals, (float*)vecs);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int sspl_null_vector4(const void* A, int N, int r, int sweeps, void* out,
                                  void* stream) {

@@ -11,7 +11,8 @@ so the CPU-only tests import every module without a CUDA toolkit.
 
 A source may export several entry points (`ENTRIES`), a source may
 include the shared headers (`csrc/*.cuh`), and two kernels may share one
-source (kernels 13 and 14 in `bow.cu`: each is built into
+source (kernels 13 and 14 in `bow.cu`, 20 and 21 in `fuse3d.cu`, kernel
+10 and its eigensolver entry in `null_vector4.cu`: each is built into
 its own library and counted on its own); every launch of
 any of them adds one to its kernel's `COUNTS[name]`, where the wrapper
 launches it and nowhere else; `reset_counts()` zeroes them.
@@ -54,13 +55,16 @@ SOURCES = {
     "sim3_pair": "sim3_pair.cu",
     "pose_graph": "pose_graph.cu",
     "compact": "compact.cu",
+    "fuse_points_3d": "fuse3d.cu",
+    "fuse_lines_3d": "fuse3d.cu",
+    "jacobi_eigh4": "null_vector4.cu",
 }
 
 # kernels whose source is built with nvcc's default -fmad=true (every other
-# one gets -fmad=false): kernel 10 calls the CUDA math library's atan2f /
+# one gets -fmad=false): kernel 10 (and its eigensolver entry) calls the CUDA math library's atan2f /
 # cosf / sinf as torch's own CUDA kernels do, and rounds its own products
 # and sums explicitly (csrc/null_vector4.cu)
-FMAD = {"null_vector4"}
+FMAD = {"null_vector4", "jacobi_eigh4"}
 
 ENTRIES = {name: (name,) for name in SOURCES}
 ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
@@ -94,9 +98,9 @@ _ARGTYPES = {
     "pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                 _F, _F, _F, _F, _I, _I, _F, _F, _F, _F, _F,
                 _P, _P, _P, _P, _P],
-    # img, H, W, grad_thresh, angle_tol, min_support_px, mask, peak, best,
-    # packed, stream
-    "lsd_support": [_P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P],
+    # img, H, W, ds, grad_thresh, angle_tol, min_support_px, half, mask,
+    # peak, best, packed, stream
+    "lsd_support": [_P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     # img, packed, H, W, ax, ay, K, walk_steps, iters, angle_tol, half_grad,
     # out, stream
     "lsd_refine": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P],
@@ -110,6 +114,12 @@ _ARGTYPES = {
     "votes_from_bits": [_P, _P, _P, _I, _I, _I, _P, _P],
     # A, N, r, sweeps, out, stream
     "null_vector4": [_P, _I, _I, _I, _P, _P],
+    # M, N, sweeps, vals, vecs, stream
+    "jacobi_eigh4": [_P, _I, _I, _P, _P, _P],
+    # xyz or endpoints, desc, valid, first_kf, rows, R, pool size, th,
+    # best, has, stream
+    "fuse_points_3d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "fuse_lines_3d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # scores, hs, ws, cell_off, L, cell, cap, threshold, min_threshold,
     # border, top_s, top_i, stream
     "kp_select_cells": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],

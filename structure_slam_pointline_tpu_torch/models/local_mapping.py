@@ -1,14 +1,21 @@
 """Local mapping: keyframe insertion, triangulation, fusion, local BA
 problem gathering, result write-back and culling, points and lines.
 
-Counterpart of structure_slam_pointline_tpu/models/local_mapping.py
-(`fuse_duplicate_points_3d` / `fuse_duplicate_lines_3d`, off the main
-path, are not ported). Descriptor matching runs through kernel 3: the
+Counterpart of structure_slam_pointline_tpu/models/local_mapping.py.
+Descriptor matching runs through kernel 3: the
 neighbour searches of `create_new_points` / `create_new_lines` as one
 [NB, M, N] batched launch each and the fuse directions as one [2W, M, N]
 batched launch each. Scatters follow the reference's "drop" and
 last-write-wins semantics (utils/indexing.py), so the sequential fuse
 merges are deterministic.
+
+`fuse_duplicate_points_3d` / `fuse_duplicate_lines_3d` are the reference's
+landmark-space dedup, a retired heuristic that no path calls in either
+package (its own tests still run the points one). The pair search of each,
+recent landmarks against the whole pool, is CUDA kernel 20 / 21
+(csrc/fuse3d.cu); `fuse3d_points_match_plain` / `fuse3d_lines_match_plain`
+are their plain versions, which round every product and sum on its own in
+the reference's order, as the kernels do.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.models.tracking import Frame
 from structure_slam_pointline_tpu_torch.ops import hamming, matching, twoview
@@ -436,6 +444,169 @@ def cull_keyframes(state: MapState, n_kf: int, cfg: SLAMConfig,
                           kf_line_ml=set_drop(state.kf_line_ml, drop, -1))
 
 
+FUSE3D_RECENT_MP = 512
+FUSE3D_RECENT_ML = 128
+
+
+def _norm3(x: torch.Tensor) -> torch.Tensor:
+    """(x0 * x0 + x1 * x1) + x2 * x2 over the last axis, each op rounded."""
+    return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def _gated_argmin(cand: torch.Tensor, desc_r: torch.Tensor, desc: torch.Tensor, th: int):
+    """(best [R] int64, has [R] bool): among the pairs the geometric gates
+    passed, the smallest Hamming distance <= th and the first index that
+    reaches it (jnp.argmin over a BIG-filled row; an empty row gives 0)."""
+    r, o = torch.nonzero(cand, as_tuple=True)
+    dd = hamming.hamming_pairwise(desc_r[r], desc[o])
+    ok = dd <= th
+    full = torch.full(cand.shape, hamming.BIG, dtype=torch.int32, device=cand.device)
+    full[r[ok], o[ok]] = dd[ok]
+    return torch.argmin(full, dim=1), (full < hamming.BIG).any(dim=1)
+
+
+def fuse3d_points_match_plain(xyz, desc, valid, first_kf, rows, th_low: int):
+    """Kernel 20's plain version: for each pool row in `rows` [R], the
+    older valid landmark (smaller first keyframe) within 1% of its
+    distance, d2 as |a|^2 + |b|^2 - 2 a.b (local_mapping.py:609-613), with
+    the smallest descriptor distance <= th_low. Returns (best, has)."""
+    xr = xyz[rows]
+    nr = _norm3(xr)
+    d2 = (nr[:, None] + _norm3(xyz)[None, :]) - 2.0 * _dot3(xr[:, None, :], xyz[None, :, :])
+    thresh = 0.01 * torch.clamp(torch.sqrt(nr), min=1.0)
+    older = valid[None, :] & (first_kf[None, :] < first_kf[rows][:, None])
+    cand = older & (d2 <= (thresh * thresh)[:, None])
+    return _gated_argmin(cand, desc[rows], desc, th_low)
+
+
+def fuse3d_points_match(xyz, desc, valid, first_kf, rows, th_low: int):
+    """Duplicate search of `fuse_duplicate_points_3d`. CPU tensors ->
+    plain version; CUDA tensors -> kernel 20 (or raise)."""
+    if xyz.device.type == "cpu":
+        return fuse3d_points_match_plain(xyz, desc, valid, first_kf, rows, th_low)
+    name = "fuse_points_3d"
+    for t, dt in ((xyz, torch.float32), (desc, torch.int32), (valid, torch.bool),
+                  (first_kf, torch.int32)):
+        kernels.check_dtype(name, t, dt)
+    rows = rows.to(torch.int32).contiguous()
+    ins = [xyz.contiguous(), desc.contiguous(), valid.contiguous(), first_kf.contiguous(),
+           rows]
+    dev = kernels.check_cuda(name, *ins)
+    R, P = rows.shape[0], xyz.shape[0]
+    best = torch.empty((R,), dtype=torch.int64, device=dev)
+    has = torch.empty((R,), dtype=torch.bool, device=dev)
+    if R:
+        kernels.launch(name, *[kernels.ptr(t) for t in ins], R, P, int(th_low),
+                       kernels.ptr(best), kernels.ptr(has))
+    return best, has
+
+
+def fuse3d_lines_match_plain(endpoints, desc, valid, first_kf, rows, th_high: int):
+    """Kernel 21's plain version (local_mapping.py:656-699): for each pool
+    row in `rows` [R], the older valid line nearly parallel (|u_r . u_o| >
+    0.996) whose infinite line passes within 2% of the distance of both
+    endpoints, overlapping more than a quarter of it, with the smallest
+    descriptor distance <= th_high. Returns (best, has)."""
+    s_o, e_o = endpoints[:, :3], endpoints[:, 3:]
+    s_r, e_r = s_o[rows], e_o[rows]
+    d_o = e_o - s_o
+    len_o = torch.clamp(torch.sqrt(_norm3(d_o)), min=1e-9)
+    u_o = d_o / len_o[:, None]
+    d_r = e_r - s_r
+    len_r = torch.clamp(torch.sqrt(_norm3(d_r)), min=1e-9)
+    u_r = d_r / len_r[:, None]
+    cos_ru = torch.abs(_dot3(u_r[:, None, :], u_o[None, :, :]))
+
+    def perp(p_r):
+        rel = p_r[:, None, :] - s_o[None, :, :]
+        t = _dot3(rel, u_o[None, :, :])
+        foot = rel - t[..., None] * u_o[None, :, :]
+        return torch.sqrt(_norm3(foot)), t
+
+    dist_s, t_s = perp(s_r)
+    dist_e, t_e = perp(e_r)
+    overlap = (torch.minimum(torch.maximum(t_s, t_e), len_o[None, :])
+               - torch.clamp(torch.minimum(t_s, t_e), min=0.0))
+    tol = 0.02 * torch.clamp(torch.sqrt(_norm3(0.5 * (s_r + e_r))), min=1.0)
+    older = valid[None, :] & (first_kf[None, :] < first_kf[rows][:, None])
+    cand = (older & (cos_ru > 0.996) & (dist_s < tol[:, None]) & (dist_e < tol[:, None])
+            & (overlap > (0.25 * len_r)[:, None]))
+    return _gated_argmin(cand, desc[rows], desc, th_high)
+
+
+def fuse3d_lines_match(endpoints, desc, valid, first_kf, rows, th_high: int):
+    """Duplicate search of `fuse_duplicate_lines_3d`. CPU tensors ->
+    plain version; CUDA tensors -> kernel 21 (or raise)."""
+    if endpoints.device.type == "cpu":
+        return fuse3d_lines_match_plain(endpoints, desc, valid, first_kf, rows, th_high)
+    name = "fuse_lines_3d"
+    for t, dt in ((endpoints, torch.float32), (desc, torch.int32), (valid, torch.bool),
+                  (first_kf, torch.int32)):
+        kernels.check_dtype(name, t, dt)
+    rows = rows.to(torch.int32).contiguous()
+    ins = [endpoints.contiguous(), desc.contiguous(), valid.contiguous(),
+           first_kf.contiguous(), rows]
+    dev = kernels.check_cuda(name, *ins)
+    R, L = rows.shape[0], endpoints.shape[0]
+    best = torch.empty((R,), dtype=torch.int64, device=dev)
+    has = torch.empty((R,), dtype=torch.bool, device=dev)
+    if R:
+        kernels.launch(name, *[kernels.ptr(t) for t in ins], R, L, int(th_high),
+                       kernels.ptr(best), kernels.ptr(has))
+    return best, has
+
+
+def _merge_recent(valid, table, rows, ok, best, has):
+    """The reference's one-step redirect: each merged recent landmark ->
+    its older duplicate (no chains composed), the landmark invalidated and
+    every keyframe binding remapped. Returns (valid, table)."""
+    n = valid.shape[0]
+    has = has & ok
+    dst = torch.where(has, rows, torch.full_like(rows, n))
+    redirect = set_drop(torch.arange(n, dtype=torch.int32, device=valid.device), dst,
+                        best.to(torch.int32))
+    table = torch.where(table >= 0, redirect[torch.clamp(table, 0, n - 1).long()], table)
+    return set_drop(valid, dst, False), table
+
+
+def fuse_duplicate_points_3d(state: MapState, k_new: int, n_kf: int, intr: Intrinsics,
+                             cfg: SLAMConfig) -> MapState:
+    """Landmark-space point dedup (reference local_mapping.py:593-635): the
+    first FUSE3D_RECENT_MP valid points in slot order first seen at
+    keyframe >= n_kf - 2 merge into their duplicate (kernel 20), all
+    keyframe bindings redirected. `k_new` and `intr` are unused, as in the
+    reference."""
+    P = state.mp_valid.shape[0]
+    idx = nonzero_fixed(state.mp_valid & (state.mp_first_kf >= max(n_kf - 2, 0)),
+                        FUSE3D_RECENT_MP)
+    rows = torch.clamp(idx, 0, P - 1)
+    best, has = fuse3d_points_match(state.mp_xyz, state.mp_desc, state.mp_valid,
+                                    state.mp_first_kf, rows, cfg.matching.th_low)
+    mp_valid, kf_kp_mp = _merge_recent(state.mp_valid, state.kf_kp_mp, rows, idx >= 0,
+                                       best, has)
+    return state._replace(mp_valid=mp_valid, kf_kp_mp=kf_kp_mp)
+
+
+def fuse_duplicate_lines_3d(state: MapState, k_new: int, n_kf: int, intr: Intrinsics,
+                            cfg: SLAMConfig) -> MapState:
+    """Landmark-space line dedup (reference local_mapping.py:639-707): the
+    first FUSE3D_RECENT_ML recent lines merge into an older collinear,
+    overlapping line with a close LBD descriptor (kernel 21)."""
+    L = state.ml_valid.shape[0]
+    idx = nonzero_fixed(state.ml_valid & (state.ml_first_kf >= max(n_kf - 2, 0)),
+                        FUSE3D_RECENT_ML)
+    rows = torch.clamp(idx, 0, L - 1)
+    best, has = fuse3d_lines_match(state.ml_endpoints, state.ml_desc, state.ml_valid,
+                                   state.ml_first_kf, rows, cfg.matching.th_high)
+    ml_valid, kf_line_ml = _merge_recent(state.ml_valid, state.kf_line_ml, rows, idx >= 0,
+                                         best, has)
+    return state._replace(ml_valid=ml_valid, kf_line_ml=kf_line_ml)
+
+
 def _compose_redirect(redirect: torch.Tensor) -> torch.Tensor:
     for _ in range(3):
         redirect = redirect[redirect.long()]
@@ -728,4 +899,7 @@ __all__ = ["MAX_NEW_POINTS", "MAX_NEW_LINES", "BA_WINDOW", "BA_FIXED", "BA_LOCAL
            "BA_LOCAL_MP", "BA_LOCAL_LN", "insert_keyframe", "create_new_points",
            "NewPointsResult", "create_new_lines", "NewLinesResult", "fuse_projected_points",
            "fuse_projected_lines", "apply_ba_result", "gather_ba_problem",
-           "_gather_ba_device", "cull_points", "cull_lines", "cull_keyframes"]
+           "_gather_ba_device", "cull_points", "cull_lines", "cull_keyframes",
+           "fuse_duplicate_points_3d", "fuse_duplicate_lines_3d", "fuse3d_points_match",
+           "fuse3d_points_match_plain", "fuse3d_lines_match", "fuse3d_lines_match_plain",
+           "FUSE3D_RECENT_MP", "FUSE3D_RECENT_ML"]

@@ -59,11 +59,14 @@ def _bow_match_candidates(frame: Frame, desc_k, node_k, has_mp, node_f, valid_f,
 
 
 def relocalize(state: MapState, n_kf: int, frame: Frame, lc: LoopCloser, intr: Intrinsics,
-               cfg: SLAMConfig, rng: np.random.Generator) -> Optional[np.ndarray]:
+               cfg: SLAMConfig, rng: np.random.Generator,
+               wide: bool = False) -> Optional[np.ndarray]:
     """Returns a recovered T_cw (4x4 numpy) or None. All database
     candidates >= 0.75 x best (up to MAX_CANDIDATES) are matched and
-    solved in one batch each. (The reference's `wide` option, no 0.75
-    cut, has no caller and is not ported.)"""
+    solved in one batch each. With `wide` (the reference's escalation for
+    a frame lost too long; no caller passes it, in either package) the
+    0.75 cut is dropped: the first MAX_CANDIDATES keyframes by score with
+    a score > 0 are tried."""
     if not lc.ensure_vocabulary(state, n_kf):
         return None
     dev = frame.xy.device
@@ -72,8 +75,8 @@ def relocalize(state: MapState, n_kf: int, frame: Frame, lc: LoopCloser, intr: I
     best = scores.max()
     if best <= 0:
         return None
-    cands = [int(c) for c in np.argsort(scores)[::-1]
-             if scores[c] >= 0.75 * best][:MAX_CANDIDATES]
+    keep = scores > 0 if wide else scores >= 0.75 * best
+    cands = [int(c) for c in np.argsort(scores)[::-1] if keep[c]][:MAX_CANDIDATES]
     coarse = _coarse(lc, cfg)
     words_f = words_f.cpu().numpy()
     node_f = words_f // coarse

@@ -29,7 +29,12 @@ reference's arithmetic op for op: every gradient op rounds to bf16,
 neighbours) while the support pass zero-fills, `jnp.round` rounds half to
 even and `jnp.mod` is a floor modulo (`matching.jnp_mod`). A CPU tensor
 takes the plain versions; a CUDA tensor launches the kernels or raises.
-Only `line_support_downsample = 1` (the default) is ported.
+
+`line_support_downsample = 2` (lsd.py:219-233) runs step 1's support scan
+on the 2x2 box half image (0.75 x the gradient threshold, support in
+full-resolution pixels) and step 2 with 8 px cells, the anchors mapped
+back to full resolution at half-pixel centres; the ridge plane and the
+refinement stay at full resolution.
 """
 
 from __future__ import annotations
@@ -145,10 +150,11 @@ def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
 
 
-def lsd_support_plain(img: torch.Tensor, grad_thresh: float, angle_tol: float,
-                      min_length: float):
-    """(best_score float32 [H, W], packed ridge plane int32 [H, W]) of one
-    octave, the reference's arithmetic (lsd.py:207-283, :308-352, ds=1)."""
+def _nms_planes(img: torch.Tensor):
+    """(gang, magf, mag, grad_bin, m_plus, m_minus) of one image: the
+    gradient angle, the magnitude unrounded (float32) and bf16-rounded, the
+    4-bin gradient direction and the wrapped NMS neighbours' bf16
+    magnitudes (lsd.py:207-211, :236-246)."""
     gx, gy, sq = _scharr(img)
     gang = fmath.atan2_plain(gy.float(), gx.float())
     # XLA:CPU keeps the magnitude's square root unrounded where the
@@ -163,13 +169,37 @@ def lsd_support_plain(img: torch.Tensor, grad_thresh: float, angle_tol: float,
         sel = grad_bin == b
         m_plus = torch.where(sel, torch.roll(mag, (-bdy, -bdx), (0, 1)), m_plus)
         m_minus = torch.where(sel, torch.roll(mag, (bdy, bdx), (0, 1)), m_minus)
-    is_peak = (mag >= m_plus) & (mag >= m_minus) & (mag > grad_thresh)
-    line_ang = jnp_mod(gang + HALF_PI, PI)
-    weak = mag > 0.5 * grad_thresh
+    return gang, magf, mag, grad_bin, m_plus, m_minus
+
+
+def support_threshold(grad_thresh: float, ds: int) -> float:
+    """The NMS peak threshold of the support pass: 0.75 x at the half
+    resolution (box filtering softens the ridge contrast, lsd.py:228)."""
+    return 0.75 * grad_thresh if ds == 2 else grad_thresh
+
+
+def lsd_support_plain(img: torch.Tensor, grad_thresh: float, angle_tol: float,
+                      min_length: float, ds: int = 1):
+    """(best_score float32 [H/ds', W/ds'], packed ridge plane int32 [H, W])
+    of one octave, the reference's arithmetic (lsd.py:207-283, :308-352).
+    At ds = 2 the support scan runs on the 2x2 box half image (ds' = 2)
+    with 0.75 x the gradient threshold and the support counted in
+    full-resolution pixels; the ridge plane stays at full resolution, from
+    the full image's planes. Any other ds scans at full resolution with
+    the support scaled by ds, as the reference does."""
+    gang, magf, mag, grad_bin, m_plus, m_minus = _nms_planes(img)
+    if ds == 2:
+        sgang, smagf, smag, _, sm_plus, sm_minus = _nms_planes(half_octave(img))
+    else:
+        sgang, smagf, smag, sm_plus, sm_minus = gang, magf, mag, m_plus, m_minus
+    thresh = support_threshold(grad_thresh, ds)
+    is_peak = (smag >= sm_plus) & (smag >= sm_minus) & (smag > thresh)
+    line_ang = jnp_mod(sgang + HALF_PI, PI)
+    weak = smag > 0.5 * thresh
     tol = _c(angle_tol)
     min_sup = _c(0.75 * min_length)
 
-    best = torch.zeros_like(magf)
+    best = torch.zeros_like(smagf)
     for (vx, vy, nx, ny), (th, vlen) in zip(_DIR_I.tolist(), _DIR_F.tolist()):
         aligned = angle_diff(line_ang, th) < tol
         cont = (weak & aligned).to(torch.int32)
@@ -177,9 +207,9 @@ def lsd_support_plain(img: torch.Tensor, grad_thresh: float, angle_tol: float,
                                                   _shift(cont, -nx, -ny)))
         pair = contd * _shift(contd, vx, vy)
         sup = _support_sum(pair, vx, vy) + _support_sum(pair, -vx, -vy)
-        support_px = sup.float() * vlen
+        support_px = sup.float() * _c(vlen * ds)   # full-resolution px
         score = torch.where(is_peak & aligned & (support_px >= min_sup),
-                            support_px * magf, torch.zeros_like(magf))
+                            support_px * smagf, torch.zeros_like(smagf))
         best = torch.maximum(best, score)
 
     fp32, fm32, f032 = m_plus, m_minus, magf
@@ -206,24 +236,30 @@ def lsd_support_plain(img: torch.Tensor, grad_thresh: float, angle_tol: float,
 
 
 def lsd_support(img: torch.Tensor, grad_thresh: float, angle_tol: float,
-                min_length: float):
+                min_length: float, ds: int = 1):
     """Dense support pass of one octave: float32 [H, W] image ->
-    (best_score float32 [H, W], packed ridge plane int32 [H, W]).
+    (best_score float32, packed ridge plane int32 [H, W]); the score is
+    [H // 2, W // 2] at ds = 2 and [H, W] otherwise (`lsd_support_plain`).
 
     CPU tensor -> plain version; CUDA tensor -> kernel 5 (or raise)."""
     if img.dim() != 2:
         raise ValueError(f"lsd_support: expects [H, W], got {tuple(img.shape)}")
     if img.device.type == "cpu":
-        return lsd_support_plain(img, grad_thresh, angle_tol, min_length)
+        return lsd_support_plain(img, grad_thresh, angle_tol, min_length, ds)
     kernels.check_dtype("lsd_support", img, torch.float32)
     kernels.check_cuda("lsd_support", img)
+    img = img.contiguous()
     h, w = img.shape
-    best = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    packed = torch.empty((h, w), dtype=torch.int32, device=img.device)
-    mask = torch.empty((h, w), dtype=torch.int16, device=img.device)
-    peak = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    kernels.launch("lsd_support", kernels.ptr(img), h, w, _c(grad_thresh),
-                   _c(angle_tol), _c(0.75 * min_length), kernels.ptr(mask),
+    hs, ws = (h // 2, w // 2) if ds == 2 else (h, w)
+    dev = img.device
+    best = torch.empty((hs, ws), dtype=torch.float32, device=dev)
+    packed = torch.empty((h, w), dtype=torch.int32, device=dev)
+    mask = torch.empty((hs, ws), dtype=torch.int16, device=dev)
+    peak = torch.empty((hs, ws), dtype=torch.float32, device=dev)
+    half = torch.empty((hs, ws) if ds == 2 else (0,), dtype=torch.float32, device=dev)
+    kernels.launch("lsd_support", kernels.ptr(img), h, w, ds,
+                   _c(support_threshold(grad_thresh, ds)), _c(angle_tol),
+                   _c(0.75 * min_length), kernels.ptr(half), kernels.ptr(mask),
                    kernels.ptr(peak), kernels.ptr(best), kernels.ptr(packed))
     return best, packed
 
@@ -362,14 +398,17 @@ def _line_coeffs(eps: torch.Tensor) -> torch.Tensor:
 def detect_lines(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
     """One octave: dense support (kernel 5), anchors, refinement (kernel
     6), fragment merges, suppression and the top `n_lines`."""
-    if cfg.line_support_downsample != 1:
-        raise NotImplementedError("line_support_downsample != 1 is not ported")
     K, L = cfg.line_anchor_count, cfg.n_lines
+    ds = cfg.line_support_downsample
     dev = img.device
     best, packed = lsd_support(img, cfg.line_grad_threshold, cfg.line_angle_tol,
-                               cfg.line_min_length)
-    axy, _, avalid = fast.select_keypoints(best, k=K, cell=16, cell_cap=1,
-                                           threshold=1.0, min_threshold=1.0, border=4)
+                               cfg.line_min_length, ds)
+    # cell and border shrink with ds (one anchor per 16 full-res px); the
+    # anchors go back to full resolution at the half pixels' centres
+    axy, _, avalid = fast.select_keypoints(best, k=K, cell=max(16 // ds, 4), cell_cap=1,
+                                           threshold=1.0, min_threshold=1.0,
+                                           border=max(4 // ds, 2))
+    axy = axy * ds + 0.5 * (ds - 1)
     ref = lsd_refine(img, packed, axy[:, 0].contiguous(), axy[:, 1].contiguous(),
                      cfg.line_walk_steps, cfg.line_refine_iters, cfg.line_angle_tol,
                      cfg.line_grad_threshold)

@@ -9,8 +9,9 @@ vectors, exactly as in the reference.
 `null_vector_4` is the wrapper of CUDA kernel 10 (csrc/null_vector4.cu,
 one system per thread); `null_vector_4_plain` is its plain version and
 sums the Gram entries row after row, as the kernel does.
-`jacobi_eigh_4x4` stays plain torch: only `null_vector_4` runs on the
-main path.
+`jacobi_eigh_4x4` is the wrapper of the same source's second entry
+(`jacobi_eigh4`, counted apart; no path calls it, in either package),
+`jacobi_eigh_4x4_plain` its plain version.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def _identity_lists(ref: torch.Tensor):
     return [[one if i == j else zero for j in range(4)] for i in range(4)]
 
 
-def jacobi_eigh_4x4(M: torch.Tensor, sweeps: int = 5):
+def jacobi_eigh_4x4_plain(M: torch.Tensor, sweeps: int = 5):
     """(eigvals [..., 4], eigvecs [..., 4, 4]) with eigenvectors in
     COLUMNS; eigenvalues unsorted."""
     m = [[M[..., i, j] for j in range(4)] for i in range(4)]
@@ -64,6 +65,26 @@ def jacobi_eigh_4x4(M: torch.Tensor, sweeps: int = 5):
     vecs = torch.stack(
         [torch.stack([V[i][j] for j in range(4)], dim=-1) for i in range(4)],
         dim=-2)
+    return vals, vecs
+
+
+def jacobi_eigh_4x4(M: torch.Tensor, sweeps: int = 5):
+    """(eigvals [..., 4], eigvecs [..., 4, 4] in columns, unsorted) of
+    symmetric float32 [..., 4, 4] matrices. CPU tensor -> plain version;
+    CUDA tensor -> kernel 10's eigensolver entry (or raise)."""
+    if M.device.type == "cpu":
+        return jacobi_eigh_4x4_plain(M, sweeps)
+    if M.dim() < 2 or M.shape[-2:] != (4, 4):
+        raise ValueError(f"jacobi_eigh_4x4: expects [..., 4, 4], got {tuple(M.shape)}")
+    kernels.check_dtype("jacobi_eigh_4x4", M, torch.float32)
+    M = M.contiguous()
+    kernels.check_cuda("jacobi_eigh_4x4", M)
+    batch = M.shape[:-2]
+    n = M[..., 0, 0].numel()
+    vals = torch.empty(batch + (4,), dtype=M.dtype, device=M.device)
+    vecs = torch.empty(batch + (4, 4), dtype=M.dtype, device=M.device)
+    kernels.launch("jacobi_eigh4", kernels.ptr(M), n, sweeps, kernels.ptr(vals),
+                   kernels.ptr(vecs))
     return vals, vecs
 
 
@@ -108,4 +129,5 @@ def null_vector_4(A: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
     return out
 
 
-__all__ = ["jacobi_eigh_4x4", "null_vector_4", "null_vector_4_plain"]
+__all__ = ["jacobi_eigh_4x4", "jacobi_eigh_4x4_plain", "null_vector_4",
+           "null_vector_4_plain"]

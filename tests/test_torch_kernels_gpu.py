@@ -1,4 +1,4 @@
-"""The nineteen CUDA kernels of the PyTorch port against their plain
+"""The twenty-one CUDA kernels of the PyTorch port against their plain
 versions, on the card, at the main path's and the relocalization path's
 shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
@@ -12,7 +12,11 @@ hypotheses x 1024 points; on the loop-closing path Sim(3) RANSAC over 128
 hypotheses x 1024 pairs, the Sim(3) pair refinement over 1024 pairs, the
 pose graph at the 256-keyframe capacity with 60 valid vertices, and local
 BA at global BA's 64 keyframes, 16384 points and 1024 lines; the three
-compaction passes of kernel 19 on random maps at the default capacities).
+compaction passes of kernel 19 on random maps at the default capacities;
+kernels 5, 6 and 11 also at line_support_downsample = 2, the support on
+the half image, half-pixel anchors and 8 px cells; kernels 20 / 21, the 3D
+duplicate searches, on pools at the default capacities with seeded
+near-copies; kernel 10's eigensolver entry on 24,576 Gram matrices).
 Marked `gpu`: they skip without a CUDA device. Kernels that share a
 fixture or a problem share one test item (each check a function of its
 own, each message naming its kernel and case): the suite's item count
@@ -43,6 +47,9 @@ of atan2f / cosf / sinf). Local BA: poses and landmarks within 1e-3
 (the plain version's own bound against JAX; sums over landmarks and the
 LU solve run in another order), inlier masks equal on >= 99.5% of
 edges, two launches bit-identical, and no host synchronization.
+Eigensolver entry: vectors within 1e-6 and values within 1e-6 relative to
+max(|v|, 1) (the null vector's arithmetic). Kernels 20 / 21: best and has
+equal (every product and sum rounded as the plain versions round them).
 Compaction: every field bit-equal, the live counts and `perm` equal. BoW
 transform: words and vectors exactly equal (integer histogram, one IEEE
 division); query: scores exactly equal (the plain version sums in the
@@ -68,6 +75,7 @@ from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.config import (CameraConfig, FrontendConfig, OptimConfig,
                                                       SLAMConfig)
 from structure_slam_pointline_tpu_torch.io import synthetic
+from structure_slam_pointline_tpu_torch.models import local_mapping
 from structure_slam_pointline_tpu_torch.ops import (bow, extract, fast, hamming, lbd, lsd, orb,
                                                    pnp, pyramid)
 from structure_slam_pointline_tpu_torch.optim import local_ba, pose_graph, pose_opt, sim3_solver
@@ -212,32 +220,46 @@ def test_line_kernels_match_plain(octaves):
 def _check_lsd_support(octaves):
     fe = FrontendConfig()
     before = kernels.COUNTS["lsd_support"]
-    for img in octaves:
-        args = (fe.line_grad_threshold, fe.line_angle_tol, fe.line_min_length)
-        best_k, packed_k = lsd.lsd_support(img, *args)
-        best_p, packed_p = lsd.lsd_support_plain(img, *args)
-        torch.cuda.synchronize()
-        assert torch.equal(best_k, best_p), f"lsd_support score at {tuple(img.shape)}"
-        assert torch.equal(packed_k, packed_p), f"lsd_support plane at {tuple(img.shape)}"
-        assert (best_k > 0).sum().item() > 100, "lsd_support: too few scored pixels"
-    assert kernels.COUNTS["lsd_support"] == before + 2, "lsd_support: launch count"
+    for ds in (1, 2):
+        for img in octaves:
+            args = (fe.line_grad_threshold, fe.line_angle_tol, fe.line_min_length, ds)
+            best_k, packed_k = lsd.lsd_support(img, *args)
+            best_p, packed_p = lsd.lsd_support_plain(img, *args)
+            torch.cuda.synchronize()
+            at = f"at {tuple(img.shape)}, ds {ds}"
+            assert best_k.shape == (img.shape[0] // ds, img.shape[1] // ds), at
+            assert torch.equal(best_k, best_p), f"lsd_support score {at}"
+            assert torch.equal(packed_k, packed_p), f"lsd_support plane {at}"
+            assert (best_k > 0).sum().item() > 100 // ds ** 2, f"lsd_support: few scores {at}"
+    assert kernels.COUNTS["lsd_support"] == before + 4, "lsd_support: launch count"
+
+
+def _anchors(img, K, ds):
+    """detect_lines' anchors at line_support_downsample = ds: the support
+    score's selection (8 px cells at ds = 2), at full-resolution (for ds =
+    2 half-pixel) coordinates; (ax, ay, valid, packed ridge plane)."""
+    fe = FrontendConfig()
+    best, packed = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
+                                         fe.line_min_length, ds)
+    axy, _, avalid = fast.select_keypoints(best, k=K, cell=16 // ds, cell_cap=1,
+                                           threshold=1.0, min_threshold=1.0, border=4 // ds)
+    axy = axy * ds + 0.5 * (ds - 1)
+    return axy[:, 0].contiguous(), axy[:, 1].contiguous(), avalid, packed
 
 
 def _check_lsd_refine(octaves):
     fe = FrontendConfig()
-    for img, K, S in zip(octaves, (256, 128), (48, 24)):
-        best, packed = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
-                                             fe.line_min_length)
-        axy, _, avalid = fast.select_keypoints(best, k=K, cell=16, cell_cap=1,
-                                               threshold=1.0, min_threshold=1.0, border=4)
-        ax, ay = axy[:, 0].contiguous(), axy[:, 1].contiguous()
-        args = (S, fe.line_refine_iters, fe.line_angle_tol, fe.line_grad_threshold)
-        out_k = lsd.lsd_refine(img, packed, ax, ay, *args)
-        out_p = lsd.lsd_refine_plain(img, packed, ax, ay, *args)
-        err = (out_k[:, :4] - out_p[:, :4]).abs().amax(1)[avalid]
-        assert avalid.sum().item() > 50, "lsd_refine: too few valid anchors"
-        share = (err <= 1e-3).float().mean().item()
-        assert share >= 0.999, f"lsd_refine at {tuple(img.shape)}: {share} within 1e-3 px"
+    for ds in (1, 2):
+        for img, K, S in zip(octaves, (256, 128), (48, 24)):
+            ax, ay, avalid, packed = _anchors(img, K, ds)
+            args = (S, fe.line_refine_iters, fe.line_angle_tol, fe.line_grad_threshold)
+            out_k = lsd.lsd_refine(img, packed, ax, ay, *args)
+            out_p = lsd.lsd_refine_plain(img, packed, ax, ay, *args)
+            err = (out_k[:, :4] - out_p[:, :4]).abs().amax(1)[avalid]
+            at = f"at {tuple(img.shape)}, ds {ds}"
+            assert avalid.sum().item() > 50 // ds, f"lsd_refine: too few valid anchors {at}"
+            share = (err <= 1e-3).float().mean().item()
+            assert share >= 0.999, f"lsd_refine {at}: {share} within 1e-3 px"
 
 
 def _check_lbd(octaves):
@@ -301,14 +323,17 @@ def _check_kp_select(levels, n_kp):
 
 def _check_kp_select_lsd_anchors(octaves):
     fe = FrontendConfig()
-    for img, K in zip(octaves, (256, 128)):
-        best, _ = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
-                                        fe.line_min_length)
-        kw = dict(cell=16, cell_cap=1, threshold=1.0, min_threshold=1.0, border=4)
-        out_k = fast.select_keypoints(best, K, **kw)
-        out_p = fast.select_keypoints_levels_plain([(best, None)], [K], **kw)[0]
-        assert out_k[2].sum().item() > 50, "kp_select: too few anchors"
-        _assert_selection_equal([out_k], [out_p], f"LSD anchors {tuple(img.shape)}")
+    for ds in (1, 2):
+        for img, K in zip(octaves, (256, 128)):
+            best, _ = lsd.lsd_support_plain(img, fe.line_grad_threshold, fe.line_angle_tol,
+                                            fe.line_min_length, ds)
+            kw = dict(cell=16 // ds, cell_cap=1, threshold=1.0, min_threshold=1.0,
+                      border=4 // ds)
+            out_k = fast.select_keypoints(best, K, **kw)
+            out_p = fast.select_keypoints_levels_plain([(best, None)], [K], **kw)[0]
+            assert out_k[2].sum().item() > 50 // ds, "kp_select: too few anchors"
+            _assert_selection_equal([out_k], [out_p],
+                                    f"LSD anchors {tuple(img.shape)}, ds {ds}")
 
 
 def _obs_grid(g, K=256, F=2048, P=32768):
@@ -337,6 +362,8 @@ def test_obs_bits_and_votes_match_plain(cuda):
 
 
 def test_null_vector4_matches_plain(cuda):
+    """Kernel 10 and its eigensolver entry; kernels 20 and 21, the
+    landmark-space duplicate searches (fuse3d_problem)."""
     g = np.random.default_rng(6)
     A = g.normal(size=(12, 2048, 4, 4)).astype(np.float32)
     A[:, :64, 3] = A[:, :64, 2] * 1.0001      # near rank-deficient systems
@@ -347,6 +374,80 @@ def test_null_vector4_matches_plain(cuda):
     assert kernels.COUNTS["null_vector4"] == before + 1
     assert out_k.shape == (12, 2048, 4)
     assert (out_k - out_p).abs().max().item() <= 1e-6
+    _check_jacobi_eigh(A)
+    _check_fuse3d(cuda)
+
+
+def _check_jacobi_eigh(A):
+    """The eigensolver entry on [24576, 4, 4] Gram matrices: equal to its
+    plain version (every op rounded as the plain version's), within the
+    null vector's 1e-6 bound on the vectors and 1e-6 relative on the
+    values."""
+    M = (A.transpose(-1, -2) @ A).reshape(-1, 4, 4).contiguous()
+    before = kernels.COUNTS["jacobi_eigh4"]
+    vk, Vk = linalg.jacobi_eigh_4x4(M)
+    vp, Vp = linalg.jacobi_eigh_4x4_plain(M)
+    assert kernels.COUNTS["jacobi_eigh4"] == before + 1, "jacobi_eigh4: launch count"
+    assert vk.shape == (M.shape[0], 4) and Vk.shape == M.shape
+    assert (Vk - Vp).abs().max().item() <= 1e-6, "jacobi_eigh4: vectors"
+    assert ((vk - vp).abs() / vp.abs().clamp(min=1.0)).max().item() <= 1e-6, "jacobi_eigh4"
+
+
+def fuse3d_problem(seed=29, P=32768, L=2048, n_live=12000, n_lines=600):
+    """Pools at the default capacities: live landmarks first seen at
+    keyframes 0-9, and in the recent keyframes (10-11) near-copies of live
+    ones (within the radius with close descriptors, beyond it, or with far
+    descriptors) as fuse_duplicate_*_3d meets them."""
+    g = np.random.default_rng(seed)
+    xyz = np.zeros((P, 3), np.float32)
+    xyz[:n_live] = g.normal(size=(n_live, 3)) * [2.0, 1.0, 1.0] + [0.0, 0.0, 4.0]
+    desc = g.integers(-2 ** 31, 2 ** 31, (P, 8), dtype=np.int64).astype(np.int32)
+    first = np.full(P, -1, np.int32)
+    first[:n_live] = g.integers(0, 10, n_live)
+    src = g.choice(n_live, 700, replace=False)
+    dst = np.arange(n_live, n_live + 700)
+    xyz[dst] = xyz[src] * (1 + g.normal(size=(700, 1)) * 0.008).astype(np.float32)
+    desc[dst] = desc[src] ^ (g.uniform(size=(700, 8)) < 0.02).astype(np.int32)
+    desc[dst[::5]] = ~desc[dst[::5]]
+    first[dst] = g.integers(10, 12, 700)
+    valid = first >= 0
+    ends = np.zeros((L, 6), np.float32)
+    c = g.normal(size=(n_lines, 3)) * [2.0, 1.0, 1.0] + [0.0, 0.0, 4.0]
+    u = g.normal(size=(n_lines, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    ends[:n_lines] = np.concatenate([c - 0.5 * u, c + 0.5 * u], 1)
+    ldesc = g.integers(-2 ** 31, 2 ** 31, (L, 8), dtype=np.int64).astype(np.int32)
+    lfirst = np.full(L, -1, np.int32)
+    lfirst[:n_lines] = g.integers(0, 10, n_lines)
+    lsrc = g.choice(n_lines, 150, replace=False)
+    ldst = np.arange(n_lines, n_lines + 150)
+    ends[ldst] = ends[lsrc] + (g.normal(size=(150, 6)) * 0.03).astype(np.float32)
+    ldesc[ldst] = ldesc[lsrc] ^ (g.uniform(size=(150, 8)) < 0.03).astype(np.int32)
+    lfirst[ldst] = g.integers(10, 12, 150)
+    t = torch.from_numpy
+    return ((t(xyz), t(desc), t(valid), t(first)),
+            (t(ends), t(ldesc), t(lfirst >= 0), t(lfirst)))
+
+
+def _check_fuse3d(cuda):
+    """Kernels 20 / 21 on every recent landmark of fuse3d_problem: best and
+    has equal to the plain versions (every product and sum rounded as
+    theirs, in the reference's order)."""
+    pts, lns = fuse3d_problem()
+    for name, fn, plain, pool, th, R in (
+            ("fuse_points_3d", local_mapping.fuse3d_points_match,
+             local_mapping.fuse3d_points_match_plain, pts, 50, 512),
+            ("fuse_lines_3d", local_mapping.fuse3d_lines_match,
+             local_mapping.fuse3d_lines_match_plain, lns, 100, 128)):
+        pool = [a.to(cuda) for a in pool]
+        rows = torch.nonzero(pool[3] >= 10)[:R, 0]
+        before = kernels.COUNTS[name]
+        bk, hk = fn(*pool, rows, th)
+        bp, hp = plain(*pool, rows, th)
+        assert kernels.COUNTS[name] == before + 1, f"{name}: launch count"
+        assert torch.equal(hk, hp), f"{name}: has"
+        assert torch.equal(bk, bp), f"{name}: best"
+        assert hk.sum().item() >= R // 10, f"{name}: too few duplicates found"
 
 
 def ba_problem(seed=7, KL=16, PL=2048, LL=256, F=2048, LF=128):
@@ -459,7 +560,8 @@ def _check_local_ba(cuda, with_lines):
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     """A CUDA tensor of the wrong dtype raises instead of falling back, and
-    the wrappers of kernels 9-12 run on CUDA tensors with every plain
+    the wrappers of kernels 9-21 (and kernels 5-6 through `detect_lines` at
+    line_support_downsample = 2) run on CUDA tensors with every plain
     version made to raise."""
     with pytest.raises(TypeError):
         fast.fast_score_nms(torch.zeros((64, 64), device=cuda))
@@ -476,6 +578,9 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         raise AssertionError("plain version reached from a CUDA tensor")
 
     for mod, name in ((fast, "select_keypoints_levels_plain"), (linalg, "null_vector_4_plain"),
+                      (linalg, "jacobi_eigh_4x4_plain"), (lsd, "lsd_support_plain"),
+                      (lsd, "lsd_refine_plain"), (local_mapping, "fuse3d_points_match_plain"),
+                      (local_mapping, "fuse3d_lines_match_plain"),
                       (local_ba, "bundle_adjust_plain"),
                       (map_store, "compute_obs_bits_plain"),
                       (map_store, "votes_from_bits_plain"), (bow, "transform_plain"),
@@ -505,6 +610,17 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     pose_graph.optimize_pose_graph(_to(pose_graph_problem(K=16, n_valid=12), cuda), n_iters=3)
     for fn in (compact.compact_points, compact.compact_lines, compact.compact_keyframes):
         fn(st)
+    linalg.jacobi_eigh_4x4(torch.rand((5, 4, 4), device=cuda))
+    cfg = SLAMConfig()
+    intr = Intrinsics.from_config(cfg.camera)
+    local_mapping.fuse_duplicate_points_3d(st, 1, 2, intr, cfg)
+    local_mapping.fuse_duplicate_lines_3d(st, 1, 2, intr, cfg)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    img = synthetic.render(scene, synthetic.circular_trajectory(610, radius=0.5)[40],
+                           CameraConfig(fy=480.0), noise=2.0, seed=40)
+    lines = lsd.detect_lines(torch.from_numpy(img).to(cuda),
+                             FrontendConfig(line_support_downsample=2))
+    assert lines.valid.any()
     torch.cuda.synchronize()
 
 

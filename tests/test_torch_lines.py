@@ -28,6 +28,13 @@ What was measured against XLA:CPU, and is held here:
   flipped segment), and XLA's fused arithmetic breaks the tie by a
   rounding. That tie falls in 5 and 7 of the 16 valid segments of the two
   frames, so only 94.5-96.1% of the packed words are equal.
+
+`line_support_downsample = 2` (lsd.py:219-233) is held to the same
+bounds, on the same frames: the half-resolution support score bit-exact
+(and the ridge plane, which stays at full resolution), the 8 px cell
+anchors exact, the pyramid's segments under ds = 1's tolerances although
+every anchor now sits on a half pixel (the bilinear weights are 0.5 and
+round-half-to-even meets exact .5 walk samples).
 """
 
 import jax
@@ -52,22 +59,41 @@ FRAMES = (5, 20)
 
 
 def _jax_dense(img, cfg):
-    """lsd.py:207-283 (best score) and :308-352 (packed ridge plane), ds=1."""
+    """lsd.py:207-283 (best score) and :308-352 (packed ridge plane); at
+    cfg.line_support_downsample = 2 the score of :219-233's half image."""
+    ds = cfg.line_support_downsample
     gx, gy, mag = jlsd.gradients(img)
     gang = jnp.arctan2(gy.astype(jnp.float32), gx.astype(jnp.float32))
     magf = mag.astype(jnp.float32)
-    grad_thresh = cfg.line_grad_threshold
-    grad_bin = jnp.mod(jnp.round(jnp.mod(gang, jnp.pi) / (jnp.pi / 4.0)).astype(jnp.int32), 4)
     nbr_dirs = [(1, 0), (1, 1), (0, 1), (-1, 1)]
-    m_plus = jnp.zeros_like(mag)
-    m_minus = jnp.zeros_like(mag)
-    for b, (bdx, bdy) in enumerate(nbr_dirs):
-        sel = grad_bin == b
-        m_plus = jnp.where(sel, jnp.roll(mag, (-bdy, -bdx), axis=(0, 1)), m_plus)
-        m_minus = jnp.where(sel, jnp.roll(mag, (bdy, bdx), axis=(0, 1)), m_minus)
-    is_peak = (mag >= m_plus) & (mag >= m_minus) & (mag > grad_thresh)
-    line_ang = jnp.mod(gang + jnp.pi / 2.0, jnp.pi)
-    weak = mag > 0.5 * grad_thresh
+
+    def nms(gang, mag):
+        grad_bin = jnp.mod(jnp.round(jnp.mod(gang, jnp.pi) / (jnp.pi / 4.0)).astype(jnp.int32),
+                           4)
+        m_plus = jnp.zeros_like(mag)
+        m_minus = jnp.zeros_like(mag)
+        for b, (bdx, bdy) in enumerate(nbr_dirs):
+            sel = grad_bin == b
+            m_plus = jnp.where(sel, jnp.roll(mag, (-bdy, -bdx), axis=(0, 1)), m_plus)
+            m_minus = jnp.where(sel, jnp.roll(mag, (bdy, bdx), axis=(0, 1)), m_minus)
+        return grad_bin, m_plus, m_minus
+
+    grad_bin, m_plus, m_minus = nms(gang, mag)
+    if ds == 2:
+        h, w = img.shape
+        img_s = 0.25 * jax.lax.reduce_window(img[:h // 2 * 2, :w // 2 * 2], 0.0, jax.lax.add,
+                                             (2, 2), (2, 2), "VALID")
+        sgx, sgy, smag = jlsd.gradients(img_s)
+        sgang = jnp.arctan2(sgy.astype(jnp.float32), sgx.astype(jnp.float32))
+        smagf = smag.astype(jnp.float32)
+        grad_thresh = 0.75 * cfg.line_grad_threshold
+        _, sm_plus, sm_minus = nms(sgang, smag)
+    else:
+        smag, sgang, smagf, sm_plus, sm_minus = mag, gang, magf, m_plus, m_minus
+        grad_thresh = cfg.line_grad_threshold
+    is_peak = (smag >= sm_plus) & (smag >= sm_minus) & (smag > grad_thresh)
+    line_ang = jnp.mod(sgang + jnp.pi / 2.0, jnp.pi)
+    weak = smag > 0.5 * grad_thresh
 
     def body(best, xs):
         di, df = xs
@@ -78,12 +104,12 @@ def _jax_dense(img, cfg):
         pair = contd * jlsd._dyn_shift(contd, di[0], di[1])
         sup = (jlsd._dyn_support_sum(pair, di[0], di[1])
                + jlsd._dyn_support_sum(pair, -di[0], -di[1]))
-        support_px = sup.astype(jnp.float32) * df[1]
+        support_px = sup.astype(jnp.float32) * (df[1] * ds)
         score = jnp.where(is_peak & aligned & (support_px >= 0.75 * cfg.line_min_length),
-                          support_px * magf, 0.0)
+                          support_px * smagf, 0.0)
         return jnp.maximum(best, score), None
 
-    best, _ = jax.lax.scan(body, jnp.zeros(img.shape, jnp.float32),
+    best, _ = jax.lax.scan(body, jnp.zeros(smag.shape, jnp.float32),
                            (jnp.asarray(jlsd._DIR_I), jnp.asarray(jlsd._DIR_F)), unroll=4)
     fp32, fm32 = m_plus.astype(jnp.float32), m_minus.astype(jnp.float32)
     den = fm32 - 2.0 * magf + fp32
@@ -111,6 +137,7 @@ def _jax_dense(img, cfg):
 def _reference():
     """The JAX side of every test here, as numpy, per frame."""
     cfg = JFront(**FRONT)
+    cfg2 = JFront(**FRONT, line_support_downsample=2)
     imgs, _ = sequence()
     dense = jax.jit(_jax_dense, static_argnames=("cfg",))
     grads = jax.jit(jlsd.gradients)
@@ -122,12 +149,16 @@ def _reference():
         half = 0.25 * jax.lax.reduce_window(img, 0.0, jax.lax.add, (2, 2), (2, 2), "VALID")
         r = {"grad": [np.asarray(a.astype(jnp.float32)) for a in grads(img)],
              "half": np.asarray(half)}
-        r["dense"] = [[np.asarray(a) for a in dense(im, cfg)] for im in (img, half)]
-        r["anchors"] = [np.asarray(a) for a in jfast.select_keypoints(
-            jnp.asarray(r["dense"][0][0]), k=cfg.line_anchor_count, cell=16, cell_cap=1,
-            threshold=1.0, min_threshold=1.0, border=4)]
+        # per ds, per octave: (best score, packed ridge plane)
+        r["dense"] = {ds: [[np.asarray(a) for a in dense(im, c)] for im in (img, half)]
+                      for ds, c in ((1, cfg), (2, cfg2))}
+        # per ds: the octave-0 anchors (16 px cells, or 8 px on the half score)
+        r["anchors"] = {ds: [np.asarray(a) for a in jfast.select_keypoints(
+            jnp.asarray(r["dense"][ds][0][0]), k=cfg.line_anchor_count, cell=16 // ds,
+            cell_cap=1, threshold=1.0, min_threshold=1.0, border=4 // ds)] for ds in (1, 2)}
         lines = pyr(img, cfg)
         r["lines"] = to_numpy_dict(lines)
+        r["lines_ds2"] = to_numpy_dict(pyr(img, cfg2))
         r["desc"] = [np.asarray(a) for a in desc(img, lines.endpoints, lines.valid)]
         out[f] = r
     return out
@@ -150,26 +181,32 @@ def test_gradients_and_half_octave_bit_exact(frame):
 def test_dense_support_bit_exact(frame):
     ref = _reference()[frame]
     fe = TFront(**FRONT)
-    for octave, im in enumerate((_img(frame), torch.from_numpy(np.array(ref["half"])))):
-        best, packed = tlsd.lsd_support(im, fe.line_grad_threshold, fe.line_angle_tol,
-                                        fe.line_min_length)
-        jb, jp = ref["dense"][octave]
-        assert (jb > 0).sum() > 100
-        np.testing.assert_array_equal(best.numpy(), jb, err_msg=f"octave {octave}")
-        np.testing.assert_array_equal(packed.numpy().view(np.uint32), jp,
-                                      err_msg=f"octave {octave}")
+    for ds in (1, 2):
+        for octave, im in enumerate((_img(frame), torch.from_numpy(np.array(ref["half"])))):
+            best, packed = tlsd.lsd_support(im, fe.line_grad_threshold, fe.line_angle_tol,
+                                            fe.line_min_length, ds)
+            jb, jp = ref["dense"][ds][octave]
+            msg = f"ds {ds}, octave {octave}"
+            assert jb.shape == (im.shape[0] // ds, im.shape[1] // ds), msg
+            assert (jb > 0).sum() > 100 // ds ** 2, msg
+            np.testing.assert_array_equal(best.numpy(), jb, err_msg=msg)
+            np.testing.assert_array_equal(packed.numpy().view(np.uint32), jp, err_msg=msg)
+        # the ridge plane stays at full resolution: ds = 2's equals ds = 1's
+        np.testing.assert_array_equal(ref["dense"][2][0][1], ref["dense"][1][0][1])
 
 
 def test_select_keypoints_single_level():
     ref = _reference()[FRAMES[0]]
-    best = torch.from_numpy(np.array(ref["dense"][0][0]))
-    xy, resp, valid = tfast.select_keypoints(best, k=TFront(**FRONT).line_anchor_count,
-                                             cell=16, cell_cap=1, threshold=1.0,
-                                             min_threshold=1.0, border=4)
-    jxy, jresp, jvalid = ref["anchors"]
-    np.testing.assert_array_equal(valid.numpy(), jvalid)
-    np.testing.assert_array_equal(xy.numpy(), jxy)
-    np.testing.assert_array_equal(resp.numpy(), jresp)
+    for ds in (1, 2):
+        best = torch.from_numpy(np.array(ref["dense"][ds][0][0]))
+        xy, resp, valid = tfast.select_keypoints(best, k=TFront(**FRONT).line_anchor_count,
+                                                 cell=16 // ds, cell_cap=1, threshold=1.0,
+                                                 min_threshold=1.0, border=4 // ds)
+        jxy, jresp, jvalid = ref["anchors"][ds]
+        assert jvalid.sum() >= 20, ds
+        np.testing.assert_array_equal(valid.numpy(), jvalid, err_msg=f"ds {ds}")
+        np.testing.assert_array_equal(xy.numpy(), jxy, err_msg=f"ds {ds}")
+        np.testing.assert_array_equal(resp.numpy(), jresp, err_msg=f"ds {ds}")
 
 
 def test_atan2_is_xla_cpu_bit_for_bit():
@@ -184,14 +221,20 @@ def test_atan2_is_xla_cpu_bit_for_bit():
 
 @pytest.mark.parametrize("frame", FRAMES)
 def test_detect_lines_pyramid(frame):
-    ref = _reference()[frame]["lines"]
-    out = tlsd.detect_lines_pyramid(_img(frame), TFront(**FRONT))
-    assert ref["valid"].sum() >= 8
-    np.testing.assert_array_equal(out.valid.numpy(), ref["valid"])
-    np.testing.assert_array_equal(out.octave.numpy(), ref["octave"])
-    np.testing.assert_allclose(out.endpoints.numpy(), ref["endpoints"], atol=1e-3, rtol=0)
-    np.testing.assert_allclose(out.line2d.numpy(), ref["line2d"], atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(out.response.numpy(), ref["response"], rtol=1e-4)
+    for ds, key in ((1, "lines"), (2, "lines_ds2")):
+        ref = _reference()[frame][key]
+        out = tlsd.detect_lines_pyramid(_img(frame),
+                                        TFront(**FRONT, line_support_downsample=ds))
+        msg = f"ds {ds}"
+        assert ref["valid"].sum() >= 8, msg
+        np.testing.assert_array_equal(out.valid.numpy(), ref["valid"], err_msg=msg)
+        np.testing.assert_array_equal(out.octave.numpy(), ref["octave"], err_msg=msg)
+        np.testing.assert_allclose(out.endpoints.numpy(), ref["endpoints"], atol=1e-3, rtol=0,
+                                   err_msg=msg)
+        np.testing.assert_allclose(out.line2d.numpy(), ref["line2d"], atol=1e-5, rtol=1e-5,
+                                   err_msg=msg)
+        np.testing.assert_allclose(out.response.numpy(), ref["response"], rtol=1e-4,
+                                   err_msg=msg)
 
 
 @pytest.mark.parametrize("frame", FRAMES)

@@ -288,3 +288,135 @@ def test_bundle_adjust_plain_drops_only_padding():
         if ln is not None:
             assert out.line_inlier[6, :6].any()     # the invalid slot's line edges count
             np.testing.assert_array_equal(out.ln_start.numpy()[6:], lines.ln_start.numpy()[6:])
+
+
+def _flip(desc: np.ndarray, n: int, g) -> np.ndarray:
+    """A uint32 [8] descriptor with n distinct bits flipped."""
+    bits = np.unpackbits(desc.view(np.uint8), bitorder="little")
+    bits[g.choice(256, n, replace=False)] ^= 1
+    return np.packbits(bits, bitorder="little").view(np.uint32)
+
+
+def _fuse3d_both(d, n_kf, kind):
+    jc, tc = configs()
+    jfn = getattr(jlm, f"fuse_duplicate_{kind}_3d")
+    tfn = getattr(tlm, f"fuse_duplicate_{kind}_3d")
+    ref = to_numpy_dict(jfn(_j(d), jnp.asarray(n_kf - 1), jnp.asarray(n_kf), jax_intr(jc), jc))
+    out = _np(tfn(_state(d), n_kf - 1, n_kf, Intrinsics.from_config(tc.camera), tc))
+    for f in ref:
+        np.testing.assert_array_equal(out[f], ref[f], err_msg=f"{kind}: {f}")
+    return out
+
+
+def test_fuse_duplicate_3d():
+    """`fuse_duplicate_points_3d` / `fuse_duplicate_lines_3d` (no caller in
+    either package) on the port's bootstrapped map carried into both
+    packages, with duplicates seeded at clear margins from every gate
+    (distance within a fifth of the 1% / 2% radius or beyond 3x it;
+    descriptors 4-10 bits from the original against th_low 50 / th_high
+    100, or 150 bits away; lines 0-3 degrees or 10 degrees off parallel;
+    overlap 80% or none): the whole map state equal, the expected merges
+    and bindings. The reference's tests/test_fusion.py:63-99 case is
+    replayed: two landmarks 4 cm apart at 5 m on repeating structure, the
+    same descriptor, over-merge in both."""
+    boot = port_boot()
+    base = {k: np.array(v) for k, v in boot["carry"]["state"].items()}
+    n_mp = int(boot["carry"]["n_mp"])
+    n_kf = 4                                 # recent: first seen at keyframe >= 2
+    g = np.random.default_rng(21)
+
+    # points: originals first seen at keyframes 0-1, duplicates at 3
+    d = {k: v.copy() for k, v in base.items()}
+    orig = np.nonzero(d["mp_valid"])[0][::7][:10]
+    assert len(orig) == 10 and (d["mp_first_kf"][orig] < 2).all()
+    # (offset as a share of the distance, descriptor bits flipped, merges)
+    cases = [(0.002, 4, True), (0.001, 10, True), (0.0005, 0, True), (0.002, 6, True),
+             (0.03, 0, False), (0.05, 4, False), (0.001, 150, False), (0.002, 120, False)]
+    slot = n_mp
+    want = {}
+    for o, (share, bits, merges) in zip(orig, cases):
+        x = d["mp_xyz"][o]
+        step = g.normal(size=3)
+        d["mp_xyz"][slot] = x + step / np.linalg.norm(step) * share * np.linalg.norm(x)
+        d["mp_desc"][slot] = _flip(d["mp_desc"][o], bits, g)
+        d["mp_valid"][slot], d["mp_first_kf"][slot] = True, 3
+        want[slot] = o if merges else None
+        slot += 1
+    # a tie: two older copies of orig[8] with the same descriptor distance;
+    # the first index wins (jnp.argmin)
+    tie = orig[8]
+    for s2 in (slot, slot + 1):
+        d["mp_xyz"][s2] = d["mp_xyz"][tie] * np.float32(1.0003)
+        d["mp_desc"][s2] = d["mp_desc"][tie]
+        d["mp_valid"][s2], d["mp_first_kf"][s2] = True, 1
+    d["mp_xyz"][slot + 2] = d["mp_xyz"][tie] * np.float32(0.9997)
+    d["mp_desc"][slot + 2] = _flip(d["mp_desc"][tie], 3, g)
+    d["mp_valid"][slot + 2], d["mp_first_kf"][slot + 2] = True, 3
+    d["mp_desc"][tie] = _flip(d["mp_desc"][tie], 40, g)      # farther than the copies
+    want[slot + 2] = slot
+    # bind every seeded recent point in keyframe 1's free feature slots
+    free = np.nonzero(d["kf_kp_mp"][1] < 0)[0]
+    for f, s in zip(free, want):
+        d["kf_kp_mp"][1, f] = s
+    out = _fuse3d_both(d, n_kf, "points")
+    for (f, s) in zip(free, want):
+        if want[s] is None:
+            assert out["mp_valid"][s] and out["kf_kp_mp"][1, f] == s, s
+        else:
+            assert not out["mp_valid"][s] and out["kf_kp_mp"][1, f] == want[s], s
+    assert out["mp_valid"].sum() == d["mp_valid"].sum() - 5
+
+    # lines: originals at keyframe 0, 1 m long, 3-5 m away
+    d = {k: v.copy() for k, v in base.items()}
+    K, LF = d["kf_line_ml"].shape
+    n_orig = 8
+    for i in range(n_orig):
+        c = np.array([g.uniform(-1, 1), g.uniform(-1, 1), g.uniform(3, 5)], np.float32)
+        u = g.normal(size=3)
+        u /= np.linalg.norm(u)
+        d["ml_endpoints"][i] = np.concatenate([c - 0.5 * u, c + 0.5 * u])
+        d["ml_desc"][i] = g.integers(0, 2 ** 32, 8, dtype=np.uint32)
+        d["ml_valid"][i], d["ml_first_kf"][i] = True, 0
+
+    def shifted(i, perp_share, along, turn_deg, bits):
+        s, e = d["ml_endpoints"][i, :3].astype(np.float64), d["ml_endpoints"][i, 3:]
+        u = (e - s) / np.linalg.norm(e - s)
+        n = np.cross(u, [0.0, 0.0, 1.0])
+        n /= np.linalg.norm(n)
+        w = np.cross(u, n)
+        a = np.deg2rad(turn_deg)
+        u2 = np.cos(a) * u + np.sin(a) * w
+        mid = 0.5 * (s + e) + perp_share * np.linalg.norm(0.5 * (s + e)) * n + along * u
+        return (np.concatenate([mid - 0.4 * u2, mid + 0.4 * u2]).astype(np.float32),
+                _flip(d["ml_desc"][i], bits, g))
+
+    # (original, perpendicular share, along (m), turn (deg), bits, merges)
+    lcases = [(0, 0.002, 0.05, 0.0, 10, True), (1, 0.001, -0.1, 3.0, 40, True),
+              (2, 0.003, 0.0, 1.0, 0, True), (3, 0.06, 0.0, 0.0, 5, False),
+              (4, 0.001, 1.5, 0.0, 5, False), (5, 0.001, 0.0, 10.0, 5, False),
+              (6, 0.001, 0.0, 0.0, 150, False)]
+    want = {}
+    for j, (i, perp, along, turn, bits, merges) in enumerate(lcases):
+        s = n_orig + j
+        d["ml_endpoints"][s], d["ml_desc"][s] = shifted(i, perp, along, turn, bits)
+        d["ml_valid"][s], d["ml_first_kf"][s] = True, 3
+        d["kf_line_ml"][1, j] = s
+        want[s] = i if merges else None
+    out = _fuse3d_both(d, n_kf, "lines")
+    for j, (s, w) in enumerate(want.items()):
+        assert out["ml_valid"][s] == (w is None), s
+        assert out["kf_line_ml"][1, j] == (s if w is None else w), s
+
+    # tests/test_fusion.py:63-99: repeating fronto-parallel structure
+    d = {k: v.copy() for k, v in base.items()}
+    d["mp_valid"][:] = False
+    desc = g.integers(0, 2 ** 32, 8, dtype=np.uint32)
+    d["mp_xyz"][0], d["mp_xyz"][1] = [1.00, 1.0, 5.0], [1.04, 1.0, 5.0]
+    d["mp_valid"][:2] = True
+    d["mp_desc"][0] = d["mp_desc"][1] = desc
+    d["mp_first_kf"][0], d["mp_first_kf"][1] = 0, 3
+    d["kf_kp_mp"][:] = -1
+    d["kf_kp_mp"][0, 5], d["kf_kp_mp"][0, 6], d["kf_kp_mp"][3, 7] = 0, 1, 1
+    out = _fuse3d_both(d, 4, "points")
+    assert out["mp_valid"][0] and not out["mp_valid"][1]
+    assert out["kf_kp_mp"][0, 6] == 0 and out["kf_kp_mp"][3, 7] == 0

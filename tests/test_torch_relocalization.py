@@ -20,6 +20,7 @@ Tolerances and why:
   poses within 1e-3 (tests/test_torch_slice.py's bound).
 """
 
+import contextlib
 import functools
 
 import jax
@@ -257,6 +258,30 @@ def test_index_matches_reference_and_own_training():
         np.testing.assert_array_equal(own.kf_words[k], w)
 
 
+@contextlib.contextmanager
+def _recorded_candidates(mod, state):
+    """Records each `relocalize` call's candidate keyframe ids, in order:
+    the keyframes whose descriptor rows its BoW matching receives (padding
+    rows carry no node id)."""
+    calls, fn = [], mod._bow_match_candidates
+    kf_desc = np.asarray(state.kf_desc).view(np.uint32)
+
+    def spy(frame, desc_k, node_k, *rest):
+        dk, nk = np.asarray(desc_k).view(np.uint32), np.asarray(node_k)
+        ids = []
+        for c in range(dk.shape[0]):
+            if (nk[c] >= 0).any():
+                (k,) = np.nonzero((kf_desc == dk[c]).all(axis=(1, 2)))[0][:1]
+                ids.append(int(k))
+        calls.append(ids)
+        return fn(frame, desc_k, node_k, *rest)
+    mod._bow_match_candidates = spy
+    try:
+        yield calls
+    finally:
+        mod._bow_match_candidates = fn
+
+
 def test_relocalize_recovers_and_rejects():
     r = _reloc_inputs()
     tf, jf = _tframe(r["revisit"])
@@ -266,6 +291,19 @@ def test_relocalize_recovers_and_rejects():
                          np.random.default_rng(7))
     assert Tj is not None and Tt is not None
     np.testing.assert_allclose(Tt, np.asarray(Tj), atol=1e-4)
+    # wide: no 0.75 x best cut; the same candidate list, the same pose
+    lists = {}
+    for name, mod, state, f, lc, intr, cfg in (
+            ("jax", jrel, r["jstate"], jf, r["lc_j"], r["intr_j"], r["jc"]),
+            ("torch", trel, r["tstate"], tf, r["lc_t"], r["intr_t"], r["tc"])):
+        with _recorded_candidates(mod, state) as cands:
+            T = mod.relocalize(state, r["n_kf"], f, lc, intr, cfg, np.random.default_rng(7),
+                               wide=True)
+        assert T is not None, name
+        lists[name] = (cands, np.asarray(T))
+    assert lists["torch"][0] == lists["jax"][0] and len(lists["jax"][0]) == 1
+    assert len(lists["jax"][0][0]) == r["n_kf"], lists["jax"][0]
+    np.testing.assert_allclose(lists["torch"][1], lists["jax"][1], atol=1e-4)
     # an unknown place: random descriptors at random pixels
     g = np.random.default_rng(3)
     F = tf.xy.shape[0]
