@@ -73,7 +73,28 @@ Phases, each fatal on failure (nonzero exit, no result line):
       before and read just after (kernels 1-12 nonzero), ATE-Sim3 <= 0.05,
       map lines made and live. Prints tracked / lost, ATE-Sim3, fps and the
       lines; phase 3 prints kernel 5's device time per frame at the half
-      shape beside phase 2a's at full shape.
+      shape beside phase 2a's at full shape;
+   g. the sharded path (parallel/): the script joins a process group of
+      one rank on the card (`initialize_multihost("localhost:<free port>",
+      1, 0)`: NCCL) and builds `global_edge_mesh(4)`, four landmark shards
+      on cuda:0; the psum of ones (the mesh's sum, then one NCCL
+      all_reduce) must be 4. Then `SLAMSystem(cfg, mesh=...)` at phase
+      2a's configuration: bootstrap through `track()`, 60 frames through
+      `track_sequence()`, counters zeroed just before and read just after:
+      kernel 12's sharded form (`local_ba_shard`) and kernels 1-12 must
+      have launched, ATE-Sim3 <= 0.05, and against phase 2a's unsharded
+      run over the same frames (its trajectory up to the same frame; the
+      path is causal) the reference test's bounds: ATE-Sim3 within 1e-3,
+      camera centres on common frames within 5e-2. Global BA on phase 2d's
+      final map (loop closing on), sharded on the mesh against unsharded:
+      poses, points and line endpoints within 1e-3 (kernel 12's bound
+      against its plain version), kernel 12's sharded form launched; both
+      calls timed (device, caller) beside the 64-keyframe BA's bound. The
+      data-parallel frontend, `make_batch_extractor(frame_mesh(4),
+      with_lines=True)` on 8 bench frames: every keypoint, descriptor,
+      line and LBD word equal to the single-frame frontend's on the card,
+      the batch entries of kernels 1, 11 and 2 launched (counters zeroed
+      just before, read just after).
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
    through its plain PyTorch version: FAST/NMS maps, Hamming best / second
@@ -120,7 +141,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    torch.cdist(p=1), RANSAC PnP against torch.linalg.svd of its DLT batch,
    Sim(3) RANSAC against torch.linalg.eigh of its Horn matrices, the pose
    graph against torch.linalg.solve of its assembled system
-   (library_ms). Phase 2f's shapes: kernel 5 at the half shape (the
+   (library_ms), local BA (16 and 64 keyframes, and its sharded form)
+   against torch.linalg.solve of its first iteration's reduced camera
+   system over the free cameras' rows (the solve alone). Phase 2g's shapes:
+   kernel 12's sharded form against its sharded plain version (poses and
+   landmarks within 1e-3, masks >= 99.5%, two launches bit-identical, one
+   call under set_sync_debug_mode("error")) at the main path's window and
+   global BA's 64 keyframes, and on the window with its landmark columns in
+   a seeded random order (`spread_columns`, so that every shard's span
+   holds edges; its live landmarks otherwise sit in shard 0) against the
+   sharded plain version and the unsharded kernel, within the same
+   bounds; its plain version is timed from the caller only (one call of
+   ~4 x 10^4 small torch ops); the batch entries of kernels 1, 11 and 2 at
+   the frontend's stacks against their plain versions (FAST maps and
+   selections equal, ORB as kernel 2 on one frame). Phase 2f's shapes: kernel 5 at the half shape (the
    support on the 2x2 box half image, the ridge plane at full resolution)
    equal, timed as its own row; kernel 6 on its half-pixel anchors within
    1e-3 px on >= 99.9% of valid anchors; kernel 11 at 8 px cells and a 2 px
@@ -162,6 +196,9 @@ sys.path.insert(0, ROOT)
 
 N_TRACK = 200         # the main path (lines on)
 N_TRACK_POINTS = 60   # the points-only path
+N_MESH = 60           # phase 2g: the main path on a mesh
+MESH_SHARDS = 4
+BATCH_FRAMES = range(40, 48)   # phase 2g: the data-parallel frontend's bench frames
 INIT_MAX = 90
 ATE_MAX = 0.05
 # H100 SXM peaks (NVIDIA data sheet) used for the per-kernel floor
@@ -246,6 +283,14 @@ KERNELS = {
                       "structure_slam_pointline_tpu_torch/csrc/fuse3d.cu"),
     "jacobi_eigh4": ("structure_slam_pointline_tpu/utils/linalg.py:89",
                      "structure_slam_pointline_tpu_torch/csrc/null_vector4.cu"),
+    "local_ba_shard": ("structure_slam_pointline_tpu/parallel/dist_ba.py:66",
+                       "structure_slam_pointline_tpu_torch/csrc/local_ba.cu"),
+    "fast_nms_batch": ("structure_slam_pointline_tpu/parallel/batch_frontend.py:36",
+                       "structure_slam_pointline_tpu_torch/csrc/fast.cu"),
+    "kp_select_batch": ("structure_slam_pointline_tpu/parallel/batch_frontend.py:36",
+                        "structure_slam_pointline_tpu_torch/csrc/kp_select.cu"),
+    "orb_describe_batch": ("structure_slam_pointline_tpu/parallel/batch_frontend.py:36",
+                           "structure_slam_pointline_tpu_torch/csrc/orb.cu"),
 }
 # table rows that time one kernel at another path's shape: row -> (kernel,
 # the JAX lines that shape replaces)
@@ -257,7 +302,11 @@ LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph")
 DATASET_KERNELS = ("compact",)   # runs only when a pool passes its trigger (phase 2e)
 # no path calls these, in either package: phase 3 drives their entry points
 UNCALLED_KERNELS = ("fuse_points_3d", "fuse_lines_3d", "jacobi_eigh4")
-OFF_MAIN_PATH = RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS + UNCALLED_KERNELS
+# the sharded path's kernels (phase 2g): on a mesh, and in the batched frontend
+MESH_KERNELS = ("local_ba_shard",)
+BATCH_KERNELS = ("fast_nms_batch", "kp_select_batch", "orb_describe_batch")
+OFF_MAIN_PATH = (RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS + UNCALLED_KERNELS
+                 + MESH_KERNELS + BATCH_KERNELS)
 FP64_OPS_PER_S = 34e12   # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 # per RANSAC PnP hypothesis, a floor for its float64 work: the least a
 # 12x12 null vector needs, Gaussian elimination (2/3 n^3) and the back
@@ -334,7 +383,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, flush=None, expect: str | None = None) -> float:
+def device_ms(fn, reps: int = 20, flush=None, expect: str | None = None,
+              warmup: bool = True) -> float:
     """Device milliseconds of one call: the device-side events (kernels,
     copies) that torch.profiler records over `reps` calls, summed, per
     call. Launch gaps on the host are left out. With `flush`, the L2 is
@@ -345,11 +395,13 @@ def device_ms(fn, reps: int = 20, flush=None, expect: str | None = None) -> floa
     it missed: such a session (no device time, or no event whose name
     holds `expect`) is repeated, up to three times, and then the call is
     timed with CUDA events instead (launch gaps included), with a note on
-    stderr."""
+    stderr. `warmup=False` leaves out the first, unprofiled call (for a
+    costly plain version whose caller has just run it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -366,6 +418,35 @@ def device_ms(fn, reps: int = 20, flush=None, expect: str | None = None) -> floa
     print(f"[note] torch.profiler recorded no device time for {getattr(fn, '__name__', fn)};"
           " timed with CUDA events instead", file=sys.stderr, flush=True)
     return time_ms(fn, reps=reps, flush=flush)
+
+
+def shard_split(fn, reps: int = 3) -> dict:
+    """Where kernel 12's sharded form spends device time in one call:
+    the per-shard launches (grid, classify, landmarks, reduce, backsub,
+    edges), the replicated solve, and the torch ops between them (the
+    ordered sums of the shards' partials, the input copies and fills, the
+    ORed flags): device ms per call by torch.profiler, grouped by kernel
+    name; None when the profiler records no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"shard_ms": 0.0, "solve_ms": 0.0, "torch_ops_ms": 0.0}
+    shard = ("grid_kernel", "classify_kernel", "landmarks_kernel", "reduce_kernel",
+             "backsub_kernel", "edges_kernel")
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total / 1e3 / reps
+        key = ("solve_ms" if "solve_kernel" in e.key else
+               "shard_ms" if any(k in e.key for k in shard) else "torch_ops_ms")
+        out[key] += us
+    return out if sum(out.values()) > 0 else None
 
 
 def reps_for(fn, budget_ms: float = 250.0) -> int:
@@ -440,6 +521,78 @@ class Recorder:
         setattr(self.module, self.attr, self.fn)
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def first_solve(fn):
+    """(A, b) of the first torch.linalg.solve that `fn()` makes (a plain
+    BA version solves its reduced camera system so, once per iteration)."""
+    import torch
+
+    real, seen = torch.linalg.solve, []
+
+    def spy(A, B, *a, **k):
+        if not seen:
+            seen.append((A.detach().clone(), B.detach().clone()))
+        return real(A, B, *a, **k)
+
+    torch.linalg.solve = spy
+    try:
+        fn()
+    finally:
+        torch.linalg.solve = real
+    return seen[0]
+
+
+def ba_solve_alone(plain_fn, prob, lines):
+    """The library yardstick of kernel 12: one torch.linalg.solve of the
+    first iteration's reduced camera system over the free cameras' rows
+    (the plain version keeps the valid keyframes' rows, and the rows of
+    invalid ones that hold a line edge). Returns (A, b)."""
+    import torch
+
+    A, b = first_solve(plain_fn)
+    keep = prob.kf_valid
+    if lines is not None:
+        keep = keep | (lines.edge_valid & (lines.edge_ln >= 0)).any(1)
+    fm = (prob.kf_free & prob.kf_valid)[torch.nonzero(keep)[:, 0]]
+    free = (6 * torch.nonzero(fm)[:, 0][:, None]
+            + torch.arange(6, device=fm.device)).reshape(-1)
+    return A[free][:, free].contiguous(), b[free].contiguous()
+
+
+def spread_columns(prob, lines, seed: int = 0):
+    """A BA problem with its landmark columns (points, and lines alike) in a
+    seeded random order and the edge ids remapped to it: the same problem,
+    but a window's live landmarks, which sit in its first columns, land in
+    every shard of a sharded run."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def permute(n, edges, *cols):
+        perm = torch.randperm(n, generator=g).to(edges.device)   # new j holds old perm[j]
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(n, device=edges.device)
+        ok = (edges >= 0) & (edges < n)
+        new = torch.where(ok, inv[edges.clamp(0, n - 1).long()].to(edges.dtype), edges)
+        return new, [c[perm] for c in cols]
+
+    edge_mp, (xyz, valid) = permute(prob.mp_xyz.shape[0], prob.edge_mp, prob.mp_xyz,
+                                    prob.mp_valid)
+    prob = prob._replace(edge_mp=edge_mp, mp_xyz=xyz, mp_valid=valid)
+    if lines is not None:
+        edge_ln, (a, b, v) = permute(lines.ln_start.shape[0], lines.edge_ln, lines.ln_start,
+                                     lines.ln_end, lines.ln_valid)
+        lines = lines._replace(edge_ln=edge_ln, ln_start=a, ln_end=b, ln_valid=v)
+    return prob, lines
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -475,17 +628,18 @@ def torch_op_rows(cfg):
     }
 
 
-def drive(cfg, n_track: int, frame, poses, label: str):
-    """Bootstrap a fresh SLAMSystem within INIT_MAX frames, then track
-    `n_track` frames; the launch counters are zeroed just before and read
-    just after. Returns (system, end-to-end numbers, launch counts)."""
+def drive(cfg, n_track: int, frame, poses, label: str, mesh=None):
+    """Bootstrap a fresh SLAMSystem (on `mesh`, if given) within INIT_MAX
+    frames, then track `n_track` frames; the launch counters are zeroed
+    just before and read just after. Returns (system, end-to-end numbers,
+    launch counts)."""
     import torch
 
     from structure_slam_pointline_tpu_torch import kernels
     from structure_slam_pointline_tpu_torch.io import synthetic
     from structure_slam_pointline_tpu_torch.models.system import SLAMSystem
 
-    slam = SLAMSystem(cfg)
+    slam = SLAMSystem(cfg, mesh=mesh)
     kernels.reset_counts()
     torch.cuda.synchronize()
     t_init = time.time()
@@ -746,7 +900,8 @@ def run_loop(cam, imgs, poses, enable: bool, device=None, sync=lambda: None) -> 
            "tracked": int(ok.sum()), "ate_sim3": synthetic.ate_rmse(est, poses[ids])
            if np.isfinite(est).all() else float("nan"), "n_kf": slam.cur.n_kf,
            "n_ml": slam.cur.n_ml, "n_mp": slam.cur.n_mp, "seconds": time.time() - t0,
-           **{k: int(c.get(k, 0)) for k in LOOP_COUNTERS}, "corrections": corrections}
+           **{k: int(c.get(k, 0)) for k in LOOP_COUNTERS}, "corrections": corrections,
+           "slam": slam}
     print(f"[loop {'on' if enable else 'off'}] bootstrap at frame {res['init_frame']} | "
           f"tracked {res['tracked']}/{res['frames']} | ATE-Sim3 {res['ate_sim3']:.5f} | "
           f"n_kf {res['n_kf']} n_mp {res['n_mp']} n_ml {res['n_ml']} | "
@@ -1224,6 +1379,8 @@ def main() -> int:
     for r in (*loop_rec.values(), *glue_rec.values()):
         r.__exit__()
     print(f"[e2e loop] launches {counts_loop}", flush=True)
+    loop_slam = loop_on.pop("slam", None)
+    loop_off.pop("slam", None)
     for run in (loop_off, loop_on):
         if "error" in run:
             fail(f"loop scenario (loop closing {run.get('loop_closing')}): {run['error']}")
@@ -1337,6 +1494,146 @@ def main() -> int:
     if e2e_ds2["lines"] == 0 or e2e_ds2["live_lines"] == 0:
         fail(f"ds = 2: the line map stayed empty: {e2e_ds2['lines']} made, "
              f"{e2e_ds2['live_lines']} live")
+    print(f"[time] phase 2f done at {time.time() - t_start:.0f} s", flush=True)
+    # 2g: the sharded path. One process joins an NCCL group of one rank;
+    # the main path's BA runs over 4 landmark shards of the card
+    import torch.distributed as tdist
+
+    from structure_slam_pointline_tpu_torch.optim import global_ba
+    from structure_slam_pointline_tpu_torch.parallel import batch_frontend, distributed
+
+    rank = distributed.initialize_multihost(f"localhost:{free_port()}", 1, 0)
+    mesh = distributed.global_edge_mesh(MESH_SHARDS)
+    ones = mesh.psum([torch.ones(1, device=mesh.device) for _ in mesh.local_shards])
+    tdist.all_reduce(ones, group=mesh.group)
+    print(f"[mesh] rank {rank}, {mesh}, backend {tdist.get_backend()}, psum of ones "
+          f"{float(ones)}", flush=True)
+    if rank != 0 or mesh.size != MESH_SHARDS or float(ones) != MESH_SHARDS:
+        fail(f"the mesh: rank {rank}, size {mesh.size}, psum of ones {float(ones)}")
+    shard_rec = Recorder(local_ba, "bundle_adjust_sharded",
+                         lambda prob, *a, **k: ("shard", prob.edge_mp.shape[0],
+                                                int(prob.kf_valid.sum())))
+    shard_rec.__enter__()
+    slam_mesh, e2e_mesh, counts_mesh = drive(cfg, N_MESH, frame, poses, "mesh", mesh=mesh)
+    shard_rec.__exit__()
+    last = e2e_mesh["init_frame"] + N_MESH
+    traj_m, traj_a = slam_mesh.trajectory(), slam.trajectory()
+    ids_m, ids_a = sorted(traj_m), sorted(k for k in traj_a if k <= last)
+    est_m = np.stack([np.linalg.inv(traj_m[k]) for k in ids_m])
+    est_a = np.stack([np.linalg.inv(traj_a[k]) for k in ids_a])
+    ate_a = synthetic.ate_rmse(est_a, poses[ids_a])
+    common = sorted(set(ids_m) & set(ids_a))
+    dc = np.linalg.norm(est_m[[ids_m.index(k) for k in common]][:, :3, 3]
+                        - est_a[[ids_a.index(k) for k in common]][:, :3, 3], axis=1)
+    e2e_mesh.update(shards=MESH_SHARDS, ate_sim3_unsharded=ate_a,
+                    ate_diff=abs(e2e_mesh["ate_sim3"] - ate_a), common_frames=len(common),
+                    max_centre_diff=float(dc.max()) if len(dc) else None,
+                    sharded_ba_calls=sum(shard_rec.n.values()))
+    print(f"[mesh] the main path on {MESH_SHARDS} shards: ATE-Sim3 {e2e_mesh['ate_sim3']:.5f} "
+          f"against {ate_a:.5f} unsharded (phase 2a, frames <= {last}), {len(common)} common "
+          f"frames, camera centres within {e2e_mesh['max_centre_diff']:.3e}, "
+          f"{e2e_mesh['sharded_ba_calls']} sharded BA calls", flush=True)
+    checks = {
+        "kernel 12's sharded form launched": counts_mesh["local_ba_shard"] > 0,
+        "kernels 1-12 launched": all(counts_mesh[k] > 0 for k in KERNELS
+                                     if k not in OFF_MAIN_PATH),
+        f"ATE-Sim3 <= {ATE_MAX}": e2e_mesh["ate_sim3"] <= ATE_MAX,
+        "ATE-Sim3 within 1e-3 of the unsharded run": e2e_mesh["ate_diff"] < 1e-3,
+        ">= 90% of the frames in common": len(common) >= 0.9 * len(ids_a),
+        "camera centres within 5e-2": len(dc) > 0 and dc.max() < 5e-2,
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"the main path on a mesh failed: {bad}")
+    # global BA on phase 2d's final map, sharded against unsharded
+    if loop_slam is None:
+        fail("phase 2d left no map")
+    loop_slam.sync_cursors()
+    st_l, nkf_l = loop_slam.map, loop_slam.cur.n_kf
+
+    def gba(m):
+        return global_ba.global_bundle_adjust(st_l, nkf_l, loop_slam.intr, loop_slam.cfg,
+                                              mesh=m)
+
+    g_one = gba(None)
+    shard_rec.__enter__()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    g_four = gba(mesh)
+    torch.cuda.synchronize()
+    counts_gba = dict(kernels.COUNTS)
+    shard_rec.__exit__()
+    kv, mv = st_l.kf_valid, st_l.mp_valid
+    gba_err = max((g_one.kf_T_cw[kv] - g_four.kf_T_cw[kv]).abs().max().item(),
+                  (g_one.mp_xyz[mv] - g_four.mp_xyz[mv]).abs().max().item(),
+                  (g_one.ml_endpoints[st_l.ml_valid]
+                   - g_four.ml_endpoints[st_l.ml_valid]).abs().max().item())
+    moved = (g_one.kf_T_cw[kv] - st_l.kf_T_cw[kv]).abs().max().item()
+    gba_mesh = {"keyframes": nkf_l, "max_abs_err": gba_err, "moved": moved,
+                "launches_sharded": counts_gba["local_ba_shard"],
+                "unsharded": {"ms": device_ms(lambda: gba(None), reps=3, expect="solve_kernel"),
+                              "wall_ms": time_ms(lambda: gba(None), reps=3, warmup=1)},
+                "sharded": {"ms": device_ms(lambda: gba(mesh), reps=3, expect="solve_kernel"),
+                            "wall_ms": time_ms(lambda: gba(mesh), reps=3, warmup=1)}}
+    print(f"[mesh] global BA on phase 2d's map ({nkf_l} keyframes): sharded against unsharded "
+          f"within {gba_err:.3e} (moved {moved:.3e}) | device {gba_mesh['sharded']['ms']:.2f} "
+          f"/ {gba_mesh['unsharded']['ms']:.2f} ms, caller {gba_mesh['sharded']['wall_ms']:.2f} "
+          f"/ {gba_mesh['unsharded']['wall_ms']:.2f} ms (sharded / unsharded)", flush=True)
+    if counts_gba["local_ba_shard"] == 0 or gba_err > 1e-3:
+        fail(f"sharded global BA: launches {counts_gba['local_ba_shard']}, err {gba_err:.2e}")
+    # the data-parallel frontend: 8 bench frames over 4 frame shards, equal
+    # to the single-frame frontend on the card
+    from structure_slam_pointline_tpu_torch.parallel.batch_frontend import make_batch_extractor
+
+    fe = cfg.frontend
+    bimgs = torch.from_numpy(np.stack([frame(j) for j in BATCH_FRAMES])).cuda()
+    extractor = make_batch_extractor(batch_frontend.frame_mesh(MESH_SHARDS), fe)
+    batch_rec = {
+        "fast_nms_batch": Recorder(fast, "fast_score_nms",
+                                   lambda im: ("fast", tuple(im.shape))),
+        "kp_select_batch": Recorder(fast, "select_keypoints_levels",
+                                    lambda sr, ks, **kw: ("sel", tuple(sr[0][0].shape),
+                                                          tuple(ks))),
+        "orb_describe_batch": Recorder(orb, "orient_and_describe",
+                                       lambda im, xy: ("orb", tuple(im.shape), xy.shape[1])),
+    }
+    for r in batch_rec.values():
+        r.__enter__()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    kb, lb, wb = extractor(bimgs)
+    torch.cuda.synchronize()
+    counts_batch = dict(kernels.COUNTS)
+    for r in batch_rec.values():
+        r.__exit__()
+
+    def single(img):
+        ln = lsd.detect_lines(img, fe)
+        return extract.extract_orb(img, fe), ln, lbd.describe_lines(
+            img, ln.endpoints.contiguous(), ln.valid)[0]
+
+    for b in range(len(BATCH_FRAMES)):
+        k1, l1, w1 = single(bimgs[b])
+        bad = [f for f in k1._fields if not torch.equal(getattr(kb, f)[b], getattr(k1, f))]
+        bad += [f"line {f}" for f in l1._fields if not torch.equal(getattr(lb, f)[b],
+                                                                   getattr(l1, f))]
+        if not torch.equal(wb[b], w1):
+            bad.append("LBD words")
+        if bad:
+            fail(f"the batched frontend differs from the single-frame one on frame "
+                 f"{BATCH_FRAMES[b]}: {bad}")
+    batch_out = {
+        "frames": len(BATCH_FRAMES), "shards": MESH_SHARDS,
+        "keypoints": int(kb.valid.sum()), "lines": int(lb.valid.sum()),
+        "wall_ms": time_ms(lambda: extractor(bimgs), reps=5),
+        "single_frame_wall_ms": time_ms(lambda: [single(im) for im in bimgs], reps=5)}
+    print(f"[batch] {batch_out['frames']} frames on {MESH_SHARDS} frame shards equal to the "
+          f"single-frame frontend ({batch_out['keypoints']} keypoints, {batch_out['lines']} "
+          f"lines) | caller {batch_out['wall_ms']:.2f} ms against "
+          f"{batch_out['single_frame_wall_ms']:.2f} ms frame by frame | launches "
+          f"{ {k: counts_batch[k] for k in BATCH_KERNELS} }", flush=True)
+    if not all(counts_batch[k] > 0 for k in BATCH_KERNELS):
+        fail(f"the batch entries never launched: {counts_batch}")
     print(f"[time] phase 2 done at {time.time() - t_start:.0f} s", flush=True)
     i = e2e["init_frame"] + 1
 
@@ -1772,8 +2069,16 @@ def main() -> int:
     ba_rows = int(prob.edge_valid.sum()) + (2 * int(ln.edge_valid.sum()) if ln else 0)
     ba_iters = ocfg.local_ba_iters_first + ocfg.local_ba_iters_second
     ba_free = 6 * int(prob.kf_free.sum())
+    # the library yardstick: the solve alone (first iteration's system, free rows)
+    lib_A, lib_b = ba_solve_alone(lambda: local_ba.bundle_adjust_plain(*ba_args, **ba_kw),
+                                  prob, ln)
     rows.append(dict(
         name="local_ba", max_abs_err=max(worst_pose, worst_lm),
+        library_ms=device_ms(lambda: torch.linalg.solve(lib_A, lib_b)),
+        library_wall_ms=time_ms(lambda: torch.linalg.solve(lib_A, lib_b)),
+        library_shape=f"torch.linalg.solve of the [{lib_A.shape[0]}, {lib_A.shape[0]}] "
+                      "system (the solve alone)",
+        split=shard_split(lambda: local_ba.bundle_adjust(*ba_args, **ba_kw)),
         ms=device_ms(lambda: local_ba.bundle_adjust(*ba_args, **ba_kw), reps=5),
         wall_ms=time_ms(lambda: local_ba.bundle_adjust(*ba_args, **ba_kw), reps=5),
         # few repetitions: the plain version is ~10^4 small torch ops
@@ -1781,7 +2086,7 @@ def main() -> int:
         plain_wall_ms=time_ms(lambda: local_ba.bundle_adjust_plain(*ba_args, **ba_kw),
                               reps=3, warmup=1),
         bytes=nbytes(*prob, *(ln or ()), *(t for t in r1 if isinstance(t, torch.Tensor))),
-        ops=ba_iters * (ba_rows * OPS_BA_ROW + ba_free ** 3 // 3), library_ms=None,
+        ops=ba_iters * (ba_rows * OPS_BA_ROW + ba_free ** 3 // 3),
         shape=f"{ba_key[1]} keyframes, {ba_rows} residual rows"
               f"{', lines on' if ln else ''} (+{len(ba_calls) - 1} window sizes checked)"))
     # BoW transform (kernel 13): every shape of phase 2c (the query frame,
@@ -2024,7 +2329,13 @@ def main() -> int:
     b64_bytes = nbytes(*bprob, *(bln or ()), *(t for t in r64 if isinstance(t, torch.Tensor)))
     b64_ops = b_iters * (b_rows * OPS_BA_ROW + b_free ** 3 // 3)
     ba_row = next(r for r in rows if r["name"] == "local_ba")
+    l64_A, l64_b = ba_solve_alone(
+        lambda: local_ba.bundle_adjust_plain(bprob, bintr, bocfg, **bkw), bprob, bln)
     ba_row["kl64"] = dict(
+        library_ms=device_ms(lambda: torch.linalg.solve(l64_A, l64_b)),
+        library_wall_ms=time_ms(lambda: torch.linalg.solve(l64_A, l64_b)),
+        library_shape=f"torch.linalg.solve of the [{l64_A.shape[0]}, {l64_A.shape[0]}] "
+                      "system (the solve alone)",
         ms=device_ms(lambda: local_ba.bundle_adjust(bprob, bintr, bocfg, **bkw), reps=3,
                      expect="solve_kernel"),
         wall_ms=time_ms(lambda: local_ba.bundle_adjust(bprob, bintr, bocfg, **bkw), reps=3),
@@ -2040,6 +2351,163 @@ def main() -> int:
               f"{b_rows} residual rows")
 
     print(f"[time] local_ba at 64 keyframes done at {time.time() - t_start:.0f} s", flush=True)
+    # kernel 12's sharded form (phase 2g's shapes: the main path's window on
+    # the mesh, global BA's 64 keyframes): poses and landmarks within 1e-3 of
+    # the sharded plain version, masks on >= 99.5% of edges; the window
+    # twice (bit-identical) and once with host synchronization made an error
+    sh_calls = shard_rec.calls
+    if not any(k[1] <= 32 for k in sh_calls) or not any(k[1] > 32 for k in sh_calls):
+        fail(f"sharded BA shapes missing: {sorted(sh_calls)}")
+    sh_err, sh_solve = {}, {}
+    for key, (args, kw) in sorted(sh_calls.items()):
+        rk = local_ba.bundle_adjust_sharded(*args, **kw)
+        out_p = []
+        # the plain call also gives the library yardstick's system
+        sh_solve[key] = ba_solve_alone(
+            lambda: out_p.append(local_ba.bundle_adjust_sharded_plain(*args, **kw)),
+            args[0], args[3])
+        rp = out_p[0]
+        err = max((a - b).abs().max().item() for a, b in zip(
+            (rk.kf_T_cw, rk.mp_xyz, rk.ln_start, rk.ln_end),
+            (rp.kf_T_cw, rp.mp_xyz, rp.ln_start, rp.ln_end)) if a is not None)
+        same = min((a == b).float().mean().item() for a, b in (
+            (rk.edge_inlier, rp.edge_inlier), (rk.line_inlier, rp.line_inlier))
+            if a is not None)
+        sh_err[key] = (err, same)
+        if err > 1e-3 or same < 0.995:
+            fail(f"local_ba_shard disagrees at {key}: err {err:.2e}, masks equal {same:.4f}")
+    # the fullest window with its landmark columns spread over every shard
+    # (its live landmarks otherwise sit in shard 0 alone): the same bounds
+    # against the sharded plain version and the unsharded kernel, and every
+    # shard's span holding edges
+    sh_key = max(k for k in sh_calls if k[1] <= 32)
+    (sp, si, so, sl, sm), _ = sh_calls[sh_key]
+    xp, xl = spread_columns(sp, sl)
+    spans = local_ba.shard_spans(sm, xp.mp_xyz.shape[0], xl.ln_start.shape[0] if xl else 0)
+    held = [int(((xp.edge_mp >= lo) & (xp.edge_mp < hi) & xp.edge_valid).sum())
+            + (int(((xl.edge_ln >= llo) & (xl.edge_ln < lhi) & xl.edge_valid).sum())
+               if xl else 0) for lo, hi, llo, lhi in spans]
+    rk = local_ba.bundle_adjust_sharded(xp, si, so, xl, sm)
+    for ref, what in ((local_ba.bundle_adjust_sharded_plain(xp, si, so, xl, sm), "plain"),
+                      (local_ba.bundle_adjust(xp, si, so, lines=xl), "unsharded kernel")):
+        err = max((a - b).abs().max().item() for a, b in zip(
+            (rk.kf_T_cw, rk.mp_xyz, rk.ln_start, rk.ln_end),
+            (ref.kf_T_cw, ref.mp_xyz, ref.ln_start, ref.ln_end)) if a is not None)
+        same = min((a == b).float().mean().item() for a, b in (
+            (rk.edge_inlier, ref.edge_inlier), (rk.line_inlier, ref.line_inlier))
+            if a is not None)
+        sh_err[("spread", what)] = (err, same)
+        if err > 1e-3 or same < 0.995 or min(held) == 0:
+            fail(f"local_ba_shard disagrees with the {what} version on the spread window: "
+                 f"err {err:.2e}, masks equal {same:.4f}, edges per shard {held}")
+    print(f"[check] local_ba_shard: {sh_err}; spread window's edges per shard {held}",
+          flush=True)
+    print(f"[time] local_ba_shard checks done at {time.time() - t_start:.0f} s", flush=True)
+
+    def shard_row(key):
+        (sp, si, so, sl, sm), skw = sh_calls[key]
+        n_rows = int(sp.edge_valid.sum()) + (2 * int(sl.edge_valid.sum()) if sl else 0)
+        free = 6 * int((sp.kf_free & sp.kf_valid).sum())
+        out = local_ba.bundle_adjust_sharded(sp, si, so, sl, sm)
+        A_, b_ = sh_solve[key]
+        # the plain version is ~4 x 10^4 small torch ops: one repetition,
+        # timed from the caller (CUDA events) only, since a profiled session
+        # of it costs ~50 s of the script's time
+        plain_ms = time_ms(lambda: local_ba.bundle_adjust_sharded_plain(sp, si, so, sl, sm),
+                           reps=1, warmup=0)
+        return dict(
+            ms=device_ms(lambda: local_ba.bundle_adjust_sharded(sp, si, so, sl, sm), reps=3,
+                         expect="solve_kernel"),
+            wall_ms=time_ms(lambda: local_ba.bundle_adjust_sharded(sp, si, so, sl, sm), reps=3),
+            plain_ms=plain_ms, plain_wall_ms=plain_ms, plain_timed="caller",
+            library_ms=device_ms(lambda: torch.linalg.solve(A_, b_)),
+            library_wall_ms=time_ms(lambda: torch.linalg.solve(A_, b_)),
+            library_shape=f"torch.linalg.solve of the [{A_.shape[0]}, {A_.shape[0]}] system "
+                          "(the solve alone)",
+            split=shard_split(lambda: local_ba.bundle_adjust_sharded(sp, si, so, sl, sm)),
+            max_abs_err=sh_err[key][0],
+            bytes=nbytes(*sp, *(sl or ()), *(t for t in out if isinstance(t, torch.Tensor))),
+            ops=ba_iters * (n_rows * OPS_BA_ROW + free ** 3 // 3),
+            shape=f"{sm.size} shards: {key[1]} keyframes ({int(sp.kf_valid.sum())} valid, "
+                  f"{free // 6} free), {sp.mp_xyz.shape[0]} points, "
+                  f"{sl.ln_start.shape[0] if sl else 0} lines, {n_rows} residual rows")
+
+    r1 = local_ba.bundle_adjust_sharded(sp, si, so, sl, sm)
+    r2 = local_ba.bundle_adjust_sharded(sp, si, so, sl, sm)
+    if not all(torch.equal(a, b) for a, b in zip(r1, r2) if a is not None):
+        fail("local_ba_shard: two launches on the same input differ")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    local_ba.bundle_adjust_sharded(sp, si, so, sl, sm)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    row = shard_row(sh_key)
+    print(f"[time] local_ba_shard window timed at {time.time() - t_start:.0f} s", flush=True)
+    row.update(name="local_ba_shard", kl64=shard_row(max(sh_calls)))
+    b64 = row["kl64"]
+    b64["bound_ms"] = max(b64.pop("bytes") / HBM_BYTES_PER_S,
+                          b64.pop("ops") / CUDA_CORE_OPS_PER_S) * 1e3
+    b64["launches"] = counts_gba["local_ba_shard"]
+    gba_mesh["bound_ms"] = b64["bound_ms"]
+    rows.append(row)
+    print(f"[time] local_ba_shard done at {time.time() - t_start:.0f} s", flush=True)
+    # the batch entries of kernels 1, 11 and 2 at the data-parallel
+    # frontend's stacks (one shard's frames per call): FAST maps and
+    # selections equal, ORB descriptors on >= 99.5% of keypoints with
+    # angles within 1e-4 (kernel 2's bounds)
+    def stacked(name):   # the recorded calls on [B, H, W] stacks (LSD's anchor
+        # selection calls `select_keypoints_levels` on single maps meanwhile)
+        return [v for k, v in batch_rec[name].calls.items() if len(k[1]) == 3]
+
+    fb_calls = [v[0][0] for v in stacked("fast_nms_batch")]
+    for im in fb_calls:
+        (rk_, nk), (rp_, np_) = fast.fast_score_nms(im), fast.fast_score_nms_plain(im)
+        if not (torch.equal(rk_, rp_) and torch.equal(nk, np_)):
+            fail(f"fast_nms_batch disagrees at {tuple(im.shape)}")
+    px = sum(im.numel() for im in fb_calls)
+    rows.append(dict(
+        name="fast_nms_batch", max_abs_err=0.0,
+        **timings(lambda: [fast.fast_score_nms(im) for im in fb_calls],
+                  lambda: [fast.fast_score_nms_plain(im) for im in fb_calls]),
+        bytes=px * (2 + 4 + 4), ops=px * 320, library_ms=None,
+        shape=f"{len(fb_calls)} levels x {fb_calls[0].shape[0]} frames, {px} px"))
+    (sb_args, sb_kw), = stacked("kp_select_batch")
+    sb_maps, sb_ks = sb_args[0], sb_kw["ks"]   # extract_orb passes ks by name
+    out_k = fast.select_keypoints_levels(*sb_args, **sb_kw)
+    out_p = fast.select_keypoints_levels_plain(*sb_args, **sb_kw)
+    for (xk, rk_, vk), (xp, rp_, vp) in zip(out_k, out_p):
+        if not (torch.equal(vk, vp) and torch.equal(rk_[vk], rp_[vp])
+                and torch.equal(xk[vk], xp[vp])):
+            fail("kp_select_batch disagrees")
+    px = sum(sc.numel() for sc, _ in sb_maps)
+    nsel = sum(sb_ks) * sb_maps[0][0].shape[0]
+    rows.append(dict(
+        name="kp_select_batch", max_abs_err=0.0,
+        **timings(lambda: fast.select_keypoints_levels(*sb_args, **sb_kw),
+                  lambda: fast.select_keypoints_levels_plain(*sb_args, **sb_kw)),
+        bytes=px * 4 + nsel * (5 * 4 + 8 + 4 + 1), ops=px * 6, library_ms=None,
+        shape=f"{len(sb_maps)} levels x {sb_maps[0][0].shape[0]} frames, {px} px, "
+              f"{nsel} keypoints"))
+    ob_calls = [v[0] for v in stacked("orb_describe_batch")]
+    ob_desc, ob_ang = 1.0, 0.0
+    for im, xy in ob_calls:
+        ak, dk = orb.orient_and_describe(im, xy)
+        ap, dp = orb.orient_and_describe_plain(im, xy)
+        ob_desc = min(ob_desc, (dk == dp).all(-1).float().mean().item())
+        ob_ang = max(ob_ang, (ak - ap).abs().max().item())
+    if ob_desc < 0.995 or ob_ang > 1e-4:
+        fail(f"orb_describe_batch disagrees: descriptors equal {ob_desc:.4f}, "
+             f"angle err {ob_ang:.2e}")
+    nkp = sum(xy.shape[0] * xy.shape[1] for _, xy in ob_calls)
+    rows.append(dict(
+        name="orb_describe_batch", max_abs_err=ob_ang,
+        **timings(lambda: [orb.orient_and_describe(im, xy) for im, xy in ob_calls],
+                  lambda: [orb.orient_and_describe_plain(im, xy) for im, xy in ob_calls]),
+        bytes=sum(im.numel() * 2 + xy.shape[0] * xy.shape[1] * (8 + 4 + 32)
+                  for im, xy in ob_calls) + 64 * 256 * 4,
+        ops=nkp * 11000, library_ms=None,
+        shape=f"{len(ob_calls)} levels x {ob_calls[0][0].shape[0]} frames, {nkp} keypoints"))
+    print(f"[time] batch entries done at {time.time() - t_start:.0f} s", flush=True)
     # kernel 3 at the loop closer's shapes ([4096, 1024] pool matches, the
     # batched [8, 4096, 1024] loop fuse): equal
     lham = loop_rec["hamming_best2"].calls
@@ -2216,6 +2684,8 @@ def main() -> int:
         replaces = replaces or KERNELS[kernel][0]
         source = KERNELS[kernel][1]
         launches = (counts_ds2 if r["name"] in ROW_KERNEL else
+                    counts_mesh if kernel in MESH_KERNELS else
+                    counts_batch if kernel in BATCH_KERNELS else
                     counts_reloc if kernel in RELOC_KERNELS else
                     counts_loop if kernel in LOOP_KERNELS else
                     counts_2e if kernel in DATASET_KERNELS else
@@ -2228,7 +2698,9 @@ def main() -> int:
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
             "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("frame_wall_ms", "frame_plain_wall_ms", "library_wall_ms",
-                                 "votes", "kl64", "loop_shapes", "passes") if k in r}})
+                                 "library_shape", "split", "votes", "kl64", "loop_shapes",
+                                 "passes", "plain_timed")
+               if k in r}})
         print(f"[kernel] {r['name']}: {r['shape']} | device: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms | caller: kernel {r['wall_ms']:.4f} ms, "
               f"plain {r['plain_wall_ms']:.4f} ms | bound {max(b_ms, o_ms):.5f} ms",
@@ -2238,9 +2710,13 @@ def main() -> int:
                       "launches_relocalization": counts_reloc, "e2e_loop": e2e_loop,
                       "launches_loop": counts_loop, "e2e_dataset": e2e_dataset,
                       "launches_dataset": counts_2e, "e2e_ds2": e2e_ds2,
-                      "launches_ds2": counts_ds2, "fuse3d_merged": merged,
+                      "launches_ds2": counts_ds2, "e2e_mesh": e2e_mesh,
+                      "launches_mesh": counts_mesh, "global_ba_mesh": gba_mesh,
+                      "batch_frontend": batch_out, "launches_batch": counts_batch,
+                      "fuse3d_merged": merged,
                       "frontend_card_vs_cpu": frontend,
                       "profile": profile_out, "torch_ops": ops_table}), flush=True)
+    distributed.shutdown_multihost()
     print(f"[done] all phases passed in {time.time() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

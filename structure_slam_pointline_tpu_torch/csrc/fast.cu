@@ -20,6 +20,12 @@
 // product bf16((y*131 + x*31) % 251) * bf16(1e-5), and score + jitter is
 // rounded to bf16. The circle offsets wrap at the image border like
 // jnp.roll; the NMS window does not (reduce_window pads with -inf).
+//
+// The batch entry (`sspl_fast_nms_batch`) runs the same blocks over a
+// [B, H, W] stack of one level, the frame on the grid's z axis and a
+// per-frame stride of H * W: the counterpart of the reference's vmap in
+// parallel/batch_frontend.py:36, one launch per level for a shard's
+// frames, each frame's maps bit-equal to the single-frame entry's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +60,10 @@ __global__ void fast_nms_kernel(const __nv_bfloat16* __restrict__ img,
   __shared__ float tile[SH][SW];
   __shared__ float sc[QH][QW];     // jittered score (NMS input), -inf outside
   __shared__ float rawq[QH][QW];   // raw score
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  img += frame;
+  raw_out += frame;
+  nms_out += frame;
   const int x0 = blockIdx.x * TX;
   const int y0 = blockIdx.y * TY;
   const int tid = threadIdx.y * TX + threadIdx.x;
@@ -119,13 +129,23 @@ __global__ void fast_nms_kernel(const __nv_bfloat16* __restrict__ img,
   nms_out[o] = sc[qy][qx] >= pooled ? r : 0.f;
 }
 
+int launch(const void* img, void* raw, void* nms, int B, int H, int W, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  dim3 block(TX, TY);
+  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
+  fast_nms_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)img, (float*)raw, (float*)nms, H, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sspl_fast_nms(const void* img, void* raw, void* nms, int H, int W,
                              void* stream) {
-  dim3 block(TX, TY);
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  fast_nms_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)img, (float*)raw, (float*)nms, H, W);
-  return (int)cudaGetLastError();
+  return launch(img, raw, nms, 1, H, W, stream);
+}
+
+extern "C" int sspl_fast_nms_batch(const void* img, void* raw, void* nms, int B, int H, int W,
+                                   void* stream) {
+  return launch(img, raw, nms, B, H, W, stream);
 }

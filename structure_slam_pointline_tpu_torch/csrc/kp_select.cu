@@ -26,6 +26,14 @@
 // offsets read from the raw map's wrapped neighbours (jnp.roll), all in
 // the reference's float32 op order. Slots past the candidates are zero.
 //
+// The batch entries (`sspl_kp_select_cells_batch`, `sspl_kp_select_rank_batch`)
+// run the same two launches over B frames, the frame on the grid's y axis:
+// each level's map is a [B, h, w] stack (per-frame stride h * w), the
+// candidates and the selected slots are [B, ...] with per-frame strides of
+// every level's cells x cap and of the summed budgets (the reference's vmap
+// in parallel/batch_frontend.py:36); each frame's result is bit-equal to the
+// single-frame entries'.
+//
 // Bound on the card: bytes, the level maps read once (score and, for the
 // few chosen pixels, raw: ~3.8 MB over 8 levels of 640x480) and the
 // selected slots written. The sort (a few thousand entries per level) and
@@ -57,6 +65,9 @@ __global__ void cells_kernel(Levels lv, int cell, int cap, float threshold,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * WPB + warp;
   if (c >= lv.cell_off[lv.L]) return;
+  const size_t f = blockIdx.y;
+  top_s += f * lv.cell_off[lv.L] * cap;
+  top_i += f * lv.cell_off[lv.L] * cap;
   int li = 0;
   while (c >= lv.cell_off[li + 1]) ++li;
   const int n = cell * cell;
@@ -64,7 +75,7 @@ __global__ void cells_kernel(Levels lv, int cell, int cap, float threshold,
   const int cl = c - lv.cell_off[li];
   const int y0 = (cl / lv.ncx[li]) * cell, x0 = (cl % lv.ncx[li]) * cell;
   const int h = lv.h[li], w = lv.w[li];
-  const float* score = lv.map[li];
+  const float* score = lv.map[li] + f * h * w;
   for (int p = lane; p < n; p += 32) {
     const int y = y0 + p / cell, x = x0 + p % cell;
     float v = -INFINITY;
@@ -113,6 +124,13 @@ __global__ void rank_kernel(Levels lv, int cell, int cap, const float* __restric
                             float* __restrict__ resp, bool* __restrict__ valid) {
   extern __shared__ unsigned char smem[];
   const int li = blockIdx.x;
+  const size_t f = blockIdx.y;
+  const int n_out = lv.out_off[lv.L - 1] + lv.k[lv.L - 1];
+  top_s += f * lv.cell_off[lv.L] * cap;
+  top_i += f * lv.cell_off[lv.L] * cap;
+  xy += 2 * f * n_out;
+  resp += f * n_out;
+  valid += f * n_out;
   const int nc = lv.cell_off[li + 1] - lv.cell_off[li];
   const int n = nc * cap;
   int np2 = 1;
@@ -145,7 +163,7 @@ __global__ void rank_kernel(Levels lv, int cell, int cap, const float* __restric
   }
   const int h = lv.h[li], w = lv.w[li], ncx = lv.ncx[li];
   const int k = lv.k[li], kk = min(k, n);
-  const float* raw = lv.map[li];
+  const float* raw = lv.map[li] != nullptr ? lv.map[li] + f * h * w : nullptr;
   float* oxy = xy + 2 * (size_t)lv.out_off[li];
   float* oresp = resp + lv.out_off[li];
   bool* ovalid = valid + lv.out_off[li];
@@ -198,10 +216,12 @@ bool fill_levels(Levels& lv, const void* const* maps, const int* hs, const int* 
 
 }  // namespace
 
-extern "C" int sspl_kp_select_cells(const void* scores, const void* hs, const void* ws,
-                                    const void* cell_off, int L, int cell, int cap,
-                                    float threshold, float min_threshold, int border,
-                                    void* top_s, void* top_i, void* stream) {
+namespace {
+
+int select_cells(const void* scores, const void* hs, const void* ws, const void* cell_off,
+                 int L, int cell, int cap, float threshold, float min_threshold, int border,
+                 int B, void* top_s, void* top_i, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   Levels lv;
   if (!fill_levels(lv, (const void* const*)scores, (const int*)hs, (const int*)ws,
                    (const int*)cell_off, L, cell))
@@ -213,16 +233,16 @@ extern "C" int sspl_kp_select_cells(const void* scores, const void* hs, const vo
         cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cells_kernel<<<(nc + WPB - 1) / WPB, WPB * 32, smem, (cudaStream_t)stream>>>(
+  cells_kernel<<<dim3((nc + WPB - 1) / WPB, B), WPB * 32, smem, (cudaStream_t)stream>>>(
       lv, cell, cap, threshold, min_threshold, border, (float*)top_s, (int*)top_i);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sspl_kp_select_rank(const void* raws, const void* hs, const void* ws,
-                                   const void* cell_off, const void* ks,
-                                   const void* out_off, int L, int cell, int cap,
-                                   const void* top_s, const void* top_i, void* xy,
-                                   void* resp, void* valid, void* stream) {
+int select_rank(const void* raws, const void* hs, const void* ws, const void* cell_off,
+                const void* ks, const void* out_off, int L, int cell, int cap, int B,
+                const void* top_s, const void* top_i, void* xy, void* resp, void* valid,
+                void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   Levels lv;
   if (!fill_levels(lv, (const void* const*)raws, (const int*)hs, (const int*)ws,
                    (const int*)cell_off, L, cell))
@@ -240,8 +260,44 @@ extern "C" int sspl_kp_select_rank(const void* raws, const void* hs, const void*
         rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rank_kernel<<<L, 1024, smem, (cudaStream_t)stream>>>(
+  rank_kernel<<<dim3(L, B), 1024, smem, (cudaStream_t)stream>>>(
       lv, cell, cap, (const float*)top_s, (const int*)top_i, (float*)xy, (float*)resp,
       (bool*)valid);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sspl_kp_select_cells(const void* scores, const void* hs, const void* ws,
+                                    const void* cell_off, int L, int cell, int cap,
+                                    float threshold, float min_threshold, int border,
+                                    void* top_s, void* top_i, void* stream) {
+  return select_cells(scores, hs, ws, cell_off, L, cell, cap, threshold, min_threshold, border,
+                      1, top_s, top_i, stream);
+}
+
+extern "C" int sspl_kp_select_rank(const void* raws, const void* hs, const void* ws,
+                                   const void* cell_off, const void* ks,
+                                   const void* out_off, int L, int cell, int cap,
+                                   const void* top_s, const void* top_i, void* xy,
+                                   void* resp, void* valid, void* stream) {
+  return select_rank(raws, hs, ws, cell_off, ks, out_off, L, cell, cap, 1, top_s, top_i, xy,
+                     resp, valid, stream);
+}
+
+extern "C" int sspl_kp_select_cells_batch(const void* scores, const void* hs, const void* ws,
+                                          const void* cell_off, int L, int cell, int cap,
+                                          float threshold, float min_threshold, int border,
+                                          int B, void* top_s, void* top_i, void* stream) {
+  return select_cells(scores, hs, ws, cell_off, L, cell, cap, threshold, min_threshold, border,
+                      B, top_s, top_i, stream);
+}
+
+extern "C" int sspl_kp_select_rank_batch(const void* raws, const void* hs, const void* ws,
+                                         const void* cell_off, const void* ks,
+                                         const void* out_off, int L, int cell, int cap, int B,
+                                         const void* top_s, const void* top_i, void* xy,
+                                         void* resp, void* valid, void* stream) {
+  return select_rank(raws, hs, ws, cell_off, ks, out_off, L, cell, cap, B, top_s, top_i, xy,
+                     resp, valid, stream);
 }

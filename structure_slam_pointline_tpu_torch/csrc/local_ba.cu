@@ -49,6 +49,24 @@
 // ~0.5 MB of inputs. The single-block solve and the launch chain set the
 // time: the card is latency-bound here, not throughput-bound.
 //
+// The sharded form (optim/local_ba.py `bundle_adjust_sharded`, for
+// parallel/dist_ba.py `shard_bundle_adjust`; replaces the reference's
+// shard_map of the same schedule, parallel/dist_ba.py:66, with psum over
+// the landmark axis, optim/local_ba.py:532-555) runs the same launches on
+// each landmark shard's own Work, with three differences, all switched by
+// Work fields that the unsharded form leaves at 0 / null:
+//  - ba_grid and ba_edges read edge ids relative to the shard's first
+//    column (`col0`, `ln_col0`): a shard owns the edges whose landmark
+//    falls in [col0, col0 + PL), as the reference's `rel = edge_mp - col0`;
+//  - ba_reduce writes the shard's partial Sred / Hk and, in one more block,
+//    its partial cost (`cost_part`), all summed in a fixed order by the
+//    wrapper (and over the process group) before the solve;
+//  - ba_solve then reads the summed buffers through its own Work (damping
+//    and the fixed cameras' identity rows are added there, once, after the
+//    sum) and copies the summed cost instead of summing landmark costs.
+// Each shard's ba_edges writes its own flags (false where another shard
+// owns the edge); the wrapper ORs them.
+//
 // Up to 64 cameras (global BA's window, optim/global_ba.py): a landmark's
 // edge sets are 64-bit masks. Local BA's 10-16 cameras run the same
 // arithmetic as with 32-bit masks and the shared-memory solve.
@@ -74,6 +92,7 @@ constexpr int SOLVE_THREADS = 512;
 
 struct Work {
   int KL, F, PL, LF, LL, NJ;
+  int col0, ln_col0;        // the shard's first point / line column (0 unsharded)
   float fx, fy, cx, cy;
   float chi2_mono, chi2_mono4, chi2_line2, chi2_line8, delta_pt, delta_ln;
   float ds;   // 1 + lam, rounded from double (the reference's `1.0 + lam`)
@@ -109,6 +128,8 @@ struct Work {
   float* cost;              // [1]
   float* Sg;                // [6KL (6KL + 1)] the solve's matrix when it
                             // does not fit in shared memory
+  float* cost_part;         // sharded: [1] the shard's cost (ba_reduce), or
+                            // the summed cost (ba_solve); null unsharded
 };
 
 struct Proj {
@@ -175,7 +196,7 @@ __global__ void grid_kernel(Work W) {
   const long long np = (long long)W.KL * W.F;
   if (i < np) {
     const int k = (int)(i / W.F);
-    const int e = W.edge_mp[i];
+    const int e = W.edge_mp[i] - W.col0;
     if (!(W.edge_valid[i] && e >= 0 && e < W.PL && W.kf_valid[k])) return;
     float* g = W.pgrid + ((size_t)k * W.PL + e) * 4;
     atomicAdd(g, W.obs_uv[2 * i]);
@@ -187,7 +208,7 @@ __global__ void grid_kernel(Work W) {
   const long long i2 = i - np;
   if (i2 >= (long long)W.KL * W.LF) return;
   const int k = (int)(i2 / W.LF);
-  const int e = W.edge_ln[i2];
+  const int e = W.edge_ln[i2] - W.ln_col0;
   if (!(W.ln_edge_valid[i2] && e >= 0 && e < W.LL)) return;
   float* g = W.lgrid + ((size_t)k * W.LL + e) * 5;
 #pragma unroll
@@ -471,6 +492,13 @@ __global__ void __launch_bounds__(RED_THREADS) reduce_kernel(Work W) {
     return;
   }
   const int k = p - npairs;
+  if (k == W.KL) {
+    // sharded: the shard's cost, summed as the unsharded solve sums it
+    float acc[1] = {0.f};
+    for (int j = threadIdx.x; j < W.PL + W.LL; j += RED_THREADS) acc[0] += W.lm_cost[j];
+    block_reduce_store<1>(acc, W.cost_part);
+    return;
+  }
   if (!W.cam_free[k]) return;
   float acc[33];
 #pragma unroll
@@ -646,9 +674,10 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(Work W) {
       se3_update(d, W.T + 16 * k);
     }
   }
-  // the iteration's cost, summed in a fixed order
+  // the iteration's cost, summed in a fixed order (sharded: already summed)
   float c = 0.f;
-  for (int j = threadIdx.x; j < W.PL + W.LL; j += SOLVE_THREADS) c += W.lm_cost[j];
+  if (W.cost_part == nullptr)
+    for (int j = threadIdx.x; j < W.PL + W.LL; j += SOLVE_THREADS) c += W.lm_cost[j];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
   if (lane == 0) cred[warp] = c;
@@ -656,7 +685,7 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(Work W) {
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int w = 0; w < SOLVE_THREADS / 32; ++w) s += cred[w];
-    W.cost[0] = s;
+    W.cost[0] = W.cost_part != nullptr ? W.cost_part[0] : s;
   }
 }
 
@@ -697,7 +726,7 @@ __global__ void edges_kernel(Work W, bool* __restrict__ inl_pt, bool* __restrict
   const long long np = (long long)W.KL * W.F;
   if (i < np) {
     const int k = (int)(i / W.F);
-    const int e = W.edge_mp[i];
+    const int e = W.edge_mp[i] - W.col0;
     inl_pt[i] = W.edge_valid[i] && W.kf_valid[k] && e >= 0 && e < W.PL &&
                 ((W.inl_bits[e] >> k) & 1ull);
     return;
@@ -705,7 +734,7 @@ __global__ void edges_kernel(Work W, bool* __restrict__ inl_pt, bool* __restrict
   const long long i2 = i - np;
   if (i2 >= (long long)W.KL * W.LF) return;
   const int k = (int)(i2 / W.LF);
-  const int e = W.edge_ln[i2];
+  const int e = W.edge_ln[i2] - W.ln_col0;
   inl_ln[i2] = W.ln_edge_valid[i2] && e >= 0 && e < W.LL &&
                ((W.inl_bits[W.PL + e] >> k) & 1ull);
 }
@@ -741,7 +770,7 @@ extern "C" int sspl_ba_landmarks(const void* ws, void* stream) {
 
 extern "C" int sspl_ba_reduce(const void* ws, void* stream) {
   const Work& W = *(const Work*)ws;
-  const int blocks = W.KL * (W.KL + 1) / 2 + W.KL;
+  const int blocks = W.KL * (W.KL + 1) / 2 + W.KL + (W.cost_part != nullptr ? 1 : 0);
   reduce_kernel<<<blocks, RED_THREADS, 0, (cudaStream_t)stream>>>(W);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,13 @@
 // moments accumulate in float32 (in another order than XLA, so the angle
 // may differ in the last bits); bank = rint(angle / 2pi * 64) mod 64
 // (round half to even, as jnp.round); bit = I(p0) < I(p1).
+//
+// The batch entry (`sspl_orb_describe_batch`) runs the same warps over a
+// [B, H, W] stack of one blurred level and [B, K, 2] keypoints, the frame
+// on the grid's y axis with per-frame strides (the reference's vmap in
+// parallel/batch_frontend.py:36): one launch per level for a shard's
+// frames, each frame's angles and descriptors bit-equal to the
+// single-frame entry's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +57,11 @@ __global__ void orb_kernel(const __nv_bfloat16* __restrict__ img, int H, int W,
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * WARPS + warp;
   if (k >= K) return;  // whole warp leaves together
+  const size_t f = blockIdx.y;
+  img += f * H * W;
+  xy += f * K * 2;
+  angle_out += f * K;
+  desc_out += f * K * 8;
   float (*rows)[RC] = rows_s[warp];
   float (*patch)[P + 1] = patch_s[warp];
 
@@ -102,14 +114,26 @@ __global__ void orb_kernel(const __nv_bfloat16* __restrict__ img, int H, int W,
   if (lane == 0) angle_out[k] = ang;
 }
 
+int launch(const void* img, int B, int H, int W, const void* xy, int K, const void* tables,
+           void* angle, void* desc, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((K + WARPS - 1) / WARPS, B);
+  orb_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)img, H, W, (const float*)xy, K, (const int8_t*)tables,
+      (float*)angle, (int32_t*)desc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sspl_orb_describe(const void* img, int H, int W, const void* xy, int K,
                                  const void* tables, void* angle, void* desc,
                                  void* stream) {
-  int blocks = (K + WARPS - 1) / WARPS;
-  orb_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)img, H, W, (const float*)xy, K, (const int8_t*)tables,
-      (float*)angle, (int32_t*)desc);
-  return (int)cudaGetLastError();
+  return launch(img, 1, H, W, xy, K, tables, angle, desc, stream);
+}
+
+extern "C" int sspl_orb_describe_batch(const void* img, int B, int H, int W, const void* xy,
+                                       int K, const void* tables, void* angle, void* desc,
+                                       void* stream) {
+  return launch(img, B, H, W, xy, K, tables, angle, desc, stream);
 }

@@ -10,12 +10,15 @@ parallel, one `nvcc` each, at the first kernel call (or by an explicit
 so the CPU-only tests import every module without a CUDA toolkit.
 
 A source may export several entry points (`ENTRIES`), a source may
-include the shared headers (`csrc/*.cuh`), and two kernels may share one
-source (kernels 13 and 14 in `bow.cu`, 20 and 21 in `fuse3d.cu`, kernel
-10 and its eigensolver entry in `null_vector4.cu`: each is built into
-its own library and counted on its own); every launch of
-any of them adds one to its kernel's `COUNTS[name]`, where the wrapper
-launches it and nowhere else; `reset_counts()` zeroes them.
+include the shared headers (`csrc/*.cuh`), and several kernels may share
+one source (kernels 13 and 14 in `bow.cu`, 20 and 21 in `fuse3d.cu`,
+kernel 10 and its eigensolver entry in `null_vector4.cu`; the sharded
+form of kernel 12 in `local_ba.cu` and the frame-batched entries of
+kernels 1, 11 and 2 in `fast.cu`, `kp_select.cu` and `orb.cu`): each
+source is built once, into one library, and each kernel is counted on
+its own; every launch of any of them adds one to its kernel's
+`COUNTS[name]`, where the wrapper launches it and nowhere else;
+`reset_counts()` zeroes them.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 
-# kernel name -> CUDA source; a library exports `sspl_<entry>` for each
-# of its ENTRIES (by default the kernel's own name)
+# kernel name -> CUDA source; a source's library exports `sspl_<entry>` for
+# each of the ENTRIES of its kernels (by default the kernel's own name)
 SOURCES = {
     "fast_nms": "fast.cu",
     "orb_describe": "orb.cu",
@@ -58,13 +61,17 @@ SOURCES = {
     "fuse_points_3d": "fuse3d.cu",
     "fuse_lines_3d": "fuse3d.cu",
     "jacobi_eigh4": "null_vector4.cu",
+    "local_ba_shard": "local_ba.cu",
+    "fast_nms_batch": "fast.cu",
+    "kp_select_batch": "kp_select.cu",
+    "orb_describe_batch": "orb.cu",
 }
 
-# kernels whose source is built with nvcc's default -fmad=true (every other
-# one gets -fmad=false): kernel 10 (and its eigensolver entry) calls the CUDA math library's atan2f /
-# cosf / sinf as torch's own CUDA kernels do, and rounds its own products
-# and sums explicitly (csrc/null_vector4.cu)
-FMAD = {"null_vector4", "jacobi_eigh4"}
+# sources built with nvcc's default -fmad=true (every other one gets
+# -fmad=false): kernel 10 (and its eigensolver entry) calls the CUDA math
+# library's atan2f / cosf / sinf as torch's own CUDA kernels do, and rounds
+# its own products and sums explicitly
+FMAD = {"null_vector4.cu"}
 
 ENTRIES = {name: (name,) for name in SOURCES}
 ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
@@ -75,6 +82,8 @@ ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_count", "pnp_select")
 ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
 ENTRIES["pose_graph"] = ("pg_jacobians", "pg_assemble", "pg_solve", "pg_cost", "pg_decide")
 ENTRIES["compact"] = ("compact_scan", "compact_gather", "compact_remap")
+ENTRIES["local_ba_shard"] = ENTRIES["local_ba"]
+ENTRIES["kp_select_batch"] = ("kp_select_cells_batch", "kp_select_rank_batch")
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -88,8 +97,12 @@ _F = ctypes.c_float
 _ARGTYPES = {
     # img, raw, nms, H, W, stream
     "fast_nms": [_P, _P, _P, _I, _I, _P],
+    # img, raw, nms, B, H, W, stream
+    "fast_nms_batch": [_P, _P, _P, _I, _I, _I, _P],
     # img, H, W, xy, K, tables, angle, desc, stream
     "orb_describe": [_P, _I, _I, _P, _I, _P, _P, _P, _P],
+    # img, B, H, W, xy, K, tables, angle, desc, stream
+    "orb_describe_batch": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     # a, b, allow, B, M, N, batch_a, batch_b, best, best_j, second, second_j, stream
     "hamming_best2": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # T_init, X, obs_uv, pt_mask, pt_info, line_obs, ln_mask, ln_info, N, M,
@@ -126,6 +139,9 @@ _ARGTYPES = {
     # raws, hs, ws, cell_off, ks, out_off, L, cell, cap, top_s, top_i,
     # xy, resp, valid, stream
     "kp_select_rank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # the same with the number of frames B before the outputs
+    "kp_select_cells_batch": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P],
+    "kp_select_rank_batch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # local BA: a pointer to the host-side work description (optim/local_ba.py
     # _Work), then per entry: classify's mode, edges' two output masks
     "ba_grid": [_P, _P],
@@ -187,70 +203,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> tuple[str, str]:
-    """(source, library path); the hash covers the source, the shared
+def _lib_path(source: str) -> str:
+    """The library of one source; the hash covers the source, the shared
     headers (csrc/*.cuh) and the -fmad choice."""
-    src = os.path.join(_CSRC, SOURCES[name])
-    h = hashlib.sha1(b"fmad" if name in FMAD else b"")
-    for path in [src] + sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-                               if f.endswith(".cuh")):
+    h = hashlib.sha1(b"fmad" if source in FMAD else b"")
+    for path in [os.path.join(_CSRC, source)] + sorted(
+            os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")):
         with open(path, "rb") as f:
             h.update(f.read())
-    return src, os.path.join(BUILD_DIR, f"libsspl_{name}_{h.hexdigest()[:10]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libsspl_{stem}_{h.hexdigest()[:10]}.so")
 
 
-def _nvcc_cmd(name: str, src: str, out: str) -> list[str]:
-    fmad = "-fmad=true" if name in FMAD else "-fmad=false"
+def _nvcc_cmd(source: str, out: str) -> list[str]:
+    fmad = "-fmad=true" if source in FMAD else "-fmad=false"
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", fmad, "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", out, src]
+            "-Xptxas", "-v", "-o", out, os.path.join(_CSRC, source)]
 
 
 def build_all(names=None) -> dict:
-    """Compile every kernel library that is missing, all `nvcc` processes
-    started together; returns {name: ptxas report} for the ones built."""
-    names = list(names or SOURCES)
+    """Compile the library of every named kernel's source (default: all)
+    that is missing, all `nvcc` processes started together; returns
+    {source: ptxas report} for the ones built."""
+    sources = sorted({SOURCES[n] for n in (names or SOURCES)})
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in names:
-        src, out = _lib_path(name)
+    for source in sources:
+        out = _lib_path(source)
         if os.path.exists(out):
             continue
         tmp = out + f".tmp{os.getpid()}"
-        procs[name] = (subprocess.Popen(
-            _nvcc_cmd(name, src, tmp), stdout=subprocess.PIPE,
+        procs[source] = (subprocess.Popen(
+            _nvcc_cmd(source, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     reports = {}
     errors = []
-    for name, (proc, tmp, out) in procs.items():
+    for source, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
+            errors.append(f"{source}: nvcc failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        reports[name] = log
+        reports[source] = log
     if errors:
         raise RuntimeError("\n".join(errors))
     return reports
 
 
 def lib(name: str):
-    """The loaded library of one kernel (built on first use)."""
-    handle = _LIBS.get(name)
+    """The loaded library of one kernel's source (built on first use)."""
+    source = SOURCES[name]
+    handle = _LIBS.get(source)
     if handle is not None:
         return handle
     with _LOCK:
-        if name not in _LIBS:
-            _, out = _lib_path(name)
+        if source not in _LIBS:
+            out = _lib_path(source)
             if not os.path.exists(out):
                 build_all([name])
             h = ctypes.CDLL(out)
-            for entry in ENTRIES[name]:
-                fn = getattr(h, f"sspl_{entry}")
-                fn.argtypes = _ARGTYPES[entry]
-                fn.restype = ctypes.c_int
-            _LIBS[name] = h
-    return _LIBS[name]
+            for kernel in (k for k, src in SOURCES.items() if src == source):
+                for entry in ENTRIES[kernel]:
+                    fn = getattr(h, f"sspl_{entry}")
+                    fn.argtypes = _ARGTYPES[entry]
+                    fn.restype = ctypes.c_int
+            _LIBS[source] = h
+    return _LIBS[source]
 
 
 def launch(name: str, *args, entry: str | None = None) -> None:

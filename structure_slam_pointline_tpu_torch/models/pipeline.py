@@ -13,6 +13,10 @@ re-track and the keyframe decision follow on the host). The reference's
 `SLAMCarry` keeps the map state and poses as tensors on the device and
 the cursors / counters as Python ints and bools (the host decides every
 branch from them).
+
+With a `mesh` of more than one shard (parallel/mesh.py), the keyframe
+pipeline's local BA runs the landmark-sharded engine
+(parallel/dist_ba.py), as the reference's does (pipeline.py:229-238).
 """
 
 from __future__ import annotations
@@ -132,7 +136,7 @@ def _renorm_se3(T: torch.Tensor) -> torch.Tensor:
 
 def _keyframe_pipeline(state: MapState, frame: Frame, tr: tracking.TrackResult,
                        n_kf: int, n_mp: int, n_ml: int, frame_id: int,
-                       intr: Intrinsics, cfg: SLAMConfig):
+                       intr: Intrinsics, cfg: SLAMConfig, mesh=None):
     """Insert KF + triangulate points and lines vs neighbours + fuse +
     local BA + cull (LocalMapping::Run's per-keyframe sequence)."""
     ab = frozenset(a for a in cfg.ablate.split(",") if a)
@@ -168,7 +172,12 @@ def _keyframe_pipeline(state: MapState, frame: Frame, tr: tracking.TrackResult,
         st, k + 1, cfg, k, covis_w)
     n_dropped += int(ba_drop)
     if "no_ba" not in ab:
-        ba = local_ba.bundle_adjust(prob, intr, cfg.optim, lines=ba_lines)
+        if mesh is not None and mesh.size > 1:
+            from structure_slam_pointline_tpu_torch.parallel import dist_ba
+
+            ba = dist_ba.shard_bundle_adjust(mesh, prob, intr, cfg.optim, lines=ba_lines)
+        else:
+            ba = local_ba.bundle_adjust(prob, intr, cfg.optim, lines=ba_lines)
         st = lm.apply_ba_result(st, local_kf, local_mp, ba, local_ln=local_ln)
     if "no_cull" not in ab:
         obs = map_store.point_obs_counts(st)
@@ -189,8 +198,9 @@ def _keyframe_pipeline(state: MapState, frame: Frame, tr: tracking.TrackResult,
 
 
 def slam_step(carry: SLAMCarry, img: torch.Tensor, frame_id: int, intr: Intrinsics,
-              cfg: SLAMConfig, allow_kf: bool = True):
-    """One tracked frame. `allow_kf=False` is localization-only mode."""
+              cfg: SLAMConfig, allow_kf: bool = True, mesh=None):
+    """One tracked frame. `allow_kf=False` is localization-only mode; a
+    `mesh` shards the keyframe pipeline's local BA."""
     frame = build_frame_device(img, intr, cfg)
     T_pred = carry.velocity @ carry.T_last
     kf_lo = max(carry.n_kf - cfg.map.local_window_kf, 0) if carry.ok else 0
@@ -222,7 +232,8 @@ def slam_step(carry: SLAMCarry, img: torch.Tensor, frame_id: int, intr: Intrinsi
     n_live = (None, None)
     if need_kf:
         state, n_mp, n_ml, n_kf, T_cw, n_drop, local_sets, n_ref = _keyframe_pipeline(
-            state, frame, tr, carry.n_kf, carry.n_mp, carry.n_ml, frame_id, intr, cfg)
+            state, frame, tr, carry.n_kf, carry.n_mp, carry.n_ml, frame_id, intr, cfg,
+            mesh=mesh)
         frames_since, inl_at_kf = 0, n_ref
         n_live = tuple(torch.stack([state.mp_valid.sum(), state.ml_valid.sum()]).tolist())
     else:

@@ -24,7 +24,12 @@ compacts. The outputs are the reference's: `save_trajectory_tum`,
 `save_keyframe_trajectory_tum` (TUM text), `shutdown`.
 
 `SLAMSystem(cfg)` runs on the CUDA device and raises if there is none;
-`device="cpu"` is the explicit opt-in the tests use.
+`device="cpu"` is the explicit opt-in the tests use. `SLAMSystem(cfg,
+mesh=...)` (parallel/mesh.py, parallel/distributed.py) runs the keyframe
+pipeline's local BA and the loop closer's global BA landmark-sharded over
+the mesh when it has more than one shard, where the reference passes its
+mesh (system.py:60-65, :253, :482, :591); the mesh must lie on the
+system's device.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from structure_slam_pointline_tpu_torch.models.loop_closing import LoopCloser
 from structure_slam_pointline_tpu_torch.models.tracking import Frame
 from structure_slam_pointline_tpu_torch.ops import matching, twoview
 from structure_slam_pointline_tpu_torch.optim import global_ba, local_ba
+from structure_slam_pointline_tpu_torch.parallel import mesh as mesh_mod
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.metrics import Metrics
 from structure_slam_pointline_tpu_torch.world import compact as wc
@@ -81,9 +87,14 @@ class SLAMSystem:
 
     COMPACT_FRAC = 0.75
 
-    def __init__(self, cfg: SLAMConfig | None = None, device=None):
+    def __init__(self, cfg: SLAMConfig | None = None, mesh=None, device=None):
         self.cfg = cfg or SLAMConfig()
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
+        if mesh is not None and mesh.device != mesh_mod.resolve_device(self.device):
+            raise ValueError(f"SLAMSystem: a mesh on {mesh.device} for a system on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.metrics = Metrics()
         self.intr = Intrinsics.from_config(self.cfg.camera)
         self.localization_mode = False
@@ -161,7 +172,7 @@ class SLAMSystem:
         `track_sequence` as in the reference."""
         self.carry, out = pipeline.slam_step(self.carry, self._img(img), frame_id,
                                              self.intr, self.cfg,
-                                             not self.localization_mode)
+                                             not self.localization_mode, mesh=self.mesh)
         self.map = self.carry.state
         self._count_frame(out)
         self._count_landmark_deltas(out)
@@ -415,7 +426,7 @@ class SLAMSystem:
             self.metrics.count("loop_corrected")
             self._lm_base = None   # the fuse removed landmarks: re-baseline
             new_state = global_ba.global_bundle_adjust(new_state, n_kf, self.intr, self.cfg,
-                                                       metrics=self.metrics)
+                                                       mesh=self.mesh, metrics=self.metrics)
             kl = n_kf - 1
             T_kl_old = self.map.kf_T_cw[kl].cpu().numpy()
             T_kl_new = new_state.kf_T_cw[kl].cpu().numpy()

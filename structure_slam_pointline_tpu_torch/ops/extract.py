@@ -9,6 +9,12 @@ grayscale [H, W] image to a fixed-capacity keypoint set:
     angle [K]      radians
     desc [K, 8]    packed 256-bit descriptors (int32 bit patterns)
     valid [K]      bool mask (padding slots are False)
+
+`extract_orb` also maps a [B, H, W] stack to Keypoints with a leading B
+axis, each frame's equal to its own call's: the pyramid built for the
+stack (ops/pyramid.py), then per level one launch of kernels 1 and 2 for
+all B frames and one selection (kernel 11, two launches) over all levels
+and frames.
 """
 
 from __future__ import annotations
@@ -44,12 +50,14 @@ def level_budgets(n_total: int, n_levels: int, scale_factor: float) -> list[int]
 
 def extract_orb(img: torch.Tensor, cfg: FrontendConfig,
                 n_keypoints: int | None = None) -> Keypoints:
-    """Grayscale [H, W] float32 in [0, 255] -> fixed-capacity Keypoints."""
+    """Grayscale [H, W] float32 in [0, 255] -> fixed-capacity Keypoints (a
+    [B, H, W] stack -> Keypoints with a leading B axis)."""
     k_total = n_keypoints or cfg.n_keypoints
     budgets = level_budgets(k_total, cfg.n_levels, cfg.scale_factor)
     scales = pyramid.level_scales(cfg.n_levels, cfg.scale_factor)
     levels, blurred = pyramid.build_blurred_pyramid(
         img.to(torch.bfloat16), cfg.n_levels, cfg.scale_factor, cfg.blur_sigma)
+    lead = tuple(img.shape[:-2])
 
     lvs = [lv for lv in range(cfg.n_levels) if budgets[lv] > 0]
     score_raw = []
@@ -64,9 +72,9 @@ def extract_orb(img: torch.Tensor, cfg: FrontendConfig,
     for lv, (xy, resp, valid) in zip(lvs, sels):
         ang, desc = orb.orient_and_describe(blurred[lv], xy.contiguous())
         xy0 = xy * float(scales[lv])
-        octv = torch.full((budgets[lv],), lv, dtype=torch.int32, device=img.device)
+        octv = torch.full(lead + (budgets[lv],), lv, dtype=torch.int32, device=img.device)
         parts.append((xy0, resp, octv, ang, desc, valid))
-    cat = lambda i: torch.cat([p[i] for p in parts])  # noqa: E731
+    cat = lambda i: torch.cat([p[i] for p in parts], dim=len(lead))  # noqa: E731
     return Keypoints(xy=cat(0), response=cat(1), octave=cat(2), angle=cat(3),
                      desc=cat(4), valid=cat(5))
 

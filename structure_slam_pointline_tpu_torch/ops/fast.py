@@ -21,6 +21,12 @@ one block per level for the ranking and the sub-pixel offsets).
 of masked argmax per cell (argmax keeps the first index, like
 jnp.argmax) and one global ranking per level by a STABLE descending
 sort, so ties go to the lower index as in `lax.top_k`.
+
+Both also take a [B, H, W] stack of frames per level (the data-parallel
+frontend, parallel/batch_frontend.py): kernels 1 and 11's batch entries,
+one launch for all B frames (two for the selection), each frame
+bit-equal to its single-frame call. Their plain versions run a stack
+frame by frame.
 """
 
 from __future__ import annotations
@@ -82,26 +88,36 @@ def nms3_plain(score: torch.Tensor) -> torch.Tensor:
 
 
 def fast_score_nms_plain(img: torch.Tensor):
-    """(raw, nms) float32 score maps of a bf16 level."""
+    """(raw, nms) float32 score maps of a bf16 level (a stack frame by
+    frame)."""
+    if img.dim() == 3:
+        outs = [fast_score_nms_plain(f) for f in img]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     raw = fast_score_plain(img)
     return raw.float(), nms3_plain(raw).float()
 
 
 def fast_score_nms(img: torch.Tensor):
-    """(raw, nms) float32 [H, W] FAST score maps of a bf16 [H, W] level.
+    """(raw, nms) float32 FAST score maps of a bf16 [H, W] level, or of a
+    [B, H, W] stack of one level.
 
-    CPU tensor -> plain version; CUDA tensor -> kernel 1 (or raise)."""
-    if img.dim() != 2:
-        raise ValueError(f"fast_score_nms: expects [H, W], got {tuple(img.shape)}")
+    CPU tensor -> plain version; CUDA tensor -> kernel 1, one launch (its
+    batch entry for a stack), or raise."""
+    if img.dim() not in (2, 3) or img.shape[0] < 1:
+        raise ValueError(f"fast_score_nms: expects [H, W] or [B, H, W], got "
+                         f"{tuple(img.shape)}")
     if img.device.type == "cpu":
         return fast_score_nms_plain(img)
     kernels.check_dtype("fast_score_nms", img, torch.bfloat16)
     kernels.check_cuda("fast_score_nms", img)
-    h, w = img.shape
-    raw = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    h, w = img.shape[-2:]
+    raw = torch.empty(img.shape, dtype=torch.float32, device=img.device)
     nms = torch.empty_like(raw)
-    kernels.launch("fast_nms", kernels.ptr(img), kernels.ptr(raw),
-                   kernels.ptr(nms), h, w)
+    args = (kernels.ptr(img), kernels.ptr(raw), kernels.ptr(nms))
+    if img.dim() == 2:
+        kernels.launch("fast_nms", *args, h, w)
+    else:
+        kernels.launch("fast_nms_batch", *args, img.shape[0], h, w)
     return raw, nms
 
 
@@ -114,7 +130,15 @@ def select_keypoints_levels_plain(score_raw: list, ks: list, cell: int = 32,
 
     `score_raw` = [(nms_score, raw_score or None)] float32 per level (None:
     no sub-pixel offsets). Returns a list of (xy [k, 2], resp [k], valid
-    [k]) per level."""
+    [k]) per level; [B, H, W] maps are selected frame by frame, each
+    level's outputs then with a leading B axis."""
+    if score_raw[0][0].dim() == 3:
+        per_frame = [select_keypoints_levels_plain(
+            [(s[b], r[b] if r is not None else None) for s, r in score_raw], ks, cell,
+            cell_cap, threshold, min_threshold, border)
+            for b in range(score_raw[0][0].shape[0])]
+        return [tuple(torch.stack([f[li][q] for f in per_frame]) for q in range(3))
+                for li in range(len(score_raw))]
     L = len(score_raw)
     assert len(ks) == L
     cap = min(cell_cap, cell * cell)
@@ -209,50 +233,60 @@ MAX_LEVELS = 16   # kernel 11's level table
 def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
                             cell_cap: int = 8, threshold: float = 20.0,
                             min_threshold: float = 7.0, border: int = 16):
-    """`select_keypoints_levels_plain`'s result. CPU tensors -> plain
-    version; CUDA tensors -> kernel 11, two launches (or raise)."""
+    """`select_keypoints_levels_plain`'s result, over [H, W] maps or [B, H,
+    W] stacks (one frame per leading index). CPU tensors -> plain version;
+    CUDA tensors -> kernel 11, two launches (its batch entries for
+    stacks, all B frames at once), or raise."""
     if score_raw[0][0].device.type == "cpu":
         return select_keypoints_levels_plain(score_raw, ks, cell, cell_cap, threshold,
                                              min_threshold, border)
+    batch = score_raw[0][0].shape[0] if score_raw[0][0].dim() == 3 else None
+    what = "select_keypoints_levels"
     L = len(score_raw)
     if L != len(ks) or not 1 <= L <= MAX_LEVELS:
-        raise ValueError(f"select_keypoints_levels: {L} levels, {len(ks)} budgets")
+        raise ValueError(f"{what}: {L} levels, {len(ks)} budgets")
     if not 1 <= cell <= 64:
-        raise ValueError(f"select_keypoints_levels: cell {cell} outside 1..64")
+        raise ValueError(f"{what}: cell {cell} outside 1..64")
     cap = min(cell_cap, cell * cell)
     maps = [t for pair in score_raw for t in pair if t is not None]
     for t in maps:
-        kernels.check_dtype("select_keypoints_levels", t, torch.float32)
-    kernels.check_cuda("select_keypoints_levels", *maps)
+        kernels.check_dtype(what, t, torch.float32)
+    kernels.check_cuda(what, *maps)
     dev = maps[0].device
-    hs = [s.shape[0] for s, _ in score_raw]
-    ws = [s.shape[1] for s, _ in score_raw]
+    lead = () if batch is None else (batch,)
+    hs = [s.shape[-2] for s, _ in score_raw]
+    ws = [s.shape[-1] for s, _ in score_raw]
     for (s, r) in score_raw:
-        if s.dim() != 2 or (r is not None and r.shape != s.shape):
-            raise ValueError("select_keypoints_levels: expects [H, W] maps of one shape "
-                             "per level")
+        if s.shape[:-2] != lead or s.dim() != 2 + len(lead) \
+                or (r is not None and r.shape != s.shape):
+            raise ValueError(f"{what}: expects {'[B, H, W]' if lead else '[H, W]'} maps of "
+                             "one shape per level")
     cell_off = np.cumsum([0] + [-(-h // cell) * -(-w // cell) for h, w in zip(hs, ws)])
     out_off = np.cumsum([0] + list(ks))
     if max(np.diff(cell_off)) * cap > 16384:   # launch B sorts a level in shared memory
-        raise ValueError("select_keypoints_levels: too many candidates per level")
+        raise ValueError(f"{what}: too many candidates per level")
     ints = lambda v: (ctypes.c_int * len(v))(*[int(x) for x in v])  # noqa: E731
     ptrs = lambda v: (ctypes.c_void_p * len(v))(  # noqa: E731
         *[t.data_ptr() if t is not None else None for t in v])
     c_hs, c_ws, c_off = ints(hs), ints(ws), ints(cell_off)
-    top_s = torch.empty(int(cell_off[-1]) * cap, dtype=torch.float32, device=dev)
-    top_i = torch.empty(int(cell_off[-1]) * cap, dtype=torch.int32, device=dev)
-    kernels.launch("kp_select", ptrs([s for s, _ in score_raw]), c_hs, c_ws, c_off, L,
-                   cell, cap, float(threshold), float(min_threshold), int(border),
-                   kernels.ptr(top_s), kernels.ptr(top_i), entry="kp_select_cells")
+    name = "kp_select" if batch is None else "kp_select_batch"
+    suffix = "" if batch is None else "_batch"
+    nb = [] if batch is None else [int(batch)]
+    top_s = torch.empty(lead + (int(cell_off[-1]) * cap,), dtype=torch.float32, device=dev)
+    top_i = torch.empty(lead + (int(cell_off[-1]) * cap,), dtype=torch.int32, device=dev)
+    kernels.launch(name, ptrs([s for s, _ in score_raw]), c_hs, c_ws, c_off, L,
+                   cell, cap, float(threshold), float(min_threshold), int(border), *nb,
+                   kernels.ptr(top_s), kernels.ptr(top_i), entry="kp_select_cells" + suffix)
     n_out = int(out_off[-1])
-    xy = torch.empty((n_out, 2), dtype=torch.float32, device=dev)
-    resp = torch.empty(n_out, dtype=torch.float32, device=dev)
-    valid = torch.empty(n_out, dtype=torch.bool, device=dev)
-    kernels.launch("kp_select", ptrs([r for _, r in score_raw]), c_hs, c_ws, c_off,
-                   ints(ks), ints(out_off[:-1]), L, cell, cap, kernels.ptr(top_s),
+    xy = torch.empty(lead + (n_out, 2), dtype=torch.float32, device=dev)
+    resp = torch.empty(lead + (n_out,), dtype=torch.float32, device=dev)
+    valid = torch.empty(lead + (n_out,), dtype=torch.bool, device=dev)
+    kernels.launch(name, ptrs([r for _, r in score_raw]), c_hs, c_ws, c_off,
+                   ints(ks), ints(out_off[:-1]), L, cell, cap, *nb, kernels.ptr(top_s),
                    kernels.ptr(top_i), kernels.ptr(xy), kernels.ptr(resp),
-                   kernels.ptr(valid), entry="kp_select_rank")
-    return [(xy[a:b], resp[a:b], valid[a:b]) for a, b in zip(out_off[:-1], out_off[1:])]
+                   kernels.ptr(valid), entry="kp_select_rank" + suffix)
+    return [(xy[..., a:b, :], resp[..., a:b], valid[..., a:b])
+            for a, b in zip(out_off[:-1], out_off[1:])]
 
 
 def select_keypoints(score: torch.Tensor, k: int, cell: int = 32, cell_cap: int = 8,

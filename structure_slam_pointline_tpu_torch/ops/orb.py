@@ -21,6 +21,11 @@ reference's numerics:
 
 `_make_pattern(seed=7)` and `_rotated_tables()` are copies of the
 reference's tables (a test holds them equal).
+
+`orient_and_describe` also takes a [B, H, W] stack of one blurred level
+and [B, K, 2] keypoints (the data-parallel frontend): kernel 2's batch
+entry, one launch for all B frames, each frame bit-equal to its
+single-frame call; the plain version runs a stack frame by frame.
 """
 
 from __future__ import annotations
@@ -150,32 +155,45 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
 
 
 def orient_and_describe_plain(img_blur: torch.Tensor, xy: torch.Tensor):
-    """(angle [K] float32, desc [K, 8] int32) for one blurred bf16 level."""
+    """(angle [K] float32, desc [K, 8] int32) for one blurred bf16 level (a
+    stack frame by frame: [B, K], [B, K, 8])."""
+    if img_blur.dim() == 3:
+        outs = [orient_and_describe_plain(im, p) for im, p in zip(img_blur, xy)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     patches = gather_patches(img_blur, xy)
     ang = ic_angle(patches)
     return ang, describe(patches, ang)
 
 
 def orient_and_describe(img_blur: torch.Tensor, xy: torch.Tensor):
-    """CPU tensor -> plain version; CUDA tensor -> kernel 2 (or raise)."""
-    if img_blur.dim() != 2 or xy.dim() != 2 or xy.shape[1] != 2:
-        raise ValueError("orient_and_describe: expects [H, W] and [K, 2]")
+    """[H, W] bf16 level and [K, 2] keypoints, or a [B, H, W] stack and [B,
+    K, 2] -> (angle, desc). CPU tensor -> plain version; CUDA tensor ->
+    kernel 2, one launch (its batch entry for a stack), or raise."""
+    nd = img_blur.dim()
+    if nd not in (2, 3) or xy.dim() != nd or xy.shape[-1] != 2 \
+            or xy.shape[:-2] != img_blur.shape[:-2] or img_blur.shape[0] < 1:
+        raise ValueError("orient_and_describe: expects [H, W] and [K, 2], or [B, H, W] and "
+                         "[B, K, 2]")
     if img_blur.device.type == "cpu":
         return orient_and_describe_plain(img_blur, xy)
     kernels.check_dtype("orient_and_describe", img_blur, torch.bfloat16)
     kernels.check_dtype("orient_and_describe", xy, torch.float32)
     dev = kernels.check_cuda("orient_and_describe", img_blur, xy)
-    h, w = img_blur.shape
+    h, w = img_blur.shape[-2:]
     if h < PATCH + 2 or w < PATCH + 2:
         raise ValueError("orient_and_describe: level smaller than a patch")
-    k = xy.shape[0]
-    angle = torch.empty((k,), dtype=torch.float32, device=dev)
-    desc = torch.empty((k, 8), dtype=torch.int32, device=dev)
+    lead, k = xy.shape[:-2], xy.shape[-2]
+    angle = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
+    desc = torch.empty(lead + (k, 8), dtype=torch.int32, device=dev)
     if k == 0:
         return angle, desc
     tables = _tables_on(dev)
-    kernels.launch("orb_describe", kernels.ptr(img_blur), h, w, kernels.ptr(xy), k,
-                   kernels.ptr(tables), kernels.ptr(angle), kernels.ptr(desc))
+    outs = (kernels.ptr(xy), k, kernels.ptr(tables), kernels.ptr(angle), kernels.ptr(desc))
+    if nd == 2:
+        kernels.launch("orb_describe", kernels.ptr(img_blur), h, w, *outs)
+    else:
+        kernels.launch("orb_describe_batch", kernels.ptr(img_blur), img_blur.shape[0], h, w,
+                       *outs)
     return angle, desc
 
 

@@ -12,6 +12,13 @@ points, both checked against the JAX package on the CPU:
 - `blur` sums 7 rolled taps one after another in bf16, with the tap
   weights themselves rounded to bf16 (a Python-float weight times a bf16
   array is a bf16 product in JAX). Rolls wrap at the borders.
+
+The pyramid functions also take a [B, H, W] stack of frames (the
+data-parallel frontend): each frame's resize is its own 2D matmul, as a
+single frame's is, so the BLAS picks the same product and the levels are
+bit-equal to the frame's own (a batched product may block its float32
+sums otherwise); the blur's rolls, products and sums run over the whole
+stack at once (elementwise: bit-equal).
 """
 
 from __future__ import annotations
@@ -70,7 +77,10 @@ def _bf16_weights(m: int, n: int, device) -> torch.Tensor:
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
-    """bf16 [H, W] -> bf16 `shape`, rows contracted first."""
+    """bf16 [H, W] -> bf16 `shape`, rows contracted first (a [B, H, W]
+    stack frame by frame)."""
+    if img.dim() == 3:
+        return torch.stack([resize_bilinear(f, shape) for f in img])
     h, w = img.shape
     wr = _bf16_weights(h, shape[0], img.device)      # [H, h']
     wc = _bf16_weights(w, shape[1], img.device)      # [W, w']
@@ -79,24 +89,25 @@ def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
 
 
 def blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor:
-    """Separable 7-tap Gaussian via rolled adds, every op rounded to the
-    image dtype (bf16 on the main path)."""
+    """Separable 7-tap Gaussian via rolled adds over the last two axes
+    ([H, W] or a [B, H, W] stack), every op rounded to the image dtype
+    (bf16 on the main path)."""
     k = gaussian_kernel1d(sigma, radius)
     wts = [torch.tensor(float(w), dtype=img.dtype, device=img.device) for w in k]
     x = torch.zeros_like(img)
     for i, w in enumerate(wts):
-        x = x + w * torch.roll(img, i - radius, dims=0)
+        x = x + w * torch.roll(img, i - radius, dims=-2)
     y = torch.zeros_like(img)
     for i, w in enumerate(wts):
-        y = y + w * torch.roll(x, i - radius, dims=1)
+        y = y + w * torch.roll(x, i - radius, dims=-1)
     return y
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int = 8,
                   scale_factor: float = 1.2) -> List[torch.Tensor]:
-    """Grayscale [H, W] -> list of per-level images, each resized from
-    the previous one."""
-    h, w = img.shape
+    """Grayscale [H, W] (or a [B, H, W] stack) -> list of per-level images,
+    each resized from the previous one."""
+    h, w = img.shape[-2:]
     shapes = level_shapes(h, w, n_levels, scale_factor)
     levels = [img]
     for lv in range(1, n_levels):

@@ -6,8 +6,11 @@ BA's solver (kernel 12, optim/local_ba.py) at a wider shape, 64
 keyframes, 16384 points and 1024 lines per window, every valid keyframe
 free but keyframe 0. A map of more than one window is swept in
 overlapping tiles, each anchored by a fixed frontier of already
-optimized keyframes, GBA_SWEEPS times. The sharded form (`mesh`) belongs
-to the multi-device slice (ROADMAP.md queue 1 item 17).
+optimized keyframes, GBA_SWEEPS times. With a `mesh` of more than one
+shard (parallel/mesh.py) each window runs the landmark-sharded engine
+(parallel/dist_ba.py `shard_bundle_adjust`, the reference's `_shard_ba`,
+global_ba.py:56), as the reference does for a mesh of more than one
+device (:75-76).
 """
 
 from __future__ import annotations
@@ -25,8 +28,6 @@ GBA_MAX_LN = 1024
 GBA_FRONTIER = 8   # fixed anchor keyframes at the head of each later tile
 GBA_SWEEPS = 2     # full passes over the tiling
 
-_MESH = "sharded global BA is not ported yet: ROADMAP.md queue 1 item 17"
-
 
 def _gather_window(state: MapState, lo: int, n_kf: int, cfg: SLAMConfig,
                    frontier: int = 0, kl: int = GBA_MAX_KF):
@@ -43,12 +44,17 @@ def _gather_window(state: MapState, lo: int, n_kf: int, cfg: SLAMConfig,
                                 n_ln_cap=GBA_MAX_LN)
 
 
-def _run_window(state, lo, n_kf, intr, cfg, frontier, metrics, kl=GBA_MAX_KF):
+def _run_window(state, lo, n_kf, intr, cfg, frontier, mesh, metrics, kl=GBA_MAX_KF):
     from structure_slam_pointline_tpu_torch.models import local_mapping as lm
 
     prob, lines, local_kf, local_mp, local_ln, n_drop = _gather_window(
         state, lo, n_kf, cfg, frontier=frontier, kl=kl)
-    result = local_ba.bundle_adjust(prob, intr, cfg.optim, lines=lines)
+    if mesh is not None and mesh.size > 1:
+        from structure_slam_pointline_tpu_torch.parallel import dist_ba
+
+        result = dist_ba.shard_bundle_adjust(mesh, prob, intr, cfg.optim, lines=lines)
+    else:
+        result = local_ba.bundle_adjust(prob, intr, cfg.optim, lines=lines)
     if metrics is not None:
         metrics.count("gba_windows")
         metrics.count("landmarks_clipped", int(n_drop))
@@ -61,18 +67,16 @@ def global_bundle_adjust(state: MapState, n_kf: int, intr: Intrinsics, cfg: SLAM
     """Points and line endpoints over every keyframe, written back into the
     map. Past `max_kf` keyframes, overlapping tiles (stride max_kf -
     frontier) are swept GBA_SWEEPS times."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     n_kf = int(n_kf)
     if n_kf <= max_kf:
-        return _run_window(state, 0, n_kf, intr, cfg, 0, metrics, kl=max_kf)
+        return _run_window(state, 0, n_kf, intr, cfg, 0, mesh, metrics, kl=max_kf)
     frontier = min(frontier, max_kf - 1)
     stride = max_kf - frontier
     for _sweep in range(GBA_SWEEPS):
         lo = 0
         while lo < n_kf:
             f = 0 if lo == 0 else frontier
-            state = _run_window(state, lo, n_kf, intr, cfg, f, metrics, kl=max_kf)
+            state = _run_window(state, lo, n_kf, intr, cfg, f, mesh, metrics, kl=max_kf)
             if lo + max_kf >= n_kf:
                 break
             lo = min(lo + stride, n_kf - max_kf)

@@ -104,7 +104,18 @@ def levels(cuda):
     return lv, bl
 
 
-def test_fast_nms_matches_plain(levels):
+def test_point_frontend_kernels_match_plain(levels, octaves):
+    """Kernels 1 (FAST + NMS) and 2 (ORB) on every level of one bench
+    frame; kernel 11 on the ORB levels at 1024 and 2048 keypoints and as
+    the LSD anchor selection of both octaves."""
+    _check_fast_nms(levels)
+    _check_orb(levels)
+    for n_kp in (1024, 2048):
+        _check_kp_select(levels, n_kp)
+    _check_kp_select_lsd_anchors(octaves)
+
+
+def _check_fast_nms(levels):
     before = kernels.COUNTS["fast_nms"]
     for lv in levels[0]:
         raw_k, nms_k = fast.fast_score_nms(lv)
@@ -115,7 +126,7 @@ def test_fast_nms_matches_plain(levels):
     assert kernels.COUNTS["fast_nms"] == before + len(levels[0])
 
 
-def test_orb_matches_plain(levels):
+def _check_orb(levels):
     g = np.random.default_rng(0)
     for bl in levels[1]:
         h, w = bl.shape
@@ -132,7 +143,14 @@ def _descs(g, n):
     return torch.tensor(g.integers(-2 ** 31, 2 ** 31, (n, 8)), dtype=torch.int32)
 
 
-def test_hamming_best2_matches_plain(cuda):
+def test_tracking_kernels_match_plain(cuda):
+    """Kernel 3 (Hamming best / second) and kernel 4 (pose LM)."""
+    _check_hamming_best2(cuda)
+    for line_weight in (0.0, 1.0):
+        _check_pose_lm(cuda, line_weight)
+
+
+def _check_hamming_best2(cuda):
     """Kernel 3 at four [M, N] shapes, then batched ([4, 1024, 1024] and
     one query set against a batch)."""
     for shape in [(2048, 1024), (2048, 2048), (5, 1), (37, 700)]:
@@ -160,13 +178,8 @@ def test_hamming_best2_matches_plain(cuda):
             assert torch.equal(x.cpu(), y), f"hamming_best2 batched {tuple(aa.shape)}: output {i}"
 
 
-def test_pose_lm_matches_plain(cuda):
-    """Kernel 4 with line weight 0 (the main path) and 1 (line rows on)."""
-    for line_weight in (0.0, 1.0):
-        _check_pose_lm(cuda, line_weight)
-
-
 def _check_pose_lm(cuda, line_weight):
+    """Kernel 4 with line weight 0 (the main path) and 1 (line rows on)."""
     g = np.random.default_rng(int(line_weight) + 11)
     intr = Intrinsics.from_config(CameraConfig(fy=480.0))
     N, M = 2048, 256
@@ -211,10 +224,11 @@ def octaves(cuda):
 
 def test_line_kernels_match_plain(octaves):
     """Kernels 5 (LSD dense support), 6 (LSD refinement) and 7 (LBD) on
-    both octaves of one bench frame."""
+    both octaves of one bench frame; kernel 8 (atan2)."""
     _check_lsd_support(octaves)
     _check_lsd_refine(octaves)
     _check_lbd(octaves)
+    _check_atan2(octaves[0].device)
 
 
 def _check_lsd_support(octaves):
@@ -273,7 +287,7 @@ def _check_lbd(octaves):
     assert same >= 0.99 and err <= 1e-5, f"lbd_describe: words equal {same}, err {err}"
 
 
-def test_atan2_matches_plain(cuda):
+def _check_atan2(cuda):
     g = np.random.default_rng(9)
     y = (g.normal(size=20000) * np.exp(g.normal(size=20000) * 3)).astype(np.float32)
     x = (g.normal(size=20000) * np.exp(g.normal(size=20000) * 3)).astype(np.float32)
@@ -293,14 +307,6 @@ def _assert_selection_equal(out_k, out_p, what):
         assert torch.equal(vk, vp), f"kp_select {what} level {lv}: valid"
         assert torch.equal(rk[vk], rp[vp]), f"kp_select {what} level {lv}: resp"
         assert torch.equal(xk[vk], xp[vp]), f"kp_select {what} level {lv}: xy"
-
-
-def test_kp_select_matches_plain(levels, octaves):
-    """Kernel 11 on the ORB levels at 1024 and 2048 keypoints, and as the
-    LSD anchor selection of both octaves."""
-    for n_kp in (1024, 2048):
-        _check_kp_select(levels, n_kp)
-    _check_kp_select_lsd_anchors(octaves)
 
 
 def _check_kp_select(levels, n_kp):
@@ -343,7 +349,7 @@ def _obs_grid(g, K=256, F=2048, P=32768):
     return torch.from_numpy(grid)
 
 
-def test_obs_bits_and_votes_match_plain(cuda):
+def _check_obs_bits_and_votes(cuda):
     g = np.random.default_rng(5)
     kf = _obs_grid(g)
     K, P = kf.shape[0], 32768
@@ -361,9 +367,11 @@ def test_obs_bits_and_votes_match_plain(cuda):
     assert v_k.sum().item() > 0
 
 
-def test_null_vector4_matches_plain(cuda):
-    """Kernel 10 and its eigensolver entry; kernels 20 and 21, the
-    landmark-space duplicate searches (fuse3d_problem)."""
+def test_map_kernels_match_plain(cuda):
+    """Kernel 9 (observer bits and votes); kernel 10 and its eigensolver
+    entry; kernels 20 and 21, the landmark-space duplicate searches
+    (fuse3d_problem)."""
+    _check_obs_bits_and_votes(cuda)
     g = np.random.default_rng(6)
     A = g.normal(size=(12, 2048, 4, 4)).astype(np.float32)
     A[:, :64, 3] = A[:, :64, 2] * 1.0001      # near rank-deficient systems
@@ -558,6 +566,106 @@ def _check_local_ba(cuda, with_lines):
             f"{what}: line masks"
 
 
+def test_sharded_and_batched_kernels_match_plain(cuda):
+    """Kernel 12's sharded form on a 4-shard mesh of the card (16
+    keyframes, 2049 points and 257 lines padded to 2052 / 260, so every
+    shard holds landmarks, and points only), against its sharded plain
+    version and the unsharded kernel; kernels 1, 11 and 2's batch entries
+    on a stack of three bench frames against the single-frame entries and
+    the plain versions, and `extract_orb` of the stack against each frame's."""
+    for with_lines in (True, False):
+        _check_local_ba_sharded(cuda, with_lines)
+    _check_batched_frontend(cuda)
+
+
+def _check_local_ba_sharded(cuda, with_lines):
+    from structure_slam_pointline_tpu_torch.parallel import dist_ba
+    from structure_slam_pointline_tpu_torch.parallel.mesh import edge_mesh
+
+    what = f"local_ba_shard ({'lines' if with_lines else 'points only'})"
+    prob, lines, intr = ba_problem(PL=2049, LL=257)
+    prob = _to(dist_ba._pad_landmarks(prob, 4), cuda)
+    lines = _to(dist_ba._pad_lines(lines, 4), cuda) if with_lines else None
+    mesh = edge_mesh(4, device=cuda)
+    cfg = OptimConfig()
+    torch.cuda.synchronize()
+    before = kernels.COUNTS["local_ba_shard"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rk = local_ba.bundle_adjust_sharded(prob, intr, cfg, lines, mesh)
+        rk2 = local_ba.bundle_adjust_sharded(prob, intr, cfg, lines, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.COUNTS["local_ba_shard"] == before + 2 * (4 * 65 + 20), f"{what}: launches"
+    rp = local_ba.bundle_adjust_sharded_plain(prob, intr, cfg, lines, mesh)
+    ru = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
+    for a, b in zip(rk, rk2):
+        if a is not None:
+            assert torch.equal(a, b), f"{what}: two launches differ"   # fixed-order sums
+    for ref, name in ((rp, "sharded plain"), (ru, "unsharded kernel")):
+        for a, b in ((rk.kf_T_cw, ref.kf_T_cw), (rk.mp_xyz, ref.mp_xyz),
+                     (rk.ln_start, ref.ln_start), (rk.ln_end, ref.ln_end)):
+            if a is not None:
+                assert (a - b).abs().max().item() <= 1e-3, f"{what} against the {name}"
+        assert (rk.edge_inlier == ref.edge_inlier).float().mean().item() >= 0.995, what
+        if with_lines:
+            assert (rk.line_inlier == ref.line_inlier).float().mean().item() >= 0.995, what
+    assert rk.edge_inlier.sum().item() > 0.8 * prob.edge_valid.sum().item(), f"{what}: inliers"
+
+
+def _check_batched_frontend(cuda):
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    poses = synthetic.circular_trajectory(610, radius=0.5)
+    imgs = torch.from_numpy(np.stack([synthetic.render(scene, poses[i], cam, noise=2.0, seed=i)
+                                      for i in (40, 41, 90)])).to(cuda)
+    fe = FrontendConfig()
+    levels, blurred = pyramid.build_blurred_pyramid(imgs.to(torch.bfloat16))
+    for b in range(3):
+        lv1, bl1 = pyramid.build_blurred_pyramid(imgs[b].to(torch.bfloat16))
+        for x, y in zip(levels + blurred, lv1 + bl1):
+            assert torch.equal(x[b], y), "the batched pyramid differs"
+    score_raw = []
+    before = dict(kernels.COUNTS)
+    for lv in levels:
+        raw, nms = fast.fast_score_nms(lv)
+        raw_p, nms_p = fast.fast_score_nms_plain(lv)
+        assert torch.equal(raw, raw_p) and torch.equal(nms, nms_p), "fast_nms_batch"
+        for b in range(3):
+            r1, n1 = fast.fast_score_nms(lv[b])
+            assert torch.equal(raw[b], r1) and torch.equal(nms[b], n1), "fast_nms_batch"
+        score_raw.append((nms, raw))
+    ks = extract.level_budgets(fe.n_keypoints, fe.n_levels, fe.scale_factor)
+    kw = dict(cell=fe.cell_size, cell_cap=8, threshold=fe.fast_threshold,
+              min_threshold=fe.fast_min_threshold, border=orb.PATCH_RADIUS + 1)
+    sel = fast.select_keypoints_levels(score_raw, ks, **kw)
+    sel_p = fast.select_keypoints_levels_plain(score_raw, ks, **kw)
+    for b in range(3):
+        one = fast.select_keypoints_levels([(n[b], r[b]) for n, r in score_raw], ks, **kw)
+        for lvl, ((xk, rk, vk), (x1, r1, v1)) in enumerate(zip(sel, one)):
+            assert torch.equal(xk[b], x1) and torch.equal(rk[b], r1) \
+                and torch.equal(vk[b], v1), f"kp_select_batch frame {b} level {lvl}"
+        _assert_selection_equal([(x[b], r[b], v[b]) for x, r, v in sel],
+                                [(x[b], r[b], v[b]) for x, r, v in sel_p], f"batch frame {b}")
+    for (xy, _, _), bl in zip(sel, blurred):
+        xy = xy.contiguous()
+        ak, dk = orb.orient_and_describe(bl, xy)
+        ap, dp = orb.orient_and_describe_plain(bl, xy)
+        for b in range(3):
+            a1, d1 = orb.orient_and_describe(bl[b], xy[b])
+            assert torch.equal(ak[b], a1) and torch.equal(dk[b], d1), "orb_describe_batch"
+        assert (dk == dp).all(-1).float().mean().item() >= 0.995, "orb_describe_batch"
+        assert (ak - ap).abs().max().item() <= 1e-4, "orb_describe_batch"
+    n = len(levels)
+    for name, per in (("fast_nms_batch", n), ("kp_select_batch", 2), ("orb_describe_batch", n)):
+        assert kernels.COUNTS[name] - before[name] == per, f"{name}: launch count"
+    kb = extract.extract_orb(imgs, fe)
+    for b in range(3):
+        k1 = extract.extract_orb(imgs[b], fe)
+        for f in k1._fields:
+            assert torch.equal(getattr(kb, f)[b], getattr(k1, f)), f"extract_orb of a stack: {f}"
+
+
 def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     """A CUDA tensor of the wrong dtype raises instead of falling back, and
     the wrappers of kernels 9-21 (and kernels 5-6 through `detect_lines` at
@@ -589,7 +697,9 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (pose_graph, "optimize_sim3_pair_plain"),
                       (pose_graph, "optimize_pose_graph_plain"),
                       (compact, "compact_points_plain"), (compact, "compact_lines_plain"),
-                      (compact, "compact_keyframes_plain")):
+                      (compact, "compact_keyframes_plain"),
+                      (local_ba, "bundle_adjust_sharded_plain"),
+                      (fast, "fast_score_nms_plain"), (orb, "orient_and_describe_plain")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -598,6 +708,12 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         16, dtype=torch.bool, device=cuda), st.kf_valid)
     prob, lines, intr = ba_problem(KL=4, PL=64, LL=8, F=128, LF=16)
     local_ba.bundle_adjust(_to(prob, cuda), intr, OptimConfig(), lines=_to(lines, cuda))
+    from structure_slam_pointline_tpu_torch.parallel.mesh import edge_mesh
+
+    local_ba.bundle_adjust_sharded(_to(prob, cuda), intr, OptimConfig(), _to(lines, cuda),
+                                   edge_mesh(2, device=cuda))
+    extract.extract_orb(torch.rand((2, 96, 128), device=cuda) * 255, FrontendConfig(
+        n_keypoints=64, n_levels=2))
     voc, desc, valid = bow_problem(n_sets=2, n=64)
     _, vec = bow.transform(voc, desc.to(cuda), valid.to(cuda))
     bow.query_database(vec[0], vec, torch.ones(2, dtype=torch.bool, device=cuda))
