@@ -143,7 +143,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
    graph against torch.linalg.solve of its assembled system
    (library_ms), local BA (16 and 64 keyframes, and its sharded form)
    against torch.linalg.solve of its first iteration's reduced camera
-   system over the free cameras' rows (the solve alone). Phase 2g's shapes:
+   system over the free cameras' rows (the solve alone). The dense solver
+   that kernels 12 and 18 share (csrc/dense_lu.cuh) is also driven alone
+   through its `dense_solve` entry on those three systems (the window's,
+   64 keyframes', the pose graph's at its capacity's panel width; counters
+   zeroed around the three calls): the same pivot rows as its plain
+   version, x within 1e-5 of the largest |x|, the backward error within
+   10x of torch.linalg.solve's, each timed beside torch.linalg.solve; the
+   device time of kernel 12's solve launches is split out at the window
+   and at 64 keyframes (`split`). Phase 2g's shapes:
    kernel 12's sharded form against its sharded plain version (poses and
    landmarks within 1e-3, masks >= 99.5%, two launches bit-identical, one
    call under set_sync_debug_mode("error")) at the main path's window and
@@ -291,6 +299,10 @@ KERNELS = {
                         "structure_slam_pointline_tpu_torch/csrc/kp_select.cu"),
     "orb_describe_batch": ("structure_slam_pointline_tpu/parallel/batch_frontend.py:36",
                            "structure_slam_pointline_tpu_torch/csrc/orb.cu"),
+    # the solver of kernels 12 and 18 alone (local_ba.cu's `dense_solve`
+    # entry): the reference's jnp.linalg.solve there (and pose_graph.py:111)
+    "dense_solve": ("structure_slam_pointline_tpu/optim/local_ba.py:477",
+                    "structure_slam_pointline_tpu_torch/csrc/dense_lu.cuh"),
 }
 # table rows that time one kernel at another path's shape: row -> (kernel,
 # the JAX lines that shape replaces)
@@ -302,10 +314,13 @@ LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph")
 DATASET_KERNELS = ("compact",)   # runs only when a pool passes its trigger (phase 2e)
 # no path calls these, in either package: phase 3 drives their entry points
 UNCALLED_KERNELS = ("fuse_points_3d", "fuse_lines_3d", "jacobi_eigh4")
+# the paths reach the dense solver through kernels 12 and 18; its own entry
+# is driven on their systems in phase 3
+SOLVER_KERNELS = ("dense_solve",)
 # the sharded path's kernels (phase 2g): on a mesh, and in the batched frontend
 MESH_KERNELS = ("local_ba_shard",)
 BATCH_KERNELS = ("fast_nms_batch", "kp_select_batch", "orb_describe_batch")
-OFF_MAIN_PATH = (RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS + UNCALLED_KERNELS
+OFF_MAIN_PATH = (RELOC_KERNELS + LOOP_KERNELS + DATASET_KERNELS + UNCALLED_KERNELS + SOLVER_KERNELS
                  + MESH_KERNELS + BATCH_KERNELS)
 FP64_OPS_PER_S = 34e12   # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 # per RANSAC PnP hypothesis, a floor for its float64 work: the least a
@@ -2351,6 +2366,80 @@ def main() -> int:
               f"{b_rows} residual rows")
 
     print(f"[time] local_ba at 64 keyframes done at {time.time() - t_start:.0f} s", flush=True)
+    # the dense solver of kernels 12 and 18 alone (csrc/dense_lu.cuh, local_ba.cu's
+    # `dense_solve` entry) on the three systems above: the window's and 64
+    # keyframes' first reduced camera systems over the free cameras, and the
+    # pose graph's first normal equations over the free vertices at its
+    # capacity's panel width; the entry driven once on each with the counters
+    # zeroed around the three calls. Each against its plain version (the same
+    # pivot rows, x within 1e-5 of the largest |x|) and torch.linalg.solve
+    # (the backward error |Ax - b| / (|A| |x| + |b|), infinity norms, within
+    # 10x of the library's); timed beside both
+    dense_sys = {"window": (lib_A, lib_b, lib_A.shape[0]),
+                 "kl64": (l64_A, l64_b, l64_A.shape[0]),
+                 "pose_graph": (Hf, bf, 7 * K_g)}
+    dense_ab = {k: (torch.cat([A_, b_[:, None]], 1).contiguous(), cap)
+                for k, (A_, b_, cap) in dense_sys.items()}
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    dense_out = {k: linalg.dense_solve(ab, cap) for k, (ab, cap) in dense_ab.items()}
+    torch.cuda.synchronize()
+    counts_dense = dict(kernels.COUNTS)
+    if counts_dense["dense_solve"] != len(dense_sys):
+        fail(f"dense_solve: {counts_dense['dense_solve']} launches for {len(dense_sys)} systems")
+
+    def backward_error(A_, b_, x_):
+        A_, b_, x_ = A_.double(), b_.double(), x_.double()
+        return ((A_ @ x_ - b_).abs().max() / (A_.abs().sum(1).max() * x_.abs().max()
+                                              + b_.abs().max())).item()
+
+    dense_rows = {}
+    for key, (A_, b_, cap) in dense_sys.items():
+        ab, _ = dense_ab[key]
+        n_ = A_.shape[0]
+        xk, pk = dense_out[key]
+        nb_ = linalg.dense_panel_width(cap)
+        xp, pp = linalg.lu_solve_blocked_plain(ab, n_, nb_)
+        xl = torch.linalg.solve(A_, b_)
+        err = (xk - xp).abs().max().item()
+        be, be_lib = backward_error(A_, b_, xk), backward_error(A_, b_, xl)
+        print(f"[check] dense_solve {key}: n {n_}, panels of {nb_}, pivots equal "
+              f"{torch.equal(pk, pp)}, x err {err:.3e} (bit-equal {torch.equal(xk, xp)}), "
+              f"backward error {be:.3e} vs torch.linalg.solve {be_lib:.3e}", flush=True)
+        if not torch.equal(pk, pp) or err > 1e-5 * xp.abs().max().item() or be > 10 * be_lib:
+            fail(f"dense_solve disagrees on the {key} system: pivots equal "
+                 f"{torch.equal(pk, pp)}, x err {err:.2e}, backward error {be:.2e} vs {be_lib:.2e}")
+        dense_rows[key] = dict(
+            n=n_, panel=nb_, max_abs_err=err, bit_equal=torch.equal(xk, xp),
+            backward_error=be, library_backward_error=be_lib,
+            **timings(lambda: linalg.dense_solve(ab, cap),
+                      lambda: linalg.lu_solve_blocked_plain(ab, n_, nb_),
+                      expect="dense_solve_kernel"),
+            library_ms=device_ms(lambda: torch.linalg.solve(A_, b_)),
+            library_wall_ms=time_ms(lambda: torch.linalg.solve(A_, b_)),
+            bytes=(n_ * (n_ + 1) + 2 * n_) * 4, ops=2 * n_ ** 3 // 3 + 2 * n_ ** 2)
+        d = dense_rows[key]
+        print(f"[solve] {key} [{n_}, {n_ + 1}]: device dense_solve {d['ms']:.4f} ms, "
+              f"torch.linalg.solve {d['library_ms']:.4f} ms | caller {d['wall_ms']:.4f} ms, "
+              f"{d['library_wall_ms']:.4f} ms", flush=True)
+    head = dense_rows["kl64"]
+    rows.append(dict(
+        name="dense_solve", **{k: head[k] for k in ("ms", "plain_ms", "wall_ms", "plain_wall_ms",
+                                                  "library_ms", "library_wall_ms", "bytes", "ops")},
+        max_abs_err=max(r["max_abs_err"] for r in dense_rows.values()),
+        library_shape=f"torch.linalg.solve of the same [{head['n']}, {head['n']}] system",
+        systems={k: {q: v for q, v in r.items() if q not in ("bytes", "ops")}
+                 | {"bound_ms": max(r["bytes"] / HBM_BYTES_PER_S,
+                                    r["ops"] / CUDA_CORE_OPS_PER_S) * 1e3}
+                 for k, r in dense_rows.items()},
+        shape=f"[{head['n']}, {head['n'] + 1}] (64 keyframes' reduced camera system); the "
+              f"window's [{dense_rows['window']['n']}] and the pose graph's "
+              f"[{dense_rows['pose_graph']['n']}] in `systems`"))
+    ba_row["kl64"]["split"] = shard_split(
+        lambda: local_ba.bundle_adjust(bprob, bintr, bocfg, **bkw))
+    print(f"[split] local_ba window {ba_row['split']} | 64 keyframes {ba_row['kl64']['split']}",
+          flush=True)
+    print(f"[time] dense_solve done at {time.time() - t_start:.0f} s", flush=True)
     # kernel 12's sharded form (phase 2g's shapes: the main path's window on
     # the mesh, global BA's 64 keyframes): poses and landmarks within 1e-3 of
     # the sharded plain version, masks on >= 99.5% of edges; the window
@@ -2689,7 +2778,8 @@ def main() -> int:
                     counts_reloc if kernel in RELOC_KERNELS else
                     counts_loop if kernel in LOOP_KERNELS else
                     counts_2e if kernel in DATASET_KERNELS else
-                    counts_uncalled if kernel in UNCALLED_KERNELS else counts)[kernel]
+                    counts_uncalled if kernel in UNCALLED_KERNELS else
+                    counts_dense if kernel in SOLVER_KERNELS else counts)[kernel]
         table.append({
             "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -2699,7 +2789,7 @@ def main() -> int:
             "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("frame_wall_ms", "frame_plain_wall_ms", "library_wall_ms",
                                  "library_shape", "split", "votes", "kl64", "loop_shapes",
-                                 "passes", "plain_timed")
+                                 "passes", "plain_timed", "systems")
                if k in r}})
         print(f"[kernel] {r['name']}: {r['shape']} | device: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms | caller: kernel {r['wall_ms']:.4f} ms, "

@@ -24,21 +24,24 @@
 //                same step). Each of 49 threads owns one entry of a 7x7
 //                block and walks the edge list in order: no atomics, the
 //                same sums on every run. The damping lambda I is added last.
-//   pg_solve     one block: LU with partial pivoting (first row on ties) of
-//                the [7 n_free, 7 n_free + 1] augmented system in global
-//                memory (L2-resident: 0.65 MB at 57 keyframes, 12.8 MB at the
-//                256-keyframe capacity), back substitution, then
-//                S_new = sim3_exp(dx) S for every vertex (dx = 0 off the free
-//                set, so S_new = S there exactly).
+//   pg_solve     one thread-block cluster (dense_lu.cuh): blocked LU with
+//                partial pivoting (first row on ties) of the [7 n_free,
+//                7 n_free + 1] augmented system in global memory (L2-
+//                resident: 0.65 MB at 57 keyframes, 12.8 MB at the
+//                256-keyframe capacity) and back substitution, then rank 0
+//                forms S_new = sim3_exp(dx) S for every vertex (dx = 0 off
+//                the free set, so S_new = S there exactly). The cluster is
+//                sized for the capacity; n_free is read on the device.
 //   pg_cost      one thread per edge: w |r|^2 at S_new and at S.
 //   pg_decide    one block: both sums in a fixed order, accept / reject,
 //                lambda update.
 // n_free lives on the device, so the wrapper never synchronizes.
 //
-// Bound on the card: operations. The solve is (7 n_free)^3 / 3
-// multiply-adds (2 x 10^7 at 57 keyframes) on ONE block, which sets the
-// time; the edge passes are ~10^4 operations per edge and lane. Spreading
-// the factorization over the card is later work.
+// Bound on the card: operations. The solve is 2 (7 n_free)^3 / 3 flops
+// (2 x 10^7 at 51 free keyframes, 0.3 us at 67 TFLOP/s); the edge passes
+// are ~10^4 operations per edge and lane. What sets the time is the
+// solve's chain of dependent pivot steps, which dense_lu.cuh keeps in
+// shared memory while the cluster updates the trailing matrix.
 //
 // Built with -fmad=false.
 
@@ -46,12 +49,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dense_lu.cuh"
 #include "sim3.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int LANES = 14;
-constexpr int SOLVE_THREADS = 1024;
 constexpr int DECIDE_THREADS = 256;
 
 struct PG {
@@ -69,7 +74,7 @@ struct PG {
   float* r;            // [E, 7]
   float* J;            // [E, 7, 14] d r / d (xi_i, xi_j)
   float* H;            // [7K (7K + 1)] augmented system, row stride 7 n_free + 1
-  float* x;            // [7K]
+  int* piv;            // [7K] the solve's pivot rows
   float* cost;         // [E, 2] at S_new, at S
   float* lam;          // [1]
 };
@@ -154,60 +159,16 @@ __global__ void pg_assemble_kernel(PG P) {
   if (t < 7) rows[(size_t)t * ld + n] = -rhs;
 }
 
-__global__ void __launch_bounds__(SOLVE_THREADS) pg_solve_kernel(PG P) {
-  __shared__ int piv;
-  const int n = 7 * P.nfree[0], ld = n + 1;
-  float* Hm = P.H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = 0; c < n; ++c) {
-    if (warp == 0) {
-      float best = -1.f;
-      int bi = n;
-      for (int r = c + lane; r < n; r += 32) {
-        const float a = fabsf(Hm[(size_t)r * ld + c]);
-        if (a > best) { best = a; bi = r; }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
-      }
-      if (lane == 0) piv = bi;
-    }
-    __syncthreads();
-    const int pr = piv;
-    if (pr != c)
-      for (int col = c + threadIdx.x; col <= n; col += SOLVE_THREADS) {
-        const float tmp = Hm[(size_t)c * ld + col];
-        Hm[(size_t)c * ld + col] = Hm[(size_t)pr * ld + col];
-        Hm[(size_t)pr * ld + col] = tmp;
-      }
-    __syncthreads();
-    const float pivot = Hm[(size_t)c * ld + c];
-    for (int r = c + 1 + threadIdx.x; r < n; r += SOLVE_THREADS)
-      Hm[(size_t)r * ld + c] = Hm[(size_t)r * ld + c] / pivot;
-    __syncthreads();
-    const int cols = n - c;   // columns c+1 .. n (the right side included)
-    const long long total = (long long)(n - c - 1) * cols;
-    for (long long idx = threadIdx.x; idx < total; idx += SOLVE_THREADS) {
-      const int r = c + 1 + (int)(idx / cols), cc = c + 1 + (int)(idx % cols);
-      Hm[(size_t)r * ld + cc] -= Hm[(size_t)r * ld + c] * Hm[(size_t)c * ld + cc];
-    }
-    __syncthreads();
-  }
-  if (warp == 0) {
-    for (int r = n - 1; r >= 0; --r) {
-      float s = 0.f;
-      for (int cc = r + 1 + lane; cc < n; cc += 32) s += Hm[(size_t)r * ld + cc] * P.x[cc];
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) P.x[r] = (Hm[(size_t)r * ld + n] - s) / Hm[(size_t)r * ld + r];
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int v = threadIdx.x; v < P.K; v += SOLVE_THREADS) {
+template <int NB>
+__global__ void __launch_bounds__(dense_lu::THREADS) pg_solve_kernel(PG P) {
+  extern __shared__ float dyn[];
+  const int n = 7 * P.nfree[0];
+  dense_lu::solve<NB>(P.H, n, P.piv, 7 * P.K, dyn);
+  if (cg::this_cluster().block_rank() != 0) return;
+  const float* x = dyn;   // the solve leaves x there
+  for (int v = threadIdx.x; v < P.K; v += dense_lu::THREADS) {
     float d[7], E[12], S[12], Sn[12];
-    for (int q = 0; q < 7; ++q) d[q] = P.free[v] ? P.x[7 * P.pos[v] + q] : 0.f;
+    for (int q = 0; q < 7; ++q) d[q] = P.free[v] ? x[7 * P.pos[v] + q] : 0.f;
     sim3::sim3_exp(d, E);
     load_sim3(P.S + 16 * (size_t)v, S);
     sim3::sim3_mul(E, S, Sn);
@@ -271,6 +232,7 @@ int blocks(long long n, int threads) { return (int)((n + threads - 1) / threads)
 }  // namespace
 
 // the five launches of one LM iteration, each its own entry point
+// (pg_solve's below: a cluster launch)
 #define PG_ENTRY(name, grid, threads)                                  \
   extern "C" int sspl_##name(const void* pg, void* stream) {           \
     const PG& P = *(const PG*)pg;                                      \
@@ -281,6 +243,21 @@ int blocks(long long n, int threads) { return (int)((n + threads - 1) / threads)
 
 PG_ENTRY(pg_jacobians, blocks((long long)P.E * LANES, 128), 128)
 PG_ENTRY(pg_assemble, P.K, 64)
-PG_ENTRY(pg_solve, 1, SOLVE_THREADS)
 PG_ENTRY(pg_cost, blocks(P.E, 128), 128)
 PG_ENTRY(pg_decide, 1, DECIDE_THREADS)
+
+// the panel width that fits the capacity's strip in shared memory: 32, or
+// 16 past ~1400 rows (the 256-keyframe capacity: 1792)
+extern "C" int sspl_pg_solve(const void* pg, void* stream) {
+  const PG& P = *(const PG*)pg;
+  if (P.K < 1 || P.E < 1) return (int)cudaErrorInvalidValue;
+  const int cap = 7 * P.K;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (dense_lu::panel_width(cap)) {
+    case 32:
+      return (int)dense_lu::launch(pg_solve_kernel<32>, dense_lu::smem_bytes<32>(cap), st, P);
+    case 16:
+      return (int)dense_lu::launch(pg_solve_kernel<16>, dense_lu::smem_bytes<16>(cap), st, P);
+  }
+  return (int)cudaErrorInvalidValue;
+}

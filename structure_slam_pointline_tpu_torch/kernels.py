@@ -13,7 +13,8 @@ A source may export several entry points (`ENTRIES`), a source may
 include the shared headers (`csrc/*.cuh`), and several kernels may share
 one source (kernels 13 and 14 in `bow.cu`, 20 and 21 in `fuse3d.cu`,
 kernel 10 and its eigensolver entry in `null_vector4.cu`; the sharded
-form of kernel 12 in `local_ba.cu` and the frame-batched entries of
+form of kernel 12 and the dense solver of `csrc/dense_lu.cuh` alone in
+`local_ba.cu`, and the frame-batched entries of
 kernels 1, 11 and 2 in `fast.cu`, `kp_select.cu` and `orb.cu`): each
 source is built once, into one library, and each kernel is counted on
 its own; every launch of any of them adds one to its kernel's
@@ -65,6 +66,7 @@ SOURCES = {
     "fast_nms_batch": "fast.cu",
     "kp_select_batch": "kp_select.cu",
     "orb_describe_batch": "orb.cu",
+    "dense_solve": "local_ba.cu",
 }
 
 # sources built with nvcc's default -fmad=true (every other one gets
@@ -151,6 +153,8 @@ _ARGTYPES = {
     "ba_solve": [_P, _P],
     "ba_backsub": [_P, _P],
     "ba_edges": [_P, _P, _P, _P],
+    # A_aug [n, n + 1] (overwritten), n, capacity, piv, x, stream
+    "dense_solve": [_P, _I, _I, _P, _P, _P],
     # nodes, branching, depth, desc, valid, B, N, words, bow, stream
     "bow_transform": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     # q, kf_bows, kf_valid, exclude, K, W, min_score, scores, stream

@@ -545,8 +545,6 @@ def _schedule(shards: list, intr: Intrinsics, cfg: OptimConfig, psum=_first, any
 
 
 MAX_BA_KEYFRAMES = 64   # kernel 12 keeps a landmark's edges as 64 bits
-# reduced camera systems above this many bytes are solved in global memory
-_MAX_SOLVE_SMEM = 200 * 1024
 
 
 class _Work(ctypes.Structure):
@@ -564,7 +562,7 @@ class _Work(ctypes.Structure):
                     "edge_valid", "mp_valid", "obs_l", "ln_sigma2", "edge_ln",
                     "ln_edge_valid", "ln_valid", "T", "X", "pgrid", "lgrid", "edge_bits",
                     "act_bits", "inl_bits", "A", "AHi", "HB", "Hpi", "bp", "lm_cost",
-                    "Sred", "Hk", "dxc", "cost", "Sg", "cost_part")])
+                    "Sred", "Hk", "dxc", "cost", "Sg", "cost_part", "piv")])
 
 
 def _kernel_inputs(what: str, prob: BAProblem, lines):
@@ -622,12 +620,11 @@ def _landmark_buffers(KL: int, PL: int, LL: int, dev) -> dict:
 
 
 def _solve_matrix(KL: int, dev) -> dict:
-    """The solve's global-memory matrix, when the reduced camera system does
-    not fit in shared memory (global BA's 64 keyframes)."""
+    """The solve's augmented matrix (global memory, L2-resident; 6 rows per
+    free camera, so the free cameras' rows fill its front) and pivot rows."""
     n_red = 6 * KL
-    if n_red * (n_red + 1) * 4 > _MAX_SOLVE_SMEM:
-        return {"Sg": torch.empty(n_red * (n_red + 1), dtype=torch.float32, device=dev)}
-    return {}
+    return {"Sg": torch.empty(n_red * (n_red + 1), dtype=torch.float32, device=dev),
+            "piv": torch.empty(n_red, dtype=torch.int32, device=dev)}
 
 
 def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,

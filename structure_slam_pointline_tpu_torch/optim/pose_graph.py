@@ -139,7 +139,7 @@ class _PG(ctypes.Structure):
     _fields_ = ([("K", ctypes.c_int), ("E", ctypes.c_int)]
                 + [(n, ctypes.c_void_p) for n in (
                     "free", "pos", "nfree", "ei", "ej", "Sm", "evalid", "ew", "S", "Snew",
-                    "r", "J", "H", "x", "cost", "lam")])
+                    "r", "J", "H", "piv", "cost", "lam")])
 
 
 def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20,
@@ -170,7 +170,8 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20,
     nfree = free.sum().to(i32).reshape(1)
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)  # noqa: E731
     buf = dict(S=S_in.clone(), Snew=empty(K, 4, 4), r=empty(E, 7), J=empty(E, 7, 14),
-               H=empty(7 * K * (7 * K + 1)), x=empty(7 * K), cost=empty(E, 2),
+               H=empty(7 * K * (7 * K + 1)), piv=torch.empty(7 * K, dtype=i32, device=dev),
+               cost=empty(E, 2),
                lam=torch.full((1,), lam_init, dtype=f32, device=dev))
     pg = _PG(K=K, E=E, free=free.data_ptr(), pos=pos.data_ptr(), nfree=nfree.data_ptr(),
              ei=ei.data_ptr(), ej=ej.data_ptr(), Sm=Sm.data_ptr(), evalid=evalid.data_ptr(),

@@ -12,6 +12,15 @@ sums the Gram entries row after row, as the kernel does.
 `jacobi_eigh_4x4` is the wrapper of the same source's second entry
 (`jacobi_eigh4`, counted apart; no path calls it, in either package),
 `jacobi_eigh_4x4_plain` its plain version.
+
+`dense_solve` is the wrapper of the dense solver that kernels 12 and 18
+share (csrc/dense_lu.cuh, exported alone by local_ba.cu's library as
+`dense_solve`, counted apart; no path calls it: the paths reach the
+solver through their own launches). `lu_solve_blocked_plain` is its
+plain version: the kernel's panel order, pivot rule and update order, so
+its factorization equals an unblocked partial-pivot LU's bit for bit.
+The plain BA and pose-graph versions keep torch.linalg.solve, as the
+reference keeps jnp.linalg.solve.
 """
 
 from __future__ import annotations
@@ -129,5 +138,103 @@ def null_vector_4(A: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
     return out
 
 
+# csrc/dense_lu.cuh's launch shape: its cluster, warps per block, trailing
+# tile width, row limit and dynamic shared memory budget, which pick the
+# panel width
+_DENSE_CLUSTER, _DENSE_WARPS, _DENSE_CT = 8, 8, 32
+_DENSE_MAX_ROWS, _DENSE_MAX_SMEM = 2048, 200 * 1024
+
+
+def dense_panel_width(cap: int) -> int:
+    """The panel width NB that dense_lu.cuh takes for systems of up to
+    `cap` rows (`panel_width`): 32 while the strip, its row maps and the
+    tiles fit in shared memory, else 16."""
+    tiles = -(-cap // _DENSE_CT)
+    tpb = max(1, -(-tiles // (_DENSE_CLUSTER - 1)))   # trailing tiles a block owns
+    for nb in (32, 16):
+        if (1 <= cap < _DENSE_MAX_ROWS and tpb <= _DENSE_WARPS
+                and (cap * (nb + 3) + 2 * tpb * nb * _DENSE_CT) * 4 <= _DENSE_MAX_SMEM):
+            return nb
+    raise ValueError(f"dense_solve: {cap} rows do not fit the solver")
+
+
+def lu_solve_blocked_plain(Ab: torch.Tensor, n: int, nb: int):
+    """(x [n], pivot rows [n] int32) of the augmented float32 system Ab
+    ([n, n + 1], or flat), by the kernel's algorithm: panels of nb columns,
+    each factored column by column (the largest |a|, the first row on
+    ties, NaN never winning; one reciprocal of the pivot, one multiplier
+    per row; the rank-1 update of the panel), the panel's row swaps on the
+    columns right of it, U12 by forward substitution and A22 -= L21 U12,
+    each product subtracted one term at a time in the panel's column
+    order; then the back substitution blocked by 32 rows, the diagonal
+    triangle from the bottom row up (each x the right side times the
+    pivot's reciprocal, kept in place of the pivot) and the products of the
+    rows above summed as the kernel's warp shuffle tree sums them."""
+    A = Ab.reshape(n, n + 1).clone()
+    piv = torch.empty(n, dtype=torch.int32)
+    neg = torch.tensor(-1.0, dtype=A.dtype, device=A.device)
+    for k0 in range(0, n, nb):
+        c1 = min(k0 + nb, n)
+        for j in range(k0, c1):
+            col = A[j:, j].abs()
+            p = j + int(torch.argmax(torch.where(torch.isnan(col), neg, col)))
+            piv[j] = p
+            if p != j:
+                A[[j, p], k0:c1] = A[[p, j], k0:c1]
+            rcp = 1.0 / A[j, j]
+            f = A[j + 1:, j] * rcp
+            A[j + 1:, j] = f
+            A[j, j] = rcp
+            A[j + 1:, j + 1:c1] = A[j + 1:, j + 1:c1] - f[:, None] * A[j, j + 1:c1][None, :]
+        for j in range(k0, c1):
+            p = int(piv[j])
+            if p != j:
+                A[[j, p], c1:] = A[[p, j], c1:]
+        for l in range(k0, c1):
+            A[l + 1:c1, c1:] = A[l + 1:c1, c1:] - A[l + 1:c1, l:l + 1] * A[l:l + 1, c1:]
+        for l in range(k0, c1):
+            A[c1:, c1:] = A[c1:, c1:] - A[c1:, l:l + 1] * A[l:l + 1, c1:]
+    c = A[:, n].clone()
+    x = torch.empty(n, dtype=A.dtype, device=A.device)
+    for r0 in reversed(range(0, n, 32)):
+        h = min(32, n - r0)
+        v = c[r0:r0 + h].clone()
+        for r in reversed(range(h)):
+            v[r] = v[r] * A[r0 + r, r0 + r]
+            v[:r] = v[:r] - A[r0:r0 + r, r0 + r] * v[r]
+        x[r0:r0 + h] = v
+        if r0:
+            prod = torch.zeros((r0, 32), dtype=A.dtype, device=A.device)
+            prod[:, :h] = A[:r0, r0:r0 + h] * v[None, :]
+            for off in (16, 8, 4, 2, 1):
+                prod = prod[:, :off] + prod[:, off:2 * off]
+            c[:r0] = c[:r0] - prod[:, 0]
+    return x, piv.to(A.device)
+
+
+def dense_solve(Ab: torch.Tensor, cap: int | None = None):
+    """(x [n], pivot rows [n] int32) of the float32 augmented system Ab
+    [n, n + 1] (b as column n); `cap` >= n picks the panel width as a
+    caller of that capacity gets it (default n). CPU tensor -> plain
+    version; CUDA tensor -> the cluster solver (one launch), or raise."""
+    if Ab.dim() != 2 or Ab.shape[1] != Ab.shape[0] + 1 or Ab.shape[0] < 1:
+        raise ValueError(f"dense_solve: expects [n, n + 1], got {tuple(Ab.shape)}")
+    n = Ab.shape[0]
+    cap = n if cap is None else int(cap)
+    if cap < n:
+        raise ValueError(f"dense_solve: capacity {cap} below {n} rows")
+    nb = dense_panel_width(cap)
+    if Ab.device.type == "cpu":
+        return lu_solve_blocked_plain(Ab, n, nb)
+    kernels.check_dtype("dense_solve", Ab, torch.float32)
+    A = Ab.contiguous().clone()
+    kernels.check_cuda("dense_solve", A)
+    x = torch.empty(n, dtype=torch.float32, device=A.device)
+    piv = torch.empty(n, dtype=torch.int32, device=A.device)
+    kernels.launch("dense_solve", kernels.ptr(A), n, cap, kernels.ptr(piv), kernels.ptr(x))
+    return x, piv
+
+
 __all__ = ["jacobi_eigh_4x4", "jacobi_eigh_4x4_plain", "null_vector_4",
-           "null_vector_4_plain"]
+           "null_vector_4_plain", "dense_panel_width", "dense_solve",
+           "lu_solve_blocked_plain"]

@@ -531,9 +531,49 @@ def _to(t, dev):
 
 
 def test_local_ba_matches_plain(cuda):
-    """Kernel 12 at 16 keyframes, with lines and points only."""
+    """Kernel 12 at 16 keyframes, with lines and points only; its dense
+    solver alone at the window's and global BA's system sizes."""
     for with_lines in (True, False):
         _check_local_ba(cuda, with_lines)
+    _check_dense_solve(cuda, ((96, 96), (378, 378)))
+
+
+def _check_dense_solve(cuda, shapes):
+    """The dense solver of kernels 12 and 18 (csrc/dense_lu.cuh, the
+    `dense_solve` entry) against its plain version on (n, capacity)
+    systems, a damped J^T J and one with an eigenvalue near 1e-6: the same
+    pivot rows, x within 1e-5 of the plain x (relative to its largest
+    entry; the plain version repeats the kernel's operations in its order),
+    a backward error within 10x of torch.linalg.solve's, and two launches
+    bit-identical."""
+    g = np.random.default_rng(37)
+
+    def backward_error(A, b, x):
+        A, b, x = A.double(), b.double(), x.double()
+        return ((A @ x - b).abs().max() / (A.abs().sum(1).max() * x.abs().max()
+                                           + b.abs().max())).item()
+
+    for n, cap in shapes:
+        J = g.normal(size=(2 * n, n))
+        Q, _ = np.linalg.qr(g.normal(size=(n, n)))
+        lam = np.geomspace(1.0, 1e3, n)
+        lam[0] = 1e-6
+        for A in (J.T @ J + 1e-3 * np.eye(n), (Q * lam) @ Q.T):
+            b = g.normal(size=(n, 1))
+            Ab = torch.from_numpy(np.concatenate([A, b], 1).astype(np.float32)).to(cuda)
+            before = kernels.COUNTS["dense_solve"]
+            xk, pk = linalg.dense_solve(Ab, cap)
+            xk2, pk2 = linalg.dense_solve(Ab, cap)
+            xp, pp = linalg.lu_solve_blocked_plain(Ab, n, linalg.dense_panel_width(cap))
+            xl = torch.linalg.solve(Ab[:, :n], Ab[:, n])
+            torch.cuda.synchronize()
+            what = f"dense_solve n={n} capacity {cap}"
+            assert kernels.COUNTS["dense_solve"] == before + 2, f"{what}: launch count"
+            assert torch.equal(xk, xk2) and torch.equal(pk, pk2), f"{what}: two launches differ"
+            assert torch.equal(pk, pp), f"{what}: pivot rows"
+            assert (xk - xp).abs().max().item() <= 1e-5 * xp.abs().max().item(), what
+            be, be_lib = (backward_error(Ab[:, :n], Ab[:, n], x) for x in (xk, xl))
+            assert be <= 10 * be_lib, f"{what}: backward error {be:.2e} vs {be_lib:.2e}"
 
 
 def _check_local_ba(cuda, with_lines):
@@ -699,7 +739,8 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (compact, "compact_points_plain"), (compact, "compact_lines_plain"),
                       (compact, "compact_keyframes_plain"),
                       (local_ba, "bundle_adjust_sharded_plain"),
-                      (fast, "fast_score_nms_plain"), (orb, "orient_and_describe_plain")):
+                      (fast, "fast_score_nms_plain"), (orb, "orient_and_describe_plain"),
+                      (linalg, "lu_solve_blocked_plain")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -727,6 +768,7 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     for fn in (compact.compact_points, compact.compact_lines, compact.compact_keyframes):
         fn(st)
     linalg.jacobi_eigh_4x4(torch.rand((5, 4, 4), device=cuda))
+    linalg.dense_solve(torch.eye(8, 9, device=cuda) + torch.rand((8, 9), device=cuda))
     cfg = SLAMConfig()
     intr = Intrinsics.from_config(cfg.camera)
     local_mapping.fuse_duplicate_points_3d(st, 1, 2, intr, cfg)
@@ -1061,9 +1103,13 @@ def _check_local_ba_64_keyframes(cuda):
 
 def test_loop_closing_kernels_match_plain(cuda):
     """Kernels 16, 17 and 18 and kernel 12 at 64 keyframes, each against
-    its plain version (one item: the suite's xdist schedule depends on
+    its plain version, and the dense solver at the pose graph's sizes (one
+    item: the suite's xdist schedule depends on
     the number of items, tests/test_torch_loop_closing.py)."""
     _check_ransac_sim3(cuda)
     _check_optimize_sim3_pair(cuda)
     _check_optimize_pose_graph(cuda)
     _check_local_ba_64_keyframes(cuda)
+    # the pose graph's solve: 51 free keyframes at the 256-keyframe capacity
+    # (panels of 16), and the capacity filled
+    _check_dense_solve(cuda, ((357, 1792), (1792, 1792)))

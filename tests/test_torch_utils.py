@@ -121,3 +121,60 @@ def test_jacobi_and_null_vector():
     na = jlin.null_vector_4(jnp.asarray(A))
     nb = tlin.null_vector_4(_t(A))
     np.testing.assert_allclose(nb.numpy(), np.asarray(na), atol=1e-4)
+    _check_dense_solve()
+
+
+def _dense_systems(g, n):
+    """Seeded [n, n] float32 systems and right sides: a damped J^T J, a
+    global-BA-like system with one eigenvalue near 1e-6 (the monocular
+    scale direction), and an integer system whose columns have exact
+    pivot ties."""
+    J = g.normal(size=(2 * n, n))
+    spd = J.T @ J + 1e-3 * np.eye(n)
+    Q, _ = np.linalg.qr(g.normal(size=(n, n)))
+    lam = np.geomspace(1.0, 1e3, n)
+    lam[0] = 1e-6
+    weak = (Q * lam) @ Q.T
+    tie = g.integers(-3, 4, size=(n, n)).astype(np.float64)
+    return {k: (a.astype(np.float32), g.normal(size=n).astype(np.float32))
+            for k, a in (("spd", spd), ("weak", weak), ("tie", tie))}
+
+
+def _unblocked_lu_pivots(A):
+    """The pivot rows of an unblocked partial-pivot LU in float32 (the
+    largest |a|, the first row on ties)."""
+    A = A.astype(np.float32).copy()
+    n = A.shape[0]
+    piv = []
+    for j in range(n):
+        p = j + int(np.argmax(np.abs(A[j:, j])))
+        piv.append(p)
+        A[[j, p], j:] = A[[p, j], j:]
+        f = A[j + 1:, j] * (np.float32(1.0) / A[j, j])
+        A[j + 1:, j + 1:] = A[j + 1:, j + 1:] - f[:, None] * A[j, j + 1:][None, :]
+    return np.asarray(piv)
+
+
+def _check_dense_solve():
+    """The dense solver's plain version (csrc/dense_lu.cuh's blocked order)
+    against jnp.linalg.solve: a backward error |Ax - b| / (|A||x| + |b|)
+    (infinity norms, float64) within 10x of the reference's own, at n = 48
+    (the 8-keyframe window), 306 (global BA) and 357 (the pose graph); on
+    the tie system the pivot rows of an unblocked LU."""
+    g = np.random.default_rng(31)
+
+    def backward_error(A, b, x):
+        A, b, x = A.astype(np.float64), b.astype(np.float64), x.astype(np.float64)
+        return np.abs(A @ x - b).max() / (np.abs(A).sum(1).max() * np.abs(x).max()
+                                          + np.abs(b).max())
+
+    for n in (48, 306, 357):
+        for kind, (A, b) in _dense_systems(g, n).items():
+            Ab = torch.from_numpy(np.concatenate([A, b[:, None]], 1))
+            x, piv = tlin.dense_solve(Ab)
+            xr = np.asarray(jnp.linalg.solve(jnp.asarray(A), jnp.asarray(b)))
+            assert np.isfinite(x.numpy()).all(), f"dense_solve {kind} n={n}"
+            be, be_ref = backward_error(A, b, x.numpy()), backward_error(A, b, xr)
+            assert be <= 10 * be_ref, f"dense_solve {kind} n={n}: {be:.2e} vs {be_ref:.2e}"
+            if kind == "tie":
+                np.testing.assert_array_equal(piv.numpy(), _unblocked_lu_pivots(A))
