@@ -138,7 +138,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    launch gaps left out) and from the caller (median of CUDA events around
    one call, gaps included); the null vector also against
    torch.linalg.eigh on the same Gram matrices, the database query against
-   torch.cdist(p=1), RANSAC PnP against torch.linalg.svd of its DLT batch,
+   torch.cdist(p=1), RANSAC PnP against torch.linalg.svd of its DLT batch
+   (the ratio and phase 2c's launches per call printed, `[kernel 15]`),
    Sim(3) RANSAC against torch.linalg.eigh of its Horn matrices, the pose
    graph against torch.linalg.solve of its assembled system
    (library_ms), local BA (16 and 64 keyframes, and its sharded form)
@@ -192,6 +193,7 @@ Output: a JSON line of the end-to-end and profile numbers, the JSON line
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -212,19 +214,26 @@ ATE_MAX = 0.05
 # H100 SXM peaks (NVIDIA data sheet) used for the per-kernel floor
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12   # float32 outside the tensor cores
-# operation counts of the line kernels, read off their sources: per pixel of
-# the LSD dense pass (three bf16 Scharr gradients, one atan2, 16 angle gates,
-# the ridge snap and packing), per scored pixel of its support pass (at
-# least one direction: 48 mask reads, 15 pair gates, the sum), per sample of
-# an LSD refinement pass (nearest sample, unpack, gates, the weighted sums),
-# per LBD sample (Scharr at the pixel, quantize, frame projection, the band
+# operation counts of the line kernels, from the work the function needs:
+# per pixel of the LSD dense pass one bf16 Scharr gradient and its magnitude
+# (each op with its bf16 rounding: 41), one atan2 (OPS_ATAN2), the bin and
+# the NMS test (13), the ridge snap and packing (33); per weak pixel
+# (magnitude > 0.5 x the threshold; the mask is zero elsewhere) 16 angle
+# gates (134); per scored pixel of its support pass (at least one
+# direction: 48 mask reads, 15 pair gates, the sum), per sample of an LSD
+# refinement pass (nearest sample, unpack, gates, the weighted sums), per
+# LBD sample (Scharr at the pixel, quantize, frame projection, the band
 # sums) and per LBD segment (band statistics, norms, 256 comparisons)
-OPS_SUPPORT_PX = 280
+OPS_ATAN2 = 60        # glibc atan2f: one division, the polynomial, the fix-ups
+OPS_GRAD_PX = 41
+OPS_NMS_PX = 13
+OPS_RIDGE_PX = 33
+OPS_GATES_WEAK = 134
+OPS_SUPPORT_PX = OPS_GRAD_PX + OPS_ATAN2 + OPS_NMS_PX + OPS_RIDGE_PX
 OPS_SUPPORT_SCORED = 150
 OPS_REFINE_SAMPLE = 60
 OPS_LBD_SAMPLE = 60
 OPS_LBD_SEGMENT = 4000
-OPS_ATAN2 = 60        # glibc atan2f: one division, the polynomial, the fix-ups
 # per 4x4 null-vector system: the Gram (r x 10 multiply-adds), 30 Jacobi
 # rotations (~60 operations each with one atan2f, cosf and sinf)
 OPS_NULL_SYSTEM = 2000
@@ -232,11 +241,12 @@ OPS_NULL_SYSTEM = 2000
 # 6x6 / 6x3 / 3x3 block terms and the Schur product (~300 operations)
 OPS_BA_ROW = 300
 # kernel 5 at line_support_downsample = 2: per full-resolution pixel the
-# packed ridge plane alone (three bf16 Scharr gradients, one atan2, the
-# ridge snap and packing), per half-resolution pixel the box average and
-# the mask and peak (three gradients, one atan2, 16 angle gates)
-OPS_PACKED_PX = 230
-OPS_MASK_PX = 240
+# packed ridge plane alone (OPS_SUPPORT_PX); per half-resolution pixel the
+# box average (4) and the gradient; per weak half-resolution pixel the
+# angle, the bin and NMS and the 16 angle gates (the angle is needed for
+# the mask and the peaks alone, and both are zero below the weak line)
+OPS_HALF_PX = 4 + OPS_GRAD_PX
+OPS_HALF_WEAK = OPS_ATAN2 + OPS_NMS_PX + OPS_GATES_WEAK
 # per 4x4 eigensolver system: 30 Jacobi rotations (~60 operations each)
 OPS_EIGH_SYSTEM = 1800
 # kernels 20 / 21 per pair that passes the age gate: the squared distance
@@ -435,13 +445,11 @@ def device_ms(fn, reps: int = 20, flush=None, expect: str | None = None,
     return time_ms(fn, reps=reps, flush=flush)
 
 
-def shard_split(fn, reps: int = 3) -> dict:
-    """Where kernel 12's sharded form spends device time in one call:
-    the per-shard launches (grid, classify, landmarks, reduce, backsub,
-    edges), the replicated solve, and the torch ops between them (the
-    ordered sums of the shards' partials, the input copies and fills, the
-    ORed flags): device ms per call by torch.profiler, grouped by kernel
-    name; None when the profiler records no device events."""
+def by_kernel(fn, reps: int = 3) -> dict:
+    """Device milliseconds of one call by kernel name (torch.profiler over
+    `reps` calls after one warm-up; a name without its namespace and
+    arguments, memsets and copies under their own names); {} when the
+    profiler records no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -451,16 +459,30 @@ def shard_split(fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.key.replace("(anonymous namespace)::", "")
+            m = re.search(r"([A-Za-z_][A-Za-z0-9_]*)\s*(<[^()]*>)?\s*\(", key)
+            name = m.group(1) if m else key
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def shard_split(fn, reps: int = 3) -> dict:
+    """Where kernel 12's sharded form spends device time in one call:
+    the per-shard launches (grid, classify, landmarks, reduce, backsub,
+    edges), the replicated solve, and the torch ops between them (the
+    ordered sums of the shards' partials, the input copies and fills, the
+    ORed flags): device ms per call, `by_kernel` grouped; None when the
+    profiler records no device events."""
     out = {"shard_ms": 0.0, "solve_ms": 0.0, "torch_ops_ms": 0.0}
     shard = ("grid_kernel", "classify_kernel", "landmarks_kernel", "reduce_kernel",
              "backsub_kernel", "edges_kernel")
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.self_device_time_total / 1e3 / reps
-        key = ("solve_ms" if "solve_kernel" in e.key else
-               "shard_ms" if any(k in e.key for k in shard) else "torch_ops_ms")
-        out[key] += us
+    for name, ms in by_kernel(fn, reps).items():
+        key = ("solve_ms" if "solve_kernel" in name else
+               "shard_ms" if name in shard else "torch_ops_ms")
+        out[key] += ms
     return out if sum(out.values()) > 0 else None
 
 
@@ -610,6 +632,17 @@ def spread_columns(prob, lines, seed: int = 0):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def lsd_weak_px(img, grad_thresh, angle_tol, min_length, ds=1) -> int:
+    """Pixels of kernel 5's scanned grid (the half image at ds = 2) whose
+    bf16 gradient magnitude passes the weak line, 0.5 x the support pass's
+    threshold: the only pixels whose direction mask the function needs."""
+    from structure_slam_pointline_tpu_torch.ops import lsd
+
+    grid = lsd.half_octave(img) if ds == 2 else img
+    mag = lsd.gradients(grid)[2].float()
+    return int((mag > 0.5 * lsd.support_threshold(grad_thresh, ds)).sum())
 
 
 def torch_op_rows(cfg):
@@ -1746,7 +1779,7 @@ def main() -> int:
     # LSD dense pass: both octaves of one frame, exactly equal
     sup_calls = [v[0] for _, v in sorted(rec["lsd_support"].calls.items(),
                                          key=lambda kv: -kv[0][1][0])]
-    px = scored = 0
+    px = weak = scored = 0
     for args in sup_calls:
         bk, pk = lsd.lsd_support(*args)
         bp, pp = lsd.lsd_support_plain(*args)
@@ -1754,13 +1787,16 @@ def main() -> int:
             fail(f"lsd_support disagrees at {tuple(args[0].shape)}: score "
                  f"{int((bk != bp).sum())} px, plane {int((pk != pp).sum())} px")
         px += args[0].numel()
+        weak += lsd_weak_px(*args)
         scored += int((bp > 0).sum())
     rows.append(dict(
         name="lsd_support", max_abs_err=0.0,
         **timings(lambda: [lsd.lsd_support(*a) for a in sup_calls],
                   lambda: [lsd.lsd_support_plain(*a) for a in sup_calls]),
-        bytes=px * (4 + 4 + 4), ops=px * OPS_SUPPORT_PX + scored * OPS_SUPPORT_SCORED,
-        library_ms=None, shape=f"{len(sup_calls)} octaves, {px} px, {scored} scored"))
+        bytes=px * (4 + 4 + 4),
+        ops=px * OPS_SUPPORT_PX + weak * OPS_GATES_WEAK + scored * OPS_SUPPORT_SCORED,
+        library_ms=None,
+        shape=f"{len(sup_calls)} octaves, {px} px, {weak} weak, {scored} scored"))
 
     # LSD refinement: every octave's valid anchors (the selection redone on
     # the same frame's score map), endpoints within 1e-3 px on >= 99.9%
@@ -1802,7 +1838,7 @@ def main() -> int:
                                           key=lambda kv: -kv[0][1][0]) if k[2] == 2]
     if len(sup2_calls) != 2:
         fail(f"phase 2f: support shapes {sorted(rec_ds2['lsd_support'].calls)}")
-    px_full = px_half = scored = 0
+    px_full = px_half = weak = scored = 0
     for args in sup2_calls:
         bk, pk = lsd.lsd_support(*args)
         bp, pp = lsd.lsd_support_plain(*args)
@@ -1811,15 +1847,17 @@ def main() -> int:
                  f"{int((bk != bp).sum())} px, plane {int((pk != pp).sum())} px")
         px_full += args[0].numel()
         px_half += bp.numel()
+        weak += lsd_weak_px(*args)
         scored += int((bp > 0).sum())
     rows.append(dict(
         name="lsd_support_half", max_abs_err=0.0,
         **timings(lambda: [lsd.lsd_support(*a) for a in sup2_calls],
                   lambda: [lsd.lsd_support_plain(*a) for a in sup2_calls]),
         bytes=px_full * (4 + 4) + px_half * 4,
-        ops=px_full * OPS_PACKED_PX + px_half * OPS_MASK_PX + scored * OPS_SUPPORT_SCORED,
+        ops=(px_full * OPS_SUPPORT_PX + px_half * OPS_HALF_PX + weak * OPS_HALF_WEAK
+             + scored * OPS_SUPPORT_SCORED),
         library_ms=None, shape=f"ds = 2: {len(sup2_calls)} octaves, {px_full} px, support on "
-                               f"{px_half} half-resolution px, {scored} scored"))
+                               f"{px_half} half-resolution px, {weak} weak, {scored} scored"))
     k5 = next(r for r in rows if r["name"] == "lsd_support")
     print(f"[kernel 5] per frame (both octaves): device {k5['ms']:.4f} ms at full shape "
           f"(phase 2a), {rows[-1]['ms']:.4f} ms at the half shape (phase 2f); caller "
@@ -2192,6 +2230,12 @@ def main() -> int:
         ops=(Cp * Ip + Cp) * Np * OPS_PNP_POINT, ops_fp64=Cp * Ip * OPS_PNP_HYP_FP64,
         shape=f"{Cp} candidates x {Ip} hypotheses x {Np} points, counts equal on "
               f"{worst_cnt:.4f}"))
+    k15 = rows[-1]
+    print(f"[kernel 15] {Cp} x {Ip} x {Np}: device {k15['ms']:.4f} ms against "
+          f"torch.linalg.svd of the same [{Cp * Ip}, 12, 12] DLT batch {k15['library_ms']:.4f} "
+          f"ms in this run ({k15['library_ms'] / k15['ms']:.2f}x); phase 2c "
+          f"{counts_reloc['ransac_pnp']} launches in {sum(rec['ransac_pnp'].n.values())} calls",
+          flush=True)
     print(f"[time] main-path and relocalization checks done at {time.time() - t_start:.0f} s",
           flush=True)
     # ---- the loop-closing path's shapes (phase 2d) ----

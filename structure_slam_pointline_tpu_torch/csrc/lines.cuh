@@ -1,8 +1,9 @@
 // Device helpers shared by the line kernels (lsd_support.cu, lsd_refine.cu,
-// lbd.cu): the reference's bf16 Scharr gradient at one pixel, glibc's
-// atan2f (the function XLA:CPU calls for jnp.arctan2) step for step, and
-// jnp.mod / the undirected angle difference. Built with -fmad=false, so
-// every multiply and add rounds on its own as in the torch plain versions.
+// lbd.cu): the reference's bf16 Scharr gradient at one pixel (or from its
+// eight taps), glibc's atan2f (the function XLA:CPU calls for jnp.arctan2)
+// step for step, and jnp.mod / the undirected angle difference. Built with
+// -fmad=false, so every multiply and add rounds on its own as in the torch
+// plain versions.
 
 #pragma once
 
@@ -105,16 +106,10 @@ struct Grad {
   float gx, gy, sq;  // bf16 values; sq = bf16(gx^2 + gy^2)
 };
 
-__device__ __forceinline__ Grad scharr(const float* __restrict__ img, int H, int W, int y,
-                                       int x) {
-  const int ym = wrap(y - 1, H), yp = wrap(y + 1, H);
-  const int xm = wrap(x - 1, W), xp = wrap(x + 1, W);
-  const float* rm = img + (size_t)ym * W;
-  const float* r0 = img + (size_t)y * W;
-  const float* rp = img + (size_t)yp * W;
-  const float a = bf(rm[xm]), b = bf(rm[x]), c = bf(rm[xp]);
-  const float d = bf(r0[xm]), f = bf(r0[xp]);
-  const float g = bf(rp[xm]), h = bf(rp[x]), i = bf(rp[xp]);
+// the gradient from its eight taps, each already rounded to bf16: a b c
+// above, d f beside, g h i below the pixel
+__device__ __forceinline__ Grad scharr_taps(float a, float b, float c, float d, float f,
+                                            float g, float h, float i) {
   const float d_m = bf(c - a), d_0 = bf(f - d), d_p = bf(i - g);
   const float gx = bf(bf(bf(3.0f * bf(d_m + d_p)) + bf(10.0f * d_0)) * 0.03125f);
   const float r_m = bf(g - a), r_0 = bf(h - b), r_p = bf(i - c);
@@ -124,6 +119,17 @@ __device__ __forceinline__ Grad scharr(const float* __restrict__ img, int H, int
   out.gy = gy;
   out.sq = bf(bf(gx * gx) + bf(gy * gy));
   return out;
+}
+
+__device__ __forceinline__ Grad scharr(const float* __restrict__ img, int H, int W, int y,
+                                       int x) {
+  const int ym = wrap(y - 1, H), yp = wrap(y + 1, H);
+  const int xm = wrap(x - 1, W), xp = wrap(x + 1, W);
+  const float* rm = img + (size_t)ym * W;
+  const float* r0 = img + (size_t)y * W;
+  const float* rp = img + (size_t)yp * W;
+  return scharr_taps(bf(rm[xm]), bf(rm[x]), bf(rm[xp]), bf(r0[xm]), bf(r0[xp]), bf(rp[xm]),
+                     bf(rp[x]), bf(rp[xp]));
 }
 
 }  // namespace lines

@@ -80,7 +80,7 @@ ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
 ENTRIES["kp_select"] = ("kp_select_cells", "kp_select_rank")
 ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
                        "ba_solve", "ba_backsub", "ba_edges")
-ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_count", "pnp_select")
+ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_select")
 ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
 ENTRIES["pose_graph"] = ("pg_jacobians", "pg_assemble", "pg_solve", "pg_cost", "pg_decide")
 ENTRIES["compact"] = ("compact_scan", "compact_gather", "compact_remap")
@@ -113,9 +113,9 @@ _ARGTYPES = {
     "pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                 _F, _F, _F, _F, _I, _I, _F, _F, _F, _F, _F,
                 _P, _P, _P, _P, _P],
-    # img, H, W, ds, grad_thresh, angle_tol, min_support_px, half, mask,
-    # peak, best, packed, stream
-    "lsd_support": [_P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    # img, H, W, ds, grad_thresh, angle_tol, min_support_px, scratch, best,
+    # packed, stream
+    "lsd_support": [_P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     # img, packed, H, W, ax, ay, K, walk_steps, iters, angle_tol, half_grad,
     # out, stream
     "lsd_refine": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _P, _P],
@@ -159,10 +159,8 @@ _ARGTYPES = {
     "bow_transform": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     # q, kf_bows, kf_valid, exclude, K, W, min_score, scores, stream
     "bow_query": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
-    # pts_w, uv, sets, C, I, N, fx, fy, cx, cy, hyp, stream
-    "pnp_hypotheses": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
-    # hyp, pts_w, uv, mask, C, I, N, fx, fy, cx, cy, thresh, counts, stream
-    "pnp_count": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
+    # pts_w, uv, sets, mask, C, I, N, fx, fy, cx, cy, thresh, hyp, counts, stream
+    "pnp_hypotheses": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P],
     # hyp, counts, pts_w, uv, mask, C, I, N, fx, fy, cx, cy, thresh, T_cw,
     # inliers, n_best, stream
     "pnp_select": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],

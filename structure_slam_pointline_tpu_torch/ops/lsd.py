@@ -254,13 +254,12 @@ def lsd_support(img: torch.Tensor, grad_thresh: float, angle_tol: float,
     dev = img.device
     best = torch.empty((hs, ws), dtype=torch.float32, device=dev)
     packed = torch.empty((h, w), dtype=torch.int32, device=dev)
-    mask = torch.empty((hs, ws), dtype=torch.int16, device=dev)
-    peak = torch.empty((hs, ws), dtype=torch.float32, device=dev)
-    half = torch.empty((hs, ws) if ds == 2 else (0,), dtype=torch.float32, device=dev)
+    # the peak count, the peak list (12 B a pixel) and the mask (2 B a pixel)
+    scratch = torch.empty(16 + hs * ws * 14, dtype=torch.uint8, device=dev)
     kernels.launch("lsd_support", kernels.ptr(img), h, w, ds,
                    _c(support_threshold(grad_thresh, ds)), _c(angle_tol),
-                   _c(0.75 * min_length), kernels.ptr(half), kernels.ptr(mask),
-                   kernels.ptr(peak), kernels.ptr(best), kernels.ptr(packed))
+                   _c(0.75 * min_length), kernels.ptr(scratch), kernels.ptr(best),
+                   kernels.ptr(packed))
     return best, packed
 
 

@@ -11,7 +11,8 @@ inliers wins.
 replaces the reference's `ransac_pnp` (pnp.py:34) vmapped over the
 relocalization candidates (models/relocalization.py:62): one call takes
 every candidate ([C, N, 3] points, [C, N] masks, [C, I, 6] sample sets)
-in three launches. `ransac_pnp_plain` is its plain version, the
+in two launches (a warp per hypothesis solves and scores it; a block per
+candidate selects). `ransac_pnp_plain` is its plain version, the
 reference's arithmetic in float32 torch ops.
 
 One deliberate departure from the reference: the sign of the DLT null
@@ -150,10 +151,8 @@ def ransac_pnp(pts_w: torch.Tensor, uv: torch.Tensor, mask: torch.Tensor,
     thresh = float(torch.tensor(CHI2_2D * sigma2, dtype=torch.float32))
     cam = (intr.fx, intr.fy, intr.cx, intr.cy)
     p = kernels.ptr
-    kernels.launch(name, p(ins[0]), p(ins[1]), p(ins[3]), C, I, N, *cam, p(hyp),
-                   entry="pnp_hypotheses")
-    kernels.launch(name, p(hyp), p(ins[0]), p(ins[1]), p(ins[2]), C, I, N, *cam, thresh,
-                   p(counts), entry="pnp_count")
+    kernels.launch(name, p(ins[0]), p(ins[1]), p(ins[3]), p(ins[2]), C, I, N, *cam, thresh,
+                   p(hyp), p(counts), entry="pnp_hypotheses")
     kernels.launch(name, p(hyp), p(counts), p(ins[0]), p(ins[1]), p(ins[2]), C, I, N, *cam,
                    thresh, p(T), p(inl), p(n_best), entry="pnp_select")
     return PnPResult(success=n_best >= min_inliers, T_cw=T, inliers=inl, n_inliers=n_best,

@@ -8,13 +8,14 @@ keypoints and the LSD anchor selection, 12 x 2048 null-vector systems,
 the [256, 2048] observer grid, local BA with 16 keyframes, 2048 points
 and 256 lines; the BoW transform of 24 keyframes x 1024 descriptors and a
 [256, 4096] database query, RANSAC PnP over 16 candidates x 256
-hypotheses x 1024 points; on the loop-closing path Sim(3) RANSAC over 128
+hypotheses x 1024 points (and 3 x 100 x 1024); on the loop-closing path Sim(3) RANSAC over 128
 hypotheses x 1024 pairs, the Sim(3) pair refinement over 1024 pairs, the
 pose graph at the 256-keyframe capacity with 60 valid vertices, and local
 BA at global BA's 64 keyframes, 16384 points and 1024 lines; the three
 compaction passes of kernel 19 on random maps at the default capacities;
 kernels 5, 6 and 11 also at line_support_downsample = 2, the support on
-the half image, half-pixel anchors and 8 px cells; kernels 20 / 21, the 3D
+the half image, half-pixel anchors and 8 px cells; kernel 5 also on a
+75 x 101 frame whose border pixels are NMS peaks; kernels 20 / 21, the 3D
 duplicate searches, on pools at the default capacities with seeded
 near-copies; kernel 10's eigensolver entry on 24,576 Gram matrices).
 Marked `gpu`: they skip without a CUDA device. Kernels that share a
@@ -231,11 +232,25 @@ def test_line_kernels_match_plain(octaves):
     _check_atan2(octaves[0].device)
 
 
+def border_frame(H=75, W=101, seed=5):
+    """A frame whose border pixels are NMS peaks with support: a vertical
+    step at W / 2 (and, wrapped, between columns W - 1 and 0), a
+    horizontal one at H / 3 (and between rows H - 1 and 0), a slanted bar,
+    noise; its shape a multiple of no tile side, H odd."""
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:H, :W]
+    img = np.where(xx < W // 2, 200.0, 40.0) + np.where(yy < H // 3, 60.0, 0.0)
+    img += np.where(np.abs((xx - 20) - 0.6 * (yy - 10)) < 2.0, 80.0, 0.0)
+    img += g.normal(0, 2.0, (H, W))
+    return torch.from_numpy(img.astype(np.float32))
+
+
 def _check_lsd_support(octaves):
     fe = FrontendConfig()
     before = kernels.COUNTS["lsd_support"]
+    frames = octaves + [border_frame().to(octaves[0].device)]
     for ds in (1, 2):
-        for img in octaves:
+        for img in frames:
             args = (fe.line_grad_threshold, fe.line_angle_tol, fe.line_min_length, ds)
             best_k, packed_k = lsd.lsd_support(img, *args)
             best_p, packed_p = lsd.lsd_support_plain(img, *args)
@@ -245,7 +260,9 @@ def _check_lsd_support(octaves):
             assert torch.equal(best_k, best_p), f"lsd_support score {at}"
             assert torch.equal(packed_k, packed_p), f"lsd_support plane {at}"
             assert (best_k > 0).sum().item() > 100 // ds ** 2, f"lsd_support: few scores {at}"
-    assert kernels.COUNTS["lsd_support"] == before + 4, "lsd_support: launch count"
+        edge = torch.cat([best_p[0], best_p[-1], best_p[:, 0], best_p[:, -1]])
+        assert (edge > 0).sum().item() >= 20, f"lsd_support: few border peaks at ds {ds}"
+    assert kernels.COUNTS["lsd_support"] == before + 2 * len(frames), "lsd_support: launch count"
 
 
 def _anchors(img, K, ds):
@@ -923,24 +940,29 @@ def pnp_problem(C=16, N=1024, I=256, seed=13):
 
 
 def test_ransac_pnp_matches_plain(cuda):
-    pts, uv, mask, sets, T_gt = pnp_problem()
-    args = [t.to(cuda) for t in (pts, uv, mask, sets)]
-    before = kernels.COUNTS["ransac_pnp"]
-    rk = pnp.ransac_pnp(*args, PNP_INTR, min_inliers=10)
-    rp = pnp.ransac_pnp_plain(*args, PNP_INTR, min_inliers=10)
-    torch.cuda.synchronize()
-    assert kernels.COUNTS["ransac_pnp"] == before + 3
-    assert torch.equal(rk.n_inliers, rp.n_inliers)
-    assert torch.equal(rk.success, rp.success) and bool(rk.success.all())
-    assert torch.equal(torch.argmax(rk.counts, 1), torch.argmax(rp.counts, 1))
-    assert (rk.T_cw - rp.T_cw).abs().max().item() <= 1e-4
-    assert (rk.counts == rp.counts).float().mean().item() >= 0.99
-    assert torch.equal(rk.inliers, pnp.inlier_masks_plain(
-        rk.hyp, args[0], args[1], args[2], PNP_INTR)[torch.arange(16), torch.argmax(rk.counts, 1)])
-    R = rk.hyp[..., :3].double()
-    eye = torch.eye(3, dtype=torch.float64, device=cuda)
-    assert (R.transpose(-1, -2) @ R - eye).abs().max().item() <= 1e-5
-    assert np.abs(rk.T_cw.cpu().numpy()[:, :3, 3] - T_gt[:, :3, 3]).max() <= 0.05
+    """At the relocalization shape, and at 3 x 100 hypotheses: a count that
+    is not a multiple of the hypotheses a block of the kernel holds."""
+    for C, I in ((16, 256), (3, 100)):
+        pts, uv, mask, sets, T_gt = pnp_problem(C=C, I=I)
+        args = [t.to(cuda) for t in (pts, uv, mask, sets)]
+        at = f"at {C} x {I}"
+        before = kernels.COUNTS["ransac_pnp"]
+        rk = pnp.ransac_pnp(*args, PNP_INTR, min_inliers=10)
+        rp = pnp.ransac_pnp_plain(*args, PNP_INTR, min_inliers=10)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["ransac_pnp"] == before + 2, at
+        assert torch.equal(rk.n_inliers, rp.n_inliers), at
+        assert torch.equal(rk.success, rp.success) and bool(rk.success.all()), at
+        assert torch.equal(torch.argmax(rk.counts, 1), torch.argmax(rp.counts, 1)), at
+        assert (rk.T_cw - rp.T_cw).abs().max().item() <= 1e-4, at
+        assert (rk.counts == rp.counts).float().mean().item() >= 0.99, at
+        assert torch.equal(rk.inliers, pnp.inlier_masks_plain(
+            rk.hyp, args[0], args[1], args[2], PNP_INTR)[torch.arange(C),
+                                                         torch.argmax(rk.counts, 1)]), at
+        R = rk.hyp[..., :3].double()
+        eye = torch.eye(3, dtype=torch.float64, device=cuda)
+        assert (R.transpose(-1, -2) @ R - eye).abs().max().item() <= 1e-5, at
+        assert np.abs(rk.T_cw.cpu().numpy()[:, :3, 3] - T_gt[:, :3, 3]).max() <= 0.05, at
 
 
 def _sim3(xi):
