@@ -16,7 +16,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    a. the main path, `SLAMConfig()` with lines on: bootstrap through
       `SLAMSystem.track()` (must initialize within 90 frames), then 200
       frames through `track_sequence()`. Every kernel's launch counter is
-      zeroed just before and read just after; all twelve must be nonzero.
+      zeroed just before and read just after; kernels 1-12 and the keyframe
+      path's entries of kernels 22-24 (`fuse_match_points`,
+      `fuse_match_lines`, `fuse_merge`, `fuse_finish`, `covis_row`) must
+      be nonzero.
       ATE-Sim3 over the tracked frames must be <= 0.05, and map lines must
       have been made and be live at the end;
    b. the points-only path, `use_lines=False`: bootstrap, then 60 frames,
@@ -42,7 +45,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
       then on (counters zeroed just before the second run, read just
       after). Both runs must track >= 90% of their frames with ATE-Sim3
       <= 0.06; the second must correct a loop, end with >= 100 map lines,
-      launch kernels 16-18 and run kernel 12 at 64 keyframes (global BA).
+      launch kernels 16-18 and the loop path's entries of kernels 22-24
+      (`pool_match`, `sim3_widen_match`, `loop_merge`, `covis_matrix`) and
+      run kernel 12 at 64 keyframes (global BA).
       The ATE difference and the loop counters are printed beside the
       reference's, not judged; so is the wall time of every correcting
       `_run_loop_closing` and its split into detect, verify, correct and
@@ -121,11 +126,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
    S12 within 1e-4 and inlier masks equal on >= 99.5%; the pose graph
    with every valid vertex within 1e-4, two launches bit-identical and
    one call under set_sync_debug_mode("error"); local BA at 64
-   keyframes within 1e-3 (masks >= 99.5%); the Hamming calls at
-   [4096, 1024] and [8, 4096, 1024] equal; detect's database scores
-   within 1e-6. Kernel 19's three passes are bit-equal on every field
-   (live counts and `perm` too) on run B's first input of each pass (run B
-   must call all three) and on phase 2a's final map with a seeded half of
+   keyframes within 1e-3 (masks >= 99.5%); detect's database scores
+   within 1e-6. Kernels 22-24 on every call recorded in phases 2a and 2d
+   (every keyframe's fuse matches in phase 2a and in both runs of 2d,
+   phase 2a's first 24 merge walks and every one of 2d's, each finish
+   shape, phase 2a's first covisibility rows; verify's and the loop
+   fuse's pool matches, the Sim(3) widenings, the loop merges, every
+   covisibility matrix of 2d, its last one timed):
+   kernels 23 and 24 bit-equal; kernel 22's idx, dist and valid equal on
+   >= 99.9% of the rows with a candidate and on every
+   row without, each differing row printed (`[kernel 22]`) with the gate
+   nearest its threshold (`match_margins`), which must lie within 1e-5
+   relative of it, or with a column such a row claims. Each is timed
+   beside its bound, kernel 22's counted from the plain version's own
+   window tests and in-window pairs (`Spy`); covisibility beside the
+   indicator `torch.matmul` products (library_ms), its bound the valid
+   keyframes' rows of both grids read and the output written. Kernel 19's three
+   passes are bit-equal on every field (live counts and `perm` too) on
+   run B's first input of each pass (run B must call all three) and on
+   phase 2a's final map with a seeded half of
    its live slots culled, where each pass is timed beside its bound
    (bytes: the live rows of each field read, every row written, the edge
    grid or the stamps read and written, the observer bits written). One
@@ -176,16 +195,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
    vector's Gram matrices, within 1e-6 (vectors, and values relative to
    max(|v|, 1)), beside torch.linalg.eigh. `relocalize(wide=True)` runs
    once on phase 2c's final map and a teleport frame, and must recover it
-   (reported beside the 0.75-cut call). The kernel
-   table's rows that still run as torch ops around kernel 3 (row 11, the
-   fuse functions, counted over phase 2a; row 18, the loop closer's
-   helpers, counted over phase 2d; the covisibility matrix, counted over
-   phase 2d) have one call each timed the same way beside its bound.
+   (reported beside the 0.75-cut call). The functions around kernels
+   22-24 (`fuse_projected_points`, `fuse_projected_lines`, `_loop_fuse`)
+   are timed from the caller and on the device, and one recorded keyframe
+   pipeline call is replayed with each stage timed from the caller
+   (`keyframe_split`).
 4. Where the time goes: 20 further frames of the main path under
    torch.profiler; prints the wall time, the device-busy time per frame and
    the top device kernels.
 
-Output: a JSON line of the end-to-end and profile numbers, the JSON line
+Output: a JSON line of the end-to-end, function and profile numbers, the JSON line
 {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -254,6 +273,18 @@ OPS_EIGH_SYSTEM = 1800
 # perpendicular distances (~60); per pair, the two gate reads (2)
 OPS_FUSE_PT_PAIR = 14
 OPS_FUSE_LN_PAIR = 60
+# kernel 22 per (row, feature) pair of a visible row the window test (two
+# differences and compares, the valid flag and, for points, the octave
+# test: ~8 operations); per pair inside the window the 8-word distance (27,
+# kernel 3's count); per row the projection and gates (points ~150 with
+# logf, lines ~200 with two projections and an atan2, the pool ~40, the
+# Sim(3) widening ~80 with two transforms)
+OPS_WINDOW_PAIR = 8
+OPS_DIST_PAIR = 27
+OPS_MATCH_ROW = {"fuse_match_points": 150, "fuse_match_lines": 200, "pool_match": 40,
+                 "sim3_widen_match": 80}
+MATCH_AGREE_MIN = 0.999   # kernel 22 against its plain version, rows agreeing
+MATCH_MARGIN_MAX = 1e-5   # a differing row's flipped gate, relative to its threshold
 
 # kernel -> (JAX function it replaces, CUDA source)
 KERNELS = {
@@ -313,6 +344,25 @@ KERNELS = {
     # entry): the reference's jnp.linalg.solve there (and pose_graph.py:111)
     "dense_solve": ("structure_slam_pointline_tpu/optim/local_ba.py:477",
                     "structure_slam_pointline_tpu_torch/csrc/dense_lu.cuh"),
+    # kernel 22's entries, kernel 23's and kernel 24's
+    "fuse_match_points": ("structure_slam_pointline_tpu/models/local_mapping.py:793",
+                          "structure_slam_pointline_tpu_torch/csrc/fuse_match.cu"),
+    "fuse_match_lines": ("structure_slam_pointline_tpu/models/local_mapping.py:911",
+                         "structure_slam_pointline_tpu_torch/csrc/fuse_match.cu"),
+    "pool_match": ("structure_slam_pointline_tpu/models/loop_closing.py:104",
+                   "structure_slam_pointline_tpu_torch/csrc/fuse_match.cu"),
+    "sim3_widen_match": ("structure_slam_pointline_tpu/models/loop_closing.py:55",
+                         "structure_slam_pointline_tpu_torch/csrc/fuse_match.cu"),
+    "fuse_merge": ("structure_slam_pointline_tpu/models/local_mapping.py:842",
+                   "structure_slam_pointline_tpu_torch/csrc/fuse_merge.cu"),
+    "loop_merge": ("structure_slam_pointline_tpu/models/loop_closing.py:160",
+                   "structure_slam_pointline_tpu_torch/csrc/fuse_merge.cu"),
+    "fuse_finish": ("structure_slam_pointline_tpu/models/local_mapping.py:710",
+                    "structure_slam_pointline_tpu_torch/csrc/fuse_merge.cu"),
+    "covis_row": ("structure_slam_pointline_tpu/world/map_store.py:189",
+                  "structure_slam_pointline_tpu_torch/csrc/covis.cu"),
+    "covis_matrix": ("structure_slam_pointline_tpu/world/map_store.py:210",
+                     "structure_slam_pointline_tpu_torch/csrc/covis.cu"),
 }
 # table rows that time one kernel at another path's shape: row -> (kernel,
 # the JAX lines that shape replaces)
@@ -320,7 +370,8 @@ ROW_KERNEL = {"lsd_support_half": ("lsd_support", "structure_slam_pointline_tpu/
 # kernels that run only when a frame is lost (phase 2c), and only with loop
 # closing on (phase 2d)
 RELOC_KERNELS = ("bow_transform", "bow_query", "ransac_pnp")
-LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph")
+LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph", "pool_match", "sim3_widen_match",
+                "loop_merge", "covis_matrix")
 DATASET_KERNELS = ("compact",)   # runs only when a pool passes its trigger (phase 2e)
 # no path calls these, in either package: phase 3 drives their entry points
 UNCALLED_KERNELS = ("fuse_points_3d", "fuse_lines_3d", "jacobi_eigh4")
@@ -354,7 +405,8 @@ OPS_SIM3_PAIR_ITER = 400
 OPS_PG_LANE = 1500
 OPS_PG_COST = 500
 POINT_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "obs_bits",
-                 "null_vector4", "kp_select", "local_ba")
+                 "null_vector4", "kp_select", "local_ba", "fuse_match_points", "fuse_merge",
+                 "fuse_finish", "covis_row")
 
 
 def fail(msg: str) -> None:
@@ -645,35 +697,53 @@ def lsd_weak_px(img, grad_thresh, angle_tol, min_length, ds=1) -> int:
     return int((mag > 0.5 * lsd.support_threshold(grad_thresh, ds)).sum())
 
 
-def torch_op_rows(cfg):
-    """The kernel table's rows whose device work still runs as torch ops:
-    row -> (JAX function, module, function, key of a call, cost of a call
-    as (bytes, operations)). Every call on the main path is counted and
-    one call is replayed for its device time and bound. The operation
-    counts are lower estimates read off the code (the compares, selects
-    and multiply-adds the function cannot skip), so each bound is a floor."""
-    from structure_slam_pointline_tpu_torch.models import local_mapping as lm
+def first_calls(tag: str, n: int):
+    """A Recorder key function: a key of its own for each of the first n
+    calls (each recorded), one shared key after them."""
+    seen = [0]
 
-    def fuse_cost(table, desc, kf_desc):
-        def cost(a, kw, out):
-            # 2W directions: the candidate landmarks' ids, positions and
-            # descriptors in, the target keyframe's features, one row out;
-            # 27 operations per descriptor pair (kernel 3's count)
-            st, nbs = a[0], a[2]
-            tab = getattr(st, table)
-            W2, F = 2 * nbs.shape[0], tab.shape[1]
-            per = tab[0].numel() * 4 + F * (desc + 12) + getattr(st, kf_desc)[0].numel() * 4
-            return W2 * (per + F * 4), W2 * F * (27 * F + 60)
-        return cost
+    def key(*a, **kw):
+        seen[0] += 1
+        return (tag, seen[0] if seen[0] <= n else 0)
+    return key
 
-    return {
-        "11a": ("structure_slam_pointline_tpu/models/local_mapping.py:736 fuse_projected_points",
-                lm, "fuse_projected_points", lambda *a: ("fuse",),
-                fuse_cost("kf_kp_mp", 32, "kf_desc")),
-        "11b": ("structure_slam_pointline_tpu/models/local_mapping.py:886 fuse_projected_lines",
-                lm, "fuse_projected_lines", lambda *a: ("fuse",),
-                fuse_cost("kf_line_ml", 32 + 12, "kf_ldesc")),
-    }
+
+def every_call(tag: str):
+    """A Recorder key function: a key of its own for every call (each
+    recorded)."""
+    return first_calls(tag, sys.maxsize)
+
+
+class Spy:
+    """Counts the work of kernel 22's plain versions: every (visible row,
+    feature) window test of `window_mask` (rows with pred_ok times the
+    features; the lines' angle gate follows it on the same pairs), every
+    in-window pair and every distinct in-window feature of `masked_match`."""
+
+    def __init__(self):
+        self.tests = self.pairs = self.cols = 0
+
+    def __enter__(self):
+        from structure_slam_pointline_tpu_torch.ops import matching
+
+        self.win, self.mm = matching.window_mask, matching.masked_match
+
+        def window_mask(pred_uv, pred_ok, kp_xy, *a, **kw):
+            self.tests += int(pred_ok.sum()) * kp_xy.shape[-2]
+            return self.win(pred_uv, pred_ok, kp_xy, *a, **kw)
+
+        def masked_match(da, db, allow, *a, **kw):
+            self.pairs += int(allow.sum())
+            self.cols += int(allow.any(-2).sum())
+            return self.mm(da, db, allow, *a, **kw)
+
+        matching.window_mask, matching.masked_match = window_mask, masked_match
+        return self
+
+    def __exit__(self, *exc):
+        from structure_slam_pointline_tpu_torch.ops import matching
+
+        matching.window_mask, matching.masked_match = self.win, self.mm
 
 
 def drive(cfg, n_track: int, frame, poses, label: str, mesh=None):
@@ -958,43 +1028,158 @@ def run_loop(cam, imgs, poses, enable: bool, device=None, sync=lambda: None) -> 
     return res
 
 
-def loop_glue_rows():
-    """Kernel-table row 18, the loop closer's torch glue around kernel 3:
-    row -> (JAX function, attribute of models/loop_closing.py, key of a
-    call, cost of a call as (bytes, operations)). Each call is timed from
-    the caller; the operation counts are floors (the Hamming pairs at
-    kernel 3's 27 operations, the window tests at 6)."""
-    from structure_slam_pointline_tpu_torch.models.loop_closing import LOOP_POOL
+def match_margins(entry: str, args, b: int, m: int, cols) -> dict:
+    """The gates of row m of batch b of one kernel-22 call, recomputed from
+    its inputs: {gate: (value, threshold)}, the row's own gates and, for
+    each feature in `cols`, the pair's. A row on which the kernel and its
+    plain version differ flips at the gate whose value lies nearest its
+    threshold."""
+    import torch
 
-    def pool_cost(a, kw, out):
-        st, kf_id, M = a[0], a[1], a[2]
-        B = M.shape[0] if M.dim() == 3 else 1
-        F = st.kf_xy.shape[1]
-        n = LOOP_POOL
-        return (n * (4 + 12 + 32) + B * F * (8 + 1 + 32) + B * n * 13,
-                B * n * F * (27 + 6))
+    from structure_slam_pointline_tpu_torch.utils import lie
 
-    def fuse_cost(a, kw, out):
-        st = a[0]
-        K, F = st.kf_kp_mp.shape
+    st, intr = args[0], None
+    g = {}
+
+    def proj(T, X):
+        p = T[:3, :3] @ X + T[:3, 3]
+        z = p[2] if abs(float(p[2])) >= 1e-6 else torch.tensor(1e-6, device=p.device)
+        return float(p[0] / z * intr.fx + intr.cx), float(p[1] / z * intr.fy + intr.cy), p
+
+    def window(tag, u, v, x, y, r):
+        g[f"{tag} |du|"] = (abs(u - x), r)
+        g[f"{tag} |dv|"] = (abs(v - y), r)
+
+    if entry in ("fuse_match_points", "fuse_match_lines"):
+        _, a_ids, b_ids, present, intr, cfg = args
+        a, t = int(a_ids[b]), int(b_ids[b])
+        T = st.kf_T_cw[t]
+        W, H = cfg.camera.width, cfg.camera.height
+        if entry == "fuse_match_points":
+            s_ = int(st.kf_kp_mp[a, m].clamp(0, st.mp_valid.shape[0] - 1))
+            X = st.mp_xyz[s_]
+            u, v, p = proj(T, X)
+            dist = float(torch.linalg.norm(p))
+            dmin, dmax = float(st.mp_dist_min[s_]), float(st.mp_dist_max[s_])
+            g["depth"] = (float(p[2]), 0.1)
+            if 0.0 < dmax < 1e8:
+                g["band lo"] = (dist, dmin * 0.8)
+                g["band hi"] = (dist, dmax * 1.2)
+            maxd = dist if not 0.0 < dmax < 1e8 else dmax
+            q = float(np.log(max(maxd / max(dist, 1e-6), 1.0)) / np.log(np.float32(
+                cfg.frontend.scale_factor)))
+            g["octave"] = (q, float(np.round(q)))
+            c = -(T[:3, :3].T @ T[:3, 3])
+            ray = (X - c) / torch.linalg.norm(X - c).clamp(min=1e-9)
+            n = st.mp_normal[s_]
+            g["normal"] = (float(torch.linalg.norm(n)), 0.5)
+            g["view"] = (float(ray @ n), 0.5)
+            lv = int(np.clip(np.ceil(q), 0, cfg.frontend.n_levels - 1))
+            r = 3.0 * cfg.frontend.scale_factor ** lv
+            for j in cols:
+                x, y = (float(w) for w in st.kf_xy[t, j])
+                window(f"feature {j}", u, v, x, y, r)
+                sig2 = cfg.frontend.scale_factor ** (2.0 * int(st.kf_octave[t, j]))
+                g[f"feature {j} chi2"] = ((u - x) ** 2 + (v - y) ** 2, 5.991 * sig2)
+        else:
+            s_ = int(st.kf_line_ml[a, m].clamp(0, st.ml_valid.shape[0] - 1))
+            ep = st.ml_endpoints[s_]
+            us, vs, ps = proj(T, ep[:3])
+            ue, ve, pe = proj(T, ep[3:])
+            u, v = 0.5 * (us + ue), 0.5 * (vs + ve)
+            g["depth start"] = (float(ps[2]), 0.1)
+            g["depth end"] = (float(pe[2]), 0.1)
+            ang = float(np.arctan2(ve - vs, ue - us))
+            for j in cols:
+                e = st.kf_line_ep[t, j].tolist()
+                window(f"line {j}", u, v, 0.5 * (e[0] + e[2]), 0.5 * (e[1] + e[3]), 8.0)
+                d = (ang - np.arctan2(e[3] - e[1], e[2] - e[0]) + np.pi / 2) % np.pi - np.pi / 2
+                g[f"line {j} angle"] = (abs(d), 0.26)
+        g["u lo"], g["u hi"] = (u, 2.0), (u, W - 2.0)
+        g["v lo"], g["v hi"] = (v, 2.0), (v, H - 2.0)
+    elif entry == "pool_match":
+        _, kf_id, M_cw, pool_ids, intr, radius = args[:6]
+        Mb = M_cw.reshape(-1, 4, 4)[b]
+        t = int(torch.as_tensor(kf_id).reshape(-1)[b])
+        s_ = int(pool_ids[m].clamp(0, st.mp_valid.shape[0] - 1))
+        u, v, p = proj(Mb, st.mp_xyz[s_])
+        g["depth"] = (float(p[2]), 0.1)
+        for j in cols:
+            x, y = (float(w) for w in st.kf_xy[t, j])
+            window(f"feature {j}", u, v, x, y, float(radius))
+    else:
+        _, k, cand, S12, intr = args[:5]
+        S21 = lie.sim3_inverse(S12)
         P = st.mp_valid.shape[0]
-        b, o = pool_cost((st, None, st.kf_T_cw[:len(a[1])]), kw, out)
-        return b + 2 * K * F * 4 + P * 5, o + K * F * 4
+        X1 = st.kf_T_cw[k, :3, :3] @ st.mp_xyz[int(st.kf_kp_mp[k, m].clamp(0, P - 1))] \
+            + st.kf_T_cw[k, :3, 3]
+        u, v, p = proj(S21, X1)
+        g["depth k in cand"] = (float(p[2]), 0.1)
+        xk, yk = (float(w) for w in st.kf_xy[k, m])
+        for j in cols:
+            X2 = st.kf_T_cw[cand, :3, :3] @ st.mp_xyz[int(st.kf_kp_mp[cand, j].clamp(0, P - 1))] \
+                + st.kf_T_cw[cand, :3, 3]
+            u2, v2, p2 = proj(S12, X2)
+            g[f"feature {j} depth in k"] = (float(p2[2]), 0.1)
+            x, y = (float(w) for w in st.kf_xy[cand, j])
+            window(f"feature {j} in cand", u, v, x, y, 7.5)
+            window(f"feature {j} in k", u2, v2, xk, yk, 7.5)
+    return g
 
-    def widen_cost(a, kw, out):
-        F = a[0].kf_xy.shape[1]
-        return 2 * F * (4 + 12 + 8 + 32) + F * 13, F * F * (27 + 12)
 
-    return {
-        "18a": ("structure_slam_pointline_tpu/models/loop_closing.py:140 _loop_fuse",
-                "_loop_fuse", lambda *a, **k: ("fuse",), fuse_cost),
-        "18b": ("structure_slam_pointline_tpu/models/loop_closing.py:104 _project_pool_matches",
-                "_project_pool_matches", lambda st, kf, M, *a, **k: ("pool", tuple(M.shape)),
-                pool_cost),
-        "18c": ("structure_slam_pointline_tpu/models/loop_closing.py:55 _sim3_widen_matches",
-                "_sim3_widen_matches", lambda *a, **k: ("widen",), widen_cost),
-    }
+def keyframe_split(args, kw) -> dict:
+    """One recorded keyframe pipeline call replayed (after one warm call)
+    with each stage timed from the caller, a synchronize before and after
+    each: ms by stage, `rest` (the host glue between them) and `total`."""
+    import torch
 
+    from structure_slam_pointline_tpu_torch.models import local_mapping as lm
+    from structure_slam_pointline_tpu_torch.models import pipeline, tracking
+    from structure_slam_pointline_tpu_torch.optim import local_ba
+    from structure_slam_pointline_tpu_torch.world import map_store
+
+    stages = [(lm, "insert_keyframe"), (map_store, "covisibility_weights"),
+              (lm, "create_new_points"), (lm, "create_new_lines"),
+              (lm, "fuse_projected_points"), (lm, "fuse_projected_lines"),
+              (pipeline, "_gather_ba_problem_device"), (local_ba, "bundle_adjust"),
+              (lm, "apply_ba_result"), (map_store, "point_obs_counts"), (lm, "cull_points"),
+              (lm, "cull_lines"), (lm, "cull_keyframes"), (map_store, "compute_obs_bits"),
+              (tracking, "compute_local_sets")]
+    ms = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    pipeline._keyframe_pipeline(*args, **kw)
+    real = [(mod, name, getattr(mod, name)) for mod, name in stages]
+    for mod, name, fn in real:
+        setattr(mod, name, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipeline._keyframe_pipeline(*args, **kw)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    ms["rest"] = total - sum(ms.values())
+    ms["total"] = total
+    return ms
+
+
+def nearest_gate(g: dict):
+    """(gate, relative margin) of the gate nearest its threshold."""
+    rel = {k: abs(v - t) / max(abs(t), 1e-6) for k, (v, t) in g.items()}
+    k = min(rel, key=rel.get)
+    return k, rel[k]
 
 
 # phase 2e: the dataset path (run A: the bench sequence at the default pools;
@@ -1223,6 +1408,267 @@ def frontend_card_vs_cpu(img: np.ndarray, cfg) -> dict:
     return out
 
 
+def kernels_22_24(fuse_rec: dict, glue_rec: dict, kf_shape) -> tuple:
+    """Kernels 22-24 against their plain versions on the calls recorded in
+    phase 2a (fuse_rec) and 2d (glue_rec), `kf_shape` the points grid's
+    [K, F]: (kernel-table rows, the functions around them timed from the
+    caller with the keyframe pipeline's split)."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.models import local_mapping as lm
+    from structure_slam_pointline_tpu_torch.models import loop_closing
+    from structure_slam_pointline_tpu_torch.ops import matching
+    from structure_slam_pointline_tpu_torch.world import map_store
+
+    rows = []
+    t0 = time.time()
+
+    def calls_of(recorder, what):
+        if not recorder.calls:
+            fail(f"{what}: no call recorded")
+        return recorder.calls
+
+    def match_rows(entry, args, out):
+        """(idx, dist, valid) of one kernel-22 call as [B, M], and the rows
+        that have a candidate."""
+        m, st = out, args[0]
+        if entry in ("fuse_match_points", "fuse_match_lines"):
+            tab = st.kf_kp_mp if entry == "fuse_match_points" else st.kf_line_ml
+            cand = (tab[args[1]] >= 0) & args[3][:, None]
+        elif entry == "pool_match":
+            cand = (args[3] >= 0)[None, :]
+        else:
+            cand = (st.kf_kp_mp[args[1]] >= 0)[None, :]
+        M = m.idx.shape[-1]
+        flat = [t.reshape(-1, M) for t in (m.idx, m.dist, m.valid)]
+        return flat, cand.expand_as(flat[0])
+
+    def check_match(entry, fn, plain, calls):
+        """Replay kernel 22's recorded calls through the kernel and its
+        plain version: rows equal (idx, dist and valid) on >=
+        MATCH_AGREE_MIN of the candidate rows and on every row without a
+        candidate; each differing row printed with its nearest gate, which
+        must lie within MATCH_MARGIN_MAX of its threshold, or share a
+        column with such a row (a claim the flip moved)."""
+        n_rows = n_same = 0
+        diffs = []
+        for key, (args, kw) in calls.items():
+            (ik, dk, vk), cand = match_rows(entry, args, fn(*args, **kw))
+            (ip, dp, vp), _ = match_rows(entry, args, plain(*args, **kw))
+            same = (ik == ip) & (dk == dp) & (vk == vp)
+            if not bool(same[~cand].all()):
+                fail(f"{entry} disagrees on a row without a candidate at {key}")
+            n_rows += int(cand.sum())
+            n_same += int((same & cand).sum())
+            bad = torch.nonzero(~same).tolist()
+            if len(bad) > 200:
+                fail(f"{entry}: {len(bad)} rows differ at {key}")
+            found = []
+            for b_, m_ in bad:
+                cols = sorted({int(ik[b_, m_]), int(ip[b_, m_])})
+                gate, rel = nearest_gate(match_margins(entry, args, b_, m_, cols))
+                found.append(dict(call=str(key), batch=b_, row=m_, cols=cols, gate=gate,
+                                  margin=rel, plain=(int(ip[b_, m_]), bool(vp[b_, m_])),
+                                  kernel=(int(ik[b_, m_]), bool(vk[b_, m_]))))
+            flipped = {(d["batch"], c) for d in found if d["margin"] <= MATCH_MARGIN_MAX
+                       for c in d["cols"]}
+            for d in found:
+                d["explained"] = (d["margin"] <= MATCH_MARGIN_MAX
+                                  or any((d["batch"], c) in flipped for c in d["cols"]))
+                print(f"[kernel 22] {entry} differs at {d['call']} batch {d['batch']} row "
+                      f"{d['row']}: plain {d['plain']} kernel {d['kernel']} | nearest gate "
+                      f"{d['gate']} at {d['margin']:.3e} relative"
+                      + ("" if d["margin"] <= MATCH_MARGIN_MAX else
+                         " (a column a flipped row claims)" if d["explained"] else ""),
+                      flush=True)
+            diffs += found
+        agree = n_same / max(n_rows, 1)
+        if agree < MATCH_AGREE_MIN or not all(d["explained"] for d in diffs):
+            fail(f"{entry}: rows agree {agree:.5f} over {n_rows} candidate rows, "
+                 f"{sum(not d['explained'] for d in diffs)} differences not at a gate")
+        print(f"[kernel 22] {entry}: {len(calls)} calls, {n_rows} candidate rows, "
+              f"agree {agree:.6f}, {len(diffs)} differ", flush=True)
+        return agree, diffs
+
+    def match_row(entry, fn, plain, calls, key):
+        """Kernel 22's table row: every recorded call checked, the call at
+        `key` timed, its bound from the plain version's own counts (window
+        tests, in-window pairs and features: Spy)."""
+        agree, diffs = check_match(entry, fn, plain, calls)
+        args, kw = calls[key]
+        with Spy() as spy:
+            out = plain(*args, **kw)
+        (ik, _, _), cand = match_rows(entry, args, out)
+        B, M = ik.shape
+        N = args[0].kf_xy.shape[1] if entry != "fuse_match_lines" else args[0].kf_line_ep.shape[1]
+        rc = int(cand.sum())
+        per_row = {"fuse_match_points": 64, "fuse_match_lines": 56, "pool_match": 44,
+                   "sim3_widen_match": 88}[entry]
+        per_col = {"fuse_match_lines": 17, "pool_match": 9}.get(entry, 13)
+        return dict(
+            name=entry, max_abs_err=0.0, agree=agree, diffs=diffs, library_ms=None,
+            **timings(lambda: fn(*args, **kw), lambda: plain(*args, **kw)),
+            bytes=B * M * (4 + 9) + rc * per_row + B * N * per_col + spy.cols * 32 + B * 64,
+            ops=spy.tests * OPS_WINDOW_PAIR + spy.pairs * OPS_DIST_PAIR
+            + B * M * OPS_MATCH_ROW[entry],
+            shape=f"{B} x {M} rows ({rc} with a candidate) x {N} features, {spy.tests} "
+                  f"window tests, {spy.pairs} in-window pairs ({len(calls)} calls checked)")
+
+    last = lambda calls: max(calls, key=lambda k: k[1])  # noqa: E731
+    for entry, fn, plain in (
+            ("fuse_match_points", lm.fuse_match_points, lm.fuse_match_points_plain),
+            ("fuse_match_lines", lm.fuse_match_lines, lm.fuse_match_lines_plain)):
+        # phase 2a's calls, the last one timed, and phase 2d's, loop
+        # closing on and off
+        calls = dict(calls_of(fuse_rec[entry], f"{entry} (phase 2a)"))
+        key = last(calls)
+        for run in ("on", "off"):
+            calls.update({(f"2d {run}",) + k: v for k, v in calls_of(
+                glue_rec[f"{entry} {run}"], f"{entry} (phase 2d, loop closing {run})").items()})
+        rows.append(match_row(entry, fn, plain, calls, key))
+    pool_calls = calls_of(glue_rec["pool_match"], "pool_match (phase 2d)")
+    if ("pool", (8, 4, 4)) not in pool_calls or ("pool", (4, 4)) not in pool_calls:
+        fail(f"pool_match: verify's and the loop fuse's calls not both recorded: "
+             f"{sorted(pool_calls)}")
+    rows.append(match_row("pool_match", loop_closing._project_pool_matches,
+                          loop_closing._project_pool_matches_plain, pool_calls,
+                          ("pool", (8, 4, 4))))
+    widen_calls = calls_of(glue_rec["sim3_widen_match"], "sim3_widen_match (phase 2d)")
+    rows.append(match_row("sim3_widen_match", loop_closing._sim3_widen_matches,
+                          loop_closing._sim3_widen_matches_plain, widen_calls,
+                          last(widen_calls)))
+    print(f"[time] kernel 22 checked and timed in {time.time() - t0:.0f} s", flush=True)
+
+    # kernel 23: every recorded merge walk and finish bit-equal
+    def check_equal(name, fn, plain, calls):
+        for key, (args, kw) in calls.items():
+            out_k, out_p = fn(*args, **kw), plain(*args, **kw)
+            for a, b in zip(out_k if isinstance(out_k, tuple) else (out_k,),
+                            out_p if isinstance(out_p, tuple) else (out_p,)):
+                if not torch.equal(a, b):
+                    fail(f"{name} disagrees at {key}: {int((a != b).sum())} entries")
+
+    def merge_row(name, fn, plain, calls, key):
+        check_equal(name, fn, plain, calls)
+        args, kw = calls[key]
+        table, valid, redirect = plain(*args, **kw)
+        K, F = table.shape
+        P = valid.shape[0]
+        D, M = args[-1].shape
+        n_red = int((redirect != torch.arange(P, device=redirect.device)).sum())
+        n_add = int(((args[0] < 0) & (table >= 0)).sum())
+        return dict(name=name, max_abs_err=0.0, library_ms=None,
+                    **timings(lambda: fn(*args, **kw), lambda: plain(*args, **kw)),
+                    bytes=2 * K * F * 4 + P * (1 + 1 + 4 + 4) + D * M * 5, ops=0,
+                    merges=dict(redirects=n_red, adds=n_add),
+                    shape=f"{D} directions x {M} rows, [{K}, {F}] table, {P} landmarks, "
+                          f"{n_red} redirects, {n_add} adds ({len(calls)} calls checked)")
+
+    # phase 2a's merges (the last points walk timed) and every one of phase 2d's
+    merge_calls = calls_of(fuse_rec["fuse_merge"], "fuse_merge (phase 2a)")
+    pt_merges = {k: v for k, v in merge_calls.items()
+                 if v[0][0].shape[1] == kf_shape[1]}
+    merge_calls = {**merge_calls, **{("2d",) + k: v for k, v in calls_of(
+        glue_rec["fuse_merge"], "fuse_merge (phase 2d)").items()}}
+    rows.append(merge_row("fuse_merge", lm.fuse_merge, lm.fuse_merge_plain, merge_calls,
+                          max(pt_merges, key=lambda k: k[1])))
+    loop_calls = calls_of(glue_rec["loop_merge"], "loop_merge (phase 2d)")
+    rows.append(merge_row("loop_merge", loop_closing.loop_merge, loop_closing.loop_merge_plain,
+                          loop_calls, last(loop_calls)))
+    fin_calls = {**calls_of(fuse_rec["fuse_finish"], "fuse_finish (phase 2a)"),
+                 **{("loop",) + k: v for k, v in calls_of(glue_rec["fuse_finish"],
+                                                          "fuse_finish (phase 2d)").items()}}
+    check_equal("fuse_finish", matching.fuse_finish, matching.fuse_finish_plain, fin_calls)
+    fkey = next(k for k in fin_calls if k[0] == "finish" and k[2]
+                and k[1] == tuple(kf_shape))
+    fargs, fkw = fin_calls[fkey]
+    Kf, Ff = fargs[0].shape
+    Pf = fargs[1].shape[0]
+    rows.append(dict(name="fuse_finish", max_abs_err=0.0, library_ms=None,
+                     **timings(lambda: matching.fuse_finish(*fargs, **fkw),
+                               lambda: matching.fuse_finish_plain(*fargs, **fkw)),
+                     bytes=2 * Kf * Ff * 4 + Pf * (4 + 1), ops=0,
+                     shape=f"[{Kf}, {Ff}] table, {Pf} landmarks ({len(fin_calls)} shapes "
+                           f"checked: {sorted(map(str, fin_calls))})"))
+
+    # kernel 24: bit-equal; library yardstick the indicator products
+    def indicators(st):
+        Kc = st.kf_valid.shape[0]
+        out = []
+        for table, cap in ((st.kf_kp_mp, st.mp_valid.shape[0]),
+                           (st.kf_line_ml, st.ml_valid.shape[0])):
+            Mi = torch.zeros((Kc, cap + 1), dtype=torch.float32, device=table.device)
+            Mi[torch.arange(Kc, device=table.device)[:, None].expand_as(table),
+               torch.where(table >= 0, table, cap).long()] = 1.0
+            out.append(Mi[:, :cap].contiguous())
+        return out
+
+    row_calls = calls_of(fuse_rec["covis_row"], "covis_row (phase 2a)")
+    check_equal("covis_row", map_store.covisibility_weights, map_store.covisibility_weights_plain,
+                row_calls)
+    def live_bytes(st):
+        """kf_valid and the valid keyframes' rows of both grids: what
+        either function reads (a row of an invalid keyframe counts
+        nothing)."""
+        n_live = int(st.kf_valid.sum())
+        return nbytes(st.kf_valid) + n_live * (st.kf_kp_mp.shape[1] + st.kf_line_ml.shape[1]) * 4
+
+    (st_r, k_r), _ = row_calls[last(row_calls)]
+    Mp, Ml = indicators(st_r)
+    Kc = st_r.kf_valid.shape[0]
+    rows.append(dict(
+        name="covis_row", max_abs_err=0.0,
+        **timings(lambda: map_store.covisibility_weights(st_r, k_r),
+                  lambda: map_store.covisibility_weights_plain(st_r, k_r)),
+        library_ms=device_ms(lambda: Mp @ Mp[k_r] + Ml @ Ml[k_r]),
+        library_wall_ms=time_ms(lambda: Mp @ Mp[k_r] + Ml @ Ml[k_r]),
+        library_shape="torch.matmul of the indicator matrices by keyframe k's row (equal "
+                      "where no row repeats an id)",
+        bytes=live_bytes(st_r) + Kc * 4, ops=0,
+        shape=f"{tuple(st_r.kf_kp_mp.shape)} + {tuple(st_r.kf_line_ml.shape)} grids, keyframe "
+              f"{k_r}, {int(st_r.kf_valid.sum())} valid keyframes ({len(row_calls)} calls "
+              f"checked)"))
+    # every phase 2d call checked, the last (the fullest map) timed
+    mat_calls = calls_of(glue_rec["covis_matrix"], "covis_matrix (phase 2d)")
+    check_equal("covis_matrix", map_store.covisibility_matrix,
+                map_store.covisibility_matrix_plain, mat_calls)
+    (st_cv,), _ = mat_calls[last(mat_calls)]
+    Mp, Ml = indicators(st_cv)
+    Kc = st_cv.kf_valid.shape[0]
+    rows.append(dict(
+        name="covis_matrix", max_abs_err=0.0,
+        **timings(lambda: map_store.covisibility_matrix(st_cv),
+                  lambda: map_store.covisibility_matrix_plain(st_cv)),
+        library_ms=device_ms(lambda: Mp @ Mp.T + Ml @ Ml.T),
+        library_wall_ms=time_ms(lambda: Mp @ Mp.T + Ml @ Ml.T),
+        library_shape="torch.matmul of the [K, P] and [K, L] indicator matrices",
+        bytes=live_bytes(st_cv) + Kc * Kc * 4, ops=0,
+        shape=f"{tuple(st_cv.kf_kp_mp.shape)} + {tuple(st_cv.kf_line_ml.shape)} grids, "
+              f"{int(st_cv.kf_valid.sum())} valid keyframes, call {last(mat_calls)[1]} of "
+              f"{len(mat_calls)} (all checked)"))
+    print(f"[time] kernels 23-24 checked and timed in {time.time() - t0:.0f} s", flush=True)
+
+    # the functions around kernels 22-24, from the caller (CUDA events) and
+    # on the device: the fuses, the loop fuse; the keyframe pipeline's
+    # stages from the caller, each synchronized (keyframe_split)
+    functions = {}
+    for name, (mod, r) in {"fuse_projected_points": (lm, fuse_rec["fuse_projected_points"]),
+                           "fuse_projected_lines": (lm, fuse_rec["fuse_projected_lines"]),
+                           "_loop_fuse": (loop_closing, glue_rec["_loop_fuse"])}.items():
+        key = max(calls_of(r, name), key=lambda k: k[-1] if isinstance(k[-1], int) else 0)
+        args, kw = r.calls[key]
+        fn = getattr(mod, name)
+        functions[name] = {"calls": sum(r.n.values()), "timed_call": str(key),
+                           "ms": device_ms(lambda: fn(*args, **kw), reps=5),
+                           "wall_ms": time_ms(lambda: fn(*args, **kw), reps=5)}
+        print(f"[function] {name}: {functions[name]}", flush=True)
+    kfp = calls_of(fuse_rec["keyframe_pipeline"], "_keyframe_pipeline (phase 2a)")
+    functions["keyframe_pipeline"] = keyframe_split(*kfp[last(kfp)])
+    print(f"[function] keyframe pipeline split (ms from the caller): "
+          f"{functions['keyframe_pipeline']}", flush=True)
+    return rows, functions
+
+
 def main() -> int:
     import torch
 
@@ -1306,14 +1752,32 @@ def main() -> int:
                                lambda p3, uv, m, sets, *a, **kw: ("pnp", tuple(sets.shape),
                                                                   p3.shape[-2])),
     }
-    op_rows = torch_op_rows(cfg)
-    op_rec = {row: Recorder(mod, attr, key_fn)
-              for row, (_, mod, attr, key_fn, _) in op_rows.items()}
+    from structure_slam_pointline_tpu_torch.models import local_mapping as lm
+    from structure_slam_pointline_tpu_torch.models import pipeline
+    from structure_slam_pointline_tpu_torch.ops import matching
+
+    def finish_key(table, valid, redirect, clear_invalid):
+        return ("finish", tuple(table.shape), clear_invalid)
+
+    # kernels 22-24 on the keyframe path: every keyframe's fuse matches
+    # recorded (kernel 22's agreement is counted over all of them), the
+    # first merges, each finish shape, one covisibility row; the fuse
+    # functions and the keyframe pipeline for their caller split
+    fuse_rec = {
+        "fuse_match_points": Recorder(lm, "fuse_match_points", first_calls("pts", 12)),
+        "fuse_match_lines": Recorder(lm, "fuse_match_lines", first_calls("lns", 12)),
+        "fuse_merge": Recorder(lm, "fuse_merge", first_calls("merge", 24)),
+        "fuse_finish": Recorder(matching, "fuse_finish", finish_key),
+        "covis_row": Recorder(map_store, "covisibility_weights", first_calls("row", 12)),
+        "fuse_projected_points": Recorder(lm, "fuse_projected_points", first_calls("fuse", 12)),
+        "fuse_projected_lines": Recorder(lm, "fuse_projected_lines", first_calls("fuse", 12)),
+        "keyframe_pipeline": Recorder(pipeline, "_keyframe_pipeline", first_calls("kfp", 12)),
+    }
     # 2a: the main path, lines on, every wrapper's first call of each shape recorded
-    for r in (*rec.values(), *op_rec.values()):
+    for r in (*rec.values(), *fuse_rec.values()):
         r.__enter__()
     slam, e2e, counts = drive(cfg, N_TRACK, frame, poses, "lines")
-    for r in (*rec.values(), *op_rec.values()):
+    for r in (*rec.values(), *fuse_rec.values()):
         r.__exit__()
     zero = [k for k, v in counts.items() if v == 0 and k not in OFF_MAIN_PATH]
     if zero:
@@ -1395,7 +1859,14 @@ def main() -> int:
     from structure_slam_pointline_tpu_torch.optim import pose_graph, sim3_solver
 
     loop_imgs, loop_poses = loop_scenario(cam)
+    # kernel 22's fuse matches of both runs recorded, each call
+    match_rec = {f"{entry} {run}": Recorder(lm, entry, every_call(f"{entry[11:]} {run}"))
+                 for run in ("off", "on") for entry in ("fuse_match_points", "fuse_match_lines")}
+    for r in (match_rec["fuse_match_points off"], match_rec["fuse_match_lines off"]):
+        r.__enter__()
     loop_off = run_loop(cam, loop_imgs, loop_poses, False, sync=torch.cuda.synchronize)
+    for r in (match_rec["fuse_match_points off"], match_rec["fuse_match_lines off"]):
+        r.__exit__()
     loop_rec = {
         "ransac_sim3": Recorder(sim3_solver, "ransac_sim3",
                                 lambda p1, p2, m, sets, *a, **k: ("sim3", tuple(sets.shape),
@@ -1407,16 +1878,26 @@ def main() -> int:
                                                       prob.edge_i.shape[0])),
         "local_ba": Recorder(local_ba, "bundle_adjust",
                              lambda prob, *a, **k: ("ba", prob.edge_mp.shape[0])),
-        "hamming_best2": Recorder(
-            hamming, "masked_best2",
-            lambda a, b, m: ("ham", tuple(a.shape), tuple(b.shape), tuple(m.shape))),
         "bow_query": Recorder(bow, "query_database",
                               lambda q, kb, *a, **kw: ("query", tuple(kb.shape))),
     }
-    glue_rows = loop_glue_rows()
-    glue_rec = {row: Recorder(loop_closing, attr, key_fn)
-                for row, (_, attr, key_fn, _) in glue_rows.items()}
-    glue_rec["covis"] = Recorder(map_store, "covisibility_matrix", lambda st: ("covis",))
+    # kernels 22-24 on the loop-closing path: verify's pool match (B = 1)
+    # and the loop fuse's (B = 8), the Sim(3) widenings, the loop merges,
+    # the loop fuse's finish, every covisibility matrix; every local merge
+    # walk and fuse match; the loop fuse for its caller time
+    glue_rec = {
+        "pool_match": Recorder(loop_closing, "_project_pool_matches",
+                               lambda st, kf, M, *a, **k: ("pool", tuple(M.shape))),
+        "sim3_widen_match": Recorder(loop_closing, "_sim3_widen_matches",
+                                     first_calls("widen", 4)),
+        "loop_merge": Recorder(loop_closing, "loop_merge", first_calls("loop", 4)),
+        "fuse_finish": Recorder(matching, "fuse_finish", finish_key),
+        "covis_matrix": Recorder(map_store, "covisibility_matrix", every_call("covis")),
+        "_loop_fuse": Recorder(loop_closing, "_loop_fuse", lambda *a, **k: ("fuse",)),
+        "fuse_merge": Recorder(lm, "fuse_merge", every_call("merge")),
+        "fuse_match_points on": match_rec["fuse_match_points on"],
+        "fuse_match_lines on": match_rec["fuse_match_lines on"],
+    }
     for r in (*loop_rec.values(), *glue_rec.values()):
         r.__enter__()
     torch.cuda.synchronize()
@@ -1426,6 +1907,7 @@ def main() -> int:
     counts_loop = dict(kernels.COUNTS)
     for r in (*loop_rec.values(), *glue_rec.values()):
         r.__exit__()
+    glue_rec.update({k: r for k, r in match_rec.items() if k.endswith(" off")})
     print(f"[e2e loop] launches {counts_loop}", flush=True)
     loop_slam = loop_on.pop("slam", None)
     loop_off.pop("slam", None)
@@ -1439,7 +1921,7 @@ def main() -> int:
         f"ATE-Sim3 <= {LOOP_ATE_MAX}, both runs":
             all(r["ate_sim3"] <= LOOP_ATE_MAX for r in (loop_off, loop_on)),
         f">= {LOOP_MIN_LINES} map lines": loop_on["n_ml"] >= LOOP_MIN_LINES,
-        "kernels 16-18 launched": all(counts_loop[k] > 0 for k in LOOP_KERNELS),
+        "kernels 16-18 and 22-24 launched": all(counts_loop[k] > 0 for k in LOOP_KERNELS),
         "kernel 12 ran at 64 keyframes": loop_on["gba_windows"] >= 1
         and ("ba", 64) in loop_rec["local_ba"].calls,
     }
@@ -2641,28 +3123,6 @@ def main() -> int:
         ops=nkp * 11000, library_ms=None,
         shape=f"{len(ob_calls)} levels x {ob_calls[0][0].shape[0]} frames, {nkp} keypoints"))
     print(f"[time] batch entries done at {time.time() - t_start:.0f} s", flush=True)
-    # kernel 3 at the loop closer's shapes ([4096, 1024] pool matches, the
-    # batched [8, 4096, 1024] loop fuse): equal
-    lham = loop_rec["hamming_best2"].calls
-    for key, (args, _) in lham.items():
-        for a, b in zip(hamming.masked_best2(*args), hamming.masked_best2_plain(*args)):
-            if not torch.equal(a, b):
-                fail(f"hamming_best2 disagrees at the loop shape {key}: {int((a != b).sum())} rows")
-    ham_row = next(r for r in rows if r["name"] == "hamming_best2")
-    ham_row["loop_shapes"] = {}
-    for key in [k for k in lham if k[3][-2] == loop_closing.LOOP_POOL]:
-        a, b, m = lham[key][0]
-        Bh = m.shape[0] if m.dim() == 3 else 1
-        M, N = m.shape[-2:]
-        hb = Bh * M * 32 if a.dim() == 3 else M * 32
-        ham_row["loop_shapes"][str(tuple(m.shape))] = dict(
-            **timings(lambda: hamming.masked_best2(a, b, m),
-                      lambda: hamming.masked_best2_plain(a, b, m)),
-            bound_ms=max((hb + Bh * N * 32 + Bh * M * N + Bh * 16 * M) / HBM_BYTES_PER_S,
-                         27 * Bh * M * N / CUDA_CORE_OPS_PER_S) * 1e3)
-    if len(ham_row["loop_shapes"]) < 2:
-        fail(f"loop-closing Hamming shapes missing: {sorted(lham)}")
-
     # kernel 14 as detect's scorer (nothing masked): equal, or within 1e-6
     dq_err = 0.0
     for key, (args, kw) in loop_rec["bow_query"].calls.items():
@@ -2670,8 +3130,7 @@ def main() -> int:
                               - bow.query_database_plain(*args, **kw)).abs().max().item())
     if dq_err > 1e-6:
         fail(f"bow_query as detect's scorer disagrees: max err {dq_err:.3e}")
-    print(f"[check] loop shapes: hamming {sorted(lham)} equal; detect scores err "
-          f"{dq_err:.3e}", flush=True)
+    print(f"[check] loop shapes: detect scores err {dq_err:.3e}", flush=True)
     # kernel 19: bit-equal on run B's first input of each pass, then at full
     # capacity on phase 2a's final map with a seeded half of its live slots
     # culled, where each pass is timed (no single PyTorch call computes a
@@ -2715,66 +3174,10 @@ def main() -> int:
     frontend = frontend_card_vs_cpu(frame(i), cfg)
     print(f"[time] kernel checks done at {time.time() - t_start:.0f} s", flush=True)
 
-    # the rows still run as torch ops: calls on the main path, one call of
-    # the most frequent shape timed beside its bound
-    ops_table = []
-    for row, (replaces, _, attr, _, cost) in op_rows.items():
-        r = op_rec[row]
-        if not r.n:
-            fail(f"torch-op row {row} ({attr}) never ran on the main path")
-        key = max(r.n, key=r.n.get)
-        args, kw = r.calls[key]
-        fn = getattr(r.module, attr)
-        b, o = cost(args, kw, fn(*args, **kw))
-        b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / CUDA_CORE_OPS_PER_S * 1e3
-        ops_table.append({
-            "row": row, "function": attr, "replaces": replaces, "calls": sum(r.n.values()),
-            # few repetitions: a fuse call is thousands of small torch ops
-            "ms": device_ms(lambda: fn(*args, **kw), reps=3),
-            "wall_ms": time_ms(lambda: fn(*args, **kw), reps=3, warmup=1),
-            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "timed_call": str(key)})
-        print(f"[torch-op] row {row} {attr}: {ops_table[-1]['calls']} calls | device "
-              f"{ops_table[-1]['ms']:.4f} ms, caller {ops_table[-1]['wall_ms']:.4f} ms | "
-              f"bound {max(b_ms, o_ms):.5f} ms | timed {key}", flush=True)
-    # the covisibility matrix (torch.matmul of the indicator matrices),
-    # counted over phase 2d's loop-closing run; bound by bytes: the two
-    # edge grids and the validity mask in, the [K, K] int32 matrix out
-    r = glue_rec["covis"]
-    if not r.n:
-        fail("covisibility_matrix never ran in phase 2d")
-    (st_cv,), _ = r.calls[("covis",)]
-    b = nbytes(st_cv.kf_kp_mp, st_cv.kf_line_ml, st_cv.kf_valid) + st_cv.kf_valid.shape[0] ** 2 * 4
-    ops_table.append({
-        "row": "covis", "function": "covisibility_matrix",
-        "replaces": "structure_slam_pointline_tpu/world/map_store.py:210 covisibility_matrix",
-        "calls": sum(r.n.values()),
-        "ms": device_ms(lambda: map_store.covisibility_matrix(st_cv), reps=5),
-        "wall_ms": time_ms(lambda: map_store.covisibility_matrix(st_cv), reps=5),
-        "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "timed_call": str(tuple(st_cv.kf_kp_mp.shape))})
-    print(f"[torch-op] covisibility_matrix: {ops_table[-1]['calls']} calls | device "
-          f"{ops_table[-1]['ms']:.4f} ms, caller {ops_table[-1]['wall_ms']:.4f} ms | bound "
-          f"{ops_table[-1]['bound_ms']:.5f} ms", flush=True)
-    for row, (replaces, attr, _, cost) in glue_rows.items():
-        r = glue_rec[row]
-        if not r.n:
-            fail(f"loop glue row {row} ({attr}) never ran in phase 2d")
-        key = max(r.n, key=r.n.get)
-        args, kw = r.calls[key]
-        fn = getattr(loop_closing, attr)
-        b, o = cost(args, kw, None)
-        b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / CUDA_CORE_OPS_PER_S * 1e3
-        ops_table.append({
-            "row": row, "function": attr, "replaces": replaces, "calls": sum(r.n.values()),
-            "ms": device_ms(lambda: fn(*args, **kw), reps=3),
-            "wall_ms": time_ms(lambda: fn(*args, **kw), reps=3, warmup=1),
-            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "timed_call": str(key)})
-        print(f"[torch-op] row {row} {attr}: {ops_table[-1]['calls']} calls | device "
-              f"{ops_table[-1]['ms']:.4f} ms, caller {ops_table[-1]['wall_ms']:.4f} ms | "
-              f"bound {max(b_ms, o_ms):.5f} ms | timed {key}", flush=True)
-    print(f"[time] torch-op rows done at {time.time() - t_start:.0f} s", flush=True)
+    # ---- kernels 22-24 against their plain versions (phases 2a and 2d) ----
+    k22_rows, functions = kernels_22_24(fuse_rec, glue_rec, tuple(slam.map.kf_kp_mp.shape))
+    rows += k22_rows
+    print(f"[time] function rows done at {time.time() - t_start:.0f} s", flush=True)
 
     # ---- phase 4: where the time goes, 20 more frames under torch.profiler ----
     from torch.profiler import ProfilerActivity, profile
@@ -2832,7 +3235,8 @@ def main() -> int:
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],
             "plain_wall_ms": r["plain_wall_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("frame_wall_ms", "frame_plain_wall_ms", "library_wall_ms",
-                                 "library_shape", "split", "votes", "kl64", "loop_shapes",
+                                 "library_shape", "split", "votes", "kl64", "agree", "diffs",
+                                 "merges",
                                  "passes", "plain_timed", "systems")
                if k in r}})
         print(f"[kernel] {r['name']}: {r['shape']} | device: kernel {r['ms']:.4f} ms, "
@@ -2849,7 +3253,7 @@ def main() -> int:
                       "batch_frontend": batch_out, "launches_batch": counts_batch,
                       "fuse3d_merged": merged,
                       "frontend_card_vs_cpu": frontend,
-                      "profile": profile_out, "torch_ops": ops_table}), flush=True)
+                      "profile": profile_out, "functions": functions}), flush=True)
     distributed.shutdown_multihost()
     print(f"[done] all phases passed in {time.time() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)

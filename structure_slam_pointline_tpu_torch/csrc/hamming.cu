@@ -15,7 +15,8 @@
 //   best_j = first argmin d, best = d[best_j]
 //   d'_j = d_j (j != best_j), best + 2^20 (j == best_j)
 //   second_j = first argmin d', second = d'[second_j]
-// Comparing (value, index) pairs everywhere keeps jnp.argmin's first-index
+// The lists and the re-mask live in csrc/top2.cuh, shared with kernel 22:
+// comparing (value, index) pairs everywhere keeps jnp.argmin's first-index
 // rule; second is the smaller of the runner-up pair and
 // (best + 2^20, best_j), which covers rows with fewer than two columns.
 //
@@ -28,29 +29,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
+#include "top2.cuh"
 
 namespace {
 
 constexpr int ROWS = 8;     // warps (rows) per block
 constexpr int CHUNK = 512;  // columns staged per pass
-constexpr int BIG = 1 << 20;
-
-struct Top2 {
-  int v0, j0, v1, j1;
-};
-
-__device__ __forceinline__ bool less(int va, int ja, int vb, int jb) {
-  return va < vb || (va == vb && ja < jb);
-}
-
-__device__ __forceinline__ void push(Top2& t, int v, int j) {
-  if (less(v, j, t.v0, t.j0)) {
-    t.v1 = t.v0; t.j1 = t.j0; t.v0 = v; t.j0 = j;
-  } else if (less(v, j, t.v1, t.j1)) {
-    t.v1 = v; t.j1 = j;
-  }
-}
+constexpr int BIG = top2::BIG;
 
 __global__ void hamming_best2_kernel(const int32_t* __restrict__ A,
                                      const int32_t* __restrict__ Bd,
@@ -72,7 +57,7 @@ __global__ void hamming_best2_kernel(const int32_t* __restrict__ A,
 #pragma unroll
   for (int w = 0; w < 8; ++w) a[w] = (uint32_t)arow[w];
 
-  Top2 t{INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+  top2::Top2 t = top2::empty();
   for (int c0 = 0; c0 < N; c0 += CHUNK) {
     const int nc = min(CHUNK, N - c0);
     __syncthreads();
@@ -92,24 +77,15 @@ __global__ void hamming_best2_kernel(const int32_t* __restrict__ A,
             __popc(a[3] ^ p.w) + __popc(a[4] ^ q.x) + __popc(a[5] ^ q.y) +
             __popc(a[6] ^ q.z) + __popc(a[7] ^ q.w);
       }
-      push(t, d, j);
+      top2::push(t, d, j);
     }
   }
   if (!row_ok) return;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    int v0 = __shfl_xor_sync(0xffffffffu, t.v0, off);
-    int j0 = __shfl_xor_sync(0xffffffffu, t.j0, off);
-    int v1 = __shfl_xor_sync(0xffffffffu, t.v1, off);
-    int j1 = __shfl_xor_sync(0xffffffffu, t.j1, off);
-    push(t, v0, j0);
-    push(t, v1, j1);
-  }
+  top2::warp_merge(t);
   if (lane == 0) {
     const size_t o = (size_t)b * M + m;
-    int sv = t.v1, sj = t.j1;
-    const int rv = t.v0 + BIG;  // the best column, re-masked
-    if (less(rv, t.j0, sv, sj)) { sv = rv; sj = t.j0; }
+    int sv, sj;
+    top2::finish(t, sv, sj);  // the best column, re-masked
     best[o] = t.v0;
     best_j[o] = t.j0;
     second[o] = sv;

@@ -15,11 +15,16 @@ one source (kernels 13 and 14 in `bow.cu`, 20 and 21 in `fuse3d.cu`,
 kernel 10 and its eigensolver entry in `null_vector4.cu`; the sharded
 form of kernel 12 and the dense solver of `csrc/dense_lu.cuh` alone in
 `local_ba.cu`, and the frame-batched entries of
-kernels 1, 11 and 2 in `fast.cu`, `kp_select.cu` and `orb.cu`): each
-source is built once, into one library, and each kernel is counted on
-its own; every launch of any of them adds one to its kernel's
-`COUNTS[name]`, where the wrapper launches it and nowhere else;
-`reset_counts()` zeroes them.
+kernels 1, 11 and 2 in `fast.cu`, `kp_select.cu` and `orb.cu`; kernel
+22's four entries `fuse_match_points`, `fuse_match_lines`, `pool_match`
+and `sim3_widen_match` in `fuse_match.cu`, kernel 23's `fuse_merge`,
+`loop_merge` and `fuse_finish` in `fuse_merge.cu`, kernel 24's
+`covis_row` and `covis_matrix` in `covis.cu`): each source is built
+once, into one library, and each kernel is counted on its own; every
+launch of any of them adds one to its kernel's `COUNTS[name]`, where the
+wrapper launches it and nowhere else; `reset_counts()` zeroes them.
+Kernels 22-24's C entries make all of a call's launches (memsets and
+copies included), so each counts one per call.
 """
 
 from __future__ import annotations
@@ -67,12 +72,24 @@ SOURCES = {
     "kp_select_batch": "kp_select.cu",
     "orb_describe_batch": "orb.cu",
     "dense_solve": "local_ba.cu",
+    "fuse_match_points": "fuse_match.cu",
+    "fuse_match_lines": "fuse_match.cu",
+    "pool_match": "fuse_match.cu",
+    "sim3_widen_match": "fuse_match.cu",
+    "fuse_merge": "fuse_merge.cu",
+    "loop_merge": "fuse_merge.cu",
+    "fuse_finish": "fuse_merge.cu",
+    "covis_matrix": "covis.cu",
+    "covis_row": "covis.cu",
 }
 
 # sources built with nvcc's default -fmad=true (every other one gets
 # -fmad=false): kernel 10 (and its eigensolver entry) calls the CUDA math
 # library's atan2f / cosf / sinf as torch's own CUDA kernels do, and rounds
-# its own products and sums explicitly
+# its own products and sums explicitly. Kernel 22's logf equals torch.log's
+# under either setting (tools/fuse_numerics.py), so fuse_match.cu, which
+# shares csrc/lines.cuh's atan2f with the -fmad=false line kernels, stays
+# -fmad=false
 FMAD = {"null_vector4.cu"}
 
 ENTRIES = {name: (name,) for name in SOURCES}
@@ -190,6 +207,12 @@ _ARGTYPES = {
     # n_arrays, host arrays of sources, destinations and lengths (int64),
     # table, table_len, clip, stream
     "compact_remap": [_I, _P, _P, _P, _P, _I, _I, _P],
+    # kernels 22-24: a pointer to the host-side work description
+    # (ops/matching.py _MatchWork / _MergeWork / _FinishWork,
+    # world/map_store.py _CovisWork)
+    **{e: [_P, _P] for e in ("fuse_match_points", "fuse_match_lines", "pool_match",
+                             "sim3_widen_match", "fuse_merge", "loop_merge", "fuse_finish",
+                             "covis_matrix", "covis_row")},
 }
 
 

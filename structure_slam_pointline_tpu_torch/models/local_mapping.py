@@ -2,10 +2,17 @@
 problem gathering, result write-back and culling, points and lines.
 
 Counterpart of structure_slam_pointline_tpu/models/local_mapping.py.
-Descriptor matching runs through kernel 3: the
-neighbour searches of `create_new_points` / `create_new_lines` as one
-[NB, M, N] batched launch each and the fuse directions as one [2W, M, N]
-batched launch each. Scatters follow the reference's "drop" and
+Descriptor matching runs through kernel 3 in the neighbour searches of
+`create_new_points` / `create_new_lines` ([NB, M, N] batched launches).
+The projection fuses run through kernels 22 and 23: `fuse_match_points` /
+`fuse_match_lines` project, gate and window-match the 2W directions in
+one launch (csrc/fuse_match.cu; no [2W, M, N] mask), `fuse_merge` walks
+the directions' merges in the reference's order and
+`ops/matching.fuse_finish` composes the redirects, applies them and
+dedups each row (csrc/fuse_merge.cu; no [K, P + 1] table; both launch
+from ops/matching.py, as the loop fuse's do). Their `_plain` versions are
+the reference's formulation in torch (the window mask, kernel 3, the
+host loop of scatters). Scatters follow the reference's "drop" and
 last-write-wins semantics (utils/indexing.py), so the sequential fuse
 merges are deterministic.
 
@@ -22,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from structure_slam_pointline_tpu_torch import kernels
@@ -607,48 +615,34 @@ def fuse_duplicate_lines_3d(state: MapState, k_new: int, n_kf: int, intr: Intrin
     return state._replace(ml_valid=ml_valid, kf_line_ml=kf_line_ml)
 
 
-def _compose_redirect(redirect: torch.Tensor) -> torch.Tensor:
-    for _ in range(3):
-        redirect = redirect[redirect.long()]
-    return redirect
-
-
-def _dedup_row_table(tbl: torch.Tensor, cap: int) -> torch.Tensor:
-    """Clear repeated landmark ids within each row, keeping the first."""
-    K, F = tbl.shape
-    dev = tbl.device
-    rows = torch.arange(K, device=dev)[:, None].expand(K, F)
-    feats = torch.arange(F, dtype=torch.int32, device=dev)[None, :].expand(K, F)
-    ids = torch.where(tbl >= 0, tbl, cap).long()
-    first = torch.full((K, cap + 1), F, dtype=torch.int32, device=dev)
-    lin = (rows * (cap + 1) + ids).reshape(-1)
-    first = first.reshape(-1).scatter_reduce(0, lin, feats.reshape(-1),
-                                             reduce="amin").reshape(K, cap + 1)
-    keep = (tbl >= 0) & (first[rows, ids] == feats)
-    return torch.where(keep, tbl, -1)
-
-
-def fuse_projected_points(state: MapState, k_new: int, nb_ids: torch.Tensor,
-                          intr: Intrinsics, cfg: SLAMConfig) -> MapState:
-    """Projection-space landmark fusion (SearchInNeighbors + Fuse): the 2W
-    directions (new KF -> neighbours and back) match as ONE batched
-    kernel-3 launch against the pre-fuse snapshot; the merge / add scatters
-    then apply direction by direction, in the reference's order."""
-    K, F = state.kf_kp_mp.shape
-    P = state.mp_valid.shape[0]
+def _fuse_directions(state: MapState, k_new: int, nb_ids: torch.Tensor):
+    """(a_ids, b_ids, present) [2W] of the fuse directions: the new
+    keyframe's landmarks into each neighbour, then each neighbour's into
+    the new keyframe; a direction is present when its neighbour is a
+    valid keyframe other than k_new."""
+    K = state.kf_valid.shape[0]
     W = nb_ids.shape[0]
-    dev = state.kf_kp_mp.device
-    obs = point_obs_counts(state)
-    sf = cfg.frontend.scale_factor
     nb_safe = torch.clamp(nb_ids, 0, K - 1).long()
     nb_present = (nb_ids >= 0) & state.kf_valid[nb_safe] & (nb_safe != k_new)
-    k_new_b = torch.full((W,), int(k_new), dtype=torch.long, device=dev)
-    a_ids = torch.cat([k_new_b, nb_safe])
-    b_ids = torch.cat([nb_safe, k_new_b])
-    dir_present = torch.cat([nb_present, nb_present])
+    k_new_b = torch.full((W,), int(k_new), dtype=torch.long, device=nb_safe.device)
+    return (torch.cat([k_new_b, nb_safe]), torch.cat([nb_safe, k_new_b]),
+            torch.cat([nb_present, nb_present]))
 
+
+def fuse_match_points_plain(state: MapState, a_ids: torch.Tensor, b_ids: torch.Tensor,
+                            present: torch.Tensor, intr: Intrinsics,
+                            cfg: SLAMConfig) -> matching.MatchResult:
+    """The point fuse's direction matches, all directions batched (the
+    reference's vmapped `direction_match`, :793-834): project each source
+    landmark into the target keyframe, gate (depth, scale band, viewing
+    angle, predicted octave, in-image), window-match through kernel 3 at
+    TH_LOW with unique columns, then the chi2 gate at the matched
+    feature's octave. Returns [2W, F] idx / dist / valid."""
+    F = state.kf_kp_mp.shape[1]
+    P = state.mp_valid.shape[0]
+    sf = cfg.frontend.scale_factor
     ids = state.kf_kp_mp[a_ids]                                    # [2W, F]
-    has = (ids >= 0) & dir_present[:, None]
+    has = (ids >= 0) & present[:, None]
     safe = torch.clamp(ids, 0, P - 1).long()
     X = state.mp_xyz[safe]
     dmin = state.mp_dist_min[safe]
@@ -682,25 +676,64 @@ def fuse_projected_points(state: MapState, k_new: int, nb_ids: torch.Tensor,
     kp_uv = torch.gather(kxy_b, 1, midx[..., None].expand(-1, -1, 2))
     kp_oct = torch.gather(koct_b, 1, midx)
     e2 = torch.sum((uv - kp_uv) ** 2, dim=-1)
-    m_valid = m.valid & (e2 <= 5.991 * _pow(sf, 2.0 * kp_oct.float()))
+    return m._replace(valid=m.valid & (e2 <= 5.991 * _pow(sf, 2.0 * kp_oct.float())))
 
-    kf_kp_mp, mp_valid = _apply_fuse(state.kf_kp_mp, state.mp_valid, obs, b_ids, ids, midx,
-                                     m_valid)
+
+def fuse_match_points(state: MapState, a_ids: torch.Tensor, b_ids: torch.Tensor,
+                      present: torch.Tensor, intr: Intrinsics,
+                      cfg: SLAMConfig) -> matching.MatchResult:
+    """The point fuse's direction matches. CPU tensors -> plain version;
+    CUDA tensors -> kernel 22's points entry (or raise), which writes no
+    [2W, F, F] mask. The sf^k tables come from torch.pow on the card, as
+    the plain version's powers do."""
+    if state.kf_kp_mp.device.type == "cpu":
+        return fuse_match_points_plain(state, a_ids, b_ids, present, intr, cfg)
+    F = state.kf_kp_mp.shape[1]
+    sf = cfg.frontend.scale_factor
+    n_levels = cfg.frontend.n_levels
+    lv = torch.arange(n_levels, dtype=torch.float32, device=state.kf_kp_mp.device)
+    log_sf = np.float32(np.log(np.float32(sf)))
+    i32 = torch.int32
+    return matching.fused_match(
+        "fuse_match_points", a_ids.shape[0], F, F, dict(
+            a_ids=a_ids.to(i32), b_ids=b_ids.to(i32), present=present,
+            table=state.kf_kp_mp, xyz=state.mp_xyz, dmin=state.mp_dist_min,
+            dmax=state.mp_dist_max, normal=state.mp_normal, desc=state.mp_desc,
+            kf_T=state.kf_T_cw, kf_xy=state.kf_xy, kf_valid=state.kf_kp_valid,
+            kf_oct=state.kf_octave, kf_desc=state.kf_desc, pow_sf=_pow(sf, lv),
+            sig2=_pow(sf, 2.0 * lv)),
+        intr, width=cfg.camera.width, height=cfg.camera.height, P=state.mp_valid.shape[0],
+        n_levels=n_levels, max_dist=cfg.matching.th_low,
+        inv_log_sf=float(np.float32(1.0) / log_sf))
+
+
+def fuse_projected_points(state: MapState, k_new: int, nb_ids: torch.Tensor,
+                          intr: Intrinsics, cfg: SLAMConfig) -> MapState:
+    """Projection-space landmark fusion (SearchInNeighbors + Fuse): the 2W
+    directions (new KF -> neighbours and back) match in one batch against
+    the pre-fuse snapshot (kernel 22 on the card); the merge / add
+    scatters then apply direction by direction, in the reference's order
+    (kernel 23)."""
+    obs = point_obs_counts(state)
+    a_ids, b_ids, present = _fuse_directions(state, k_new, nb_ids)
+    m = fuse_match_points(state, a_ids, b_ids, present, intr, cfg)
+    kf_kp_mp, mp_valid = _apply_fuse(state.kf_kp_mp, state.mp_valid, obs, a_ids, b_ids, m)
     return state._replace(kf_kp_mp=kf_kp_mp, mp_valid=mp_valid)
 
 
-def _apply_fuse(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
-                b_ids: torch.Tensor, cand_ids: torch.Tensor, feat_idx: torch.Tensor,
-                hits: torch.Tensor):
+def fuse_merge_plain(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
+                     a_ids: torch.Tensor, b_ids: torch.Tensor, feat_idx: torch.Tensor,
+                     hits: torch.Tensor):
     """The reference's sequential fuse merges over the 2W directions (a
-    fori_loop there, a host loop here): a match on a feature bound to
-    another landmark merges the two (the more-observed one survives), a
-    match on an unbound feature adds the observation; redirect chains are
-    then composed, dead and repeated bindings cleared. Returns (table,
-    valid)."""
-    K, F = table.shape
+    fori_loop there, a host loop here): the candidates are row a_ids[i]
+    of the table before the fuse; a match on a feature of row b_ids[i]
+    bound to another landmark merges the two (the more-observed one
+    survives), a match on an unbound feature adds the observation.
+    Returns (table, valid, redirect)."""
+    F = table.shape[1]
     P = valid.shape[0]
     dev = table.device
+    cand_ids = table[a_ids]
     redirect = torch.arange(P, dtype=torch.int32, device=dev)
     clampP = lambda t: torch.clamp(t, 0, P - 1).long()  # noqa: E731
     for i in range(b_ids.shape[0]):
@@ -708,7 +741,7 @@ def _apply_fuse(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
         ids_i = cand_ids[i]
         ids_r = torch.where(ids_i >= 0, redirect[clampP(ids_i)], -1)
         ids_r = torch.where(valid[clampP(ids_r)], ids_r, -1)
-        feat = feat_idx[i]
+        feat = torch.clamp(feat_idx[i].long(), 0, F - 1)
         hit = hits[i] & (ids_r >= 0)
         row_b = table[b]
         cur = row_b[feat]
@@ -726,32 +759,42 @@ def _apply_fuse(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
         new_row = set_drop(row_b, torch.where(add, feat, F), torch.where(add, cand, -1))
         table = table.clone()
         table[b] = new_row
-    redirect = _compose_redirect(redirect)
-    table = torch.where(table >= 0, redirect[clampP(table)], table)
-    table = torch.where((table >= 0) & valid[clampP(table)], table, -1)
-    return _dedup_row_table(table, P), valid
+    return table, valid, redirect
 
 
-def fuse_projected_lines(state: MapState, k_new: int, nb_ids: torch.Tensor,
-                         intr: Intrinsics, cfg: SLAMConfig) -> MapState:
-    """Projection-space map-line fusion (SearchInNeighbors via LSDmatcher
-    Fuse): candidate lines' projected midpoints within 8 px and 15 deg of
-    an observed line, LBD distance <= TH_HIGH; the 2W directions match as
-    one batched kernel-3 launch, the merges apply direction by direction."""
-    K, LF = state.kf_line_ml.shape
+def fuse_merge(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
+               a_ids: torch.Tensor, b_ids: torch.Tensor, feat_idx: torch.Tensor,
+               hits: torch.Tensor):
+    """The fuse merges. CPU tensors -> plain version; CUDA tensors ->
+    kernel 23's merge walk (or raise)."""
+    if table.device.type == "cpu":
+        return fuse_merge_plain(table, valid, obs, a_ids, b_ids, feat_idx, hits)
+    if hits.shape[1] != table.shape[1]:
+        raise ValueError(f"fuse_merge: {hits.shape[1]} candidate rows, table {tuple(table.shape)}")
+    i32 = torch.int32
+    return matching.merge_walk("fuse_merge", table, valid, b_ids.to(i32), feat_idx, hits,
+                               obs=obs, a_ids=a_ids.to(i32))
+
+
+def _apply_fuse(table: torch.Tensor, valid: torch.Tensor, obs: torch.Tensor,
+                a_ids: torch.Tensor, b_ids: torch.Tensor, m: matching.MatchResult):
+    """The merges of the 2W directions' matches, then the finish. Returns
+    (table, valid)."""
+    table, valid, redirect = fuse_merge(table, valid, obs, a_ids, b_ids, m.idx, m.valid)
+    return matching.fuse_finish(table, valid, redirect, clear_invalid=True), valid
+
+
+def fuse_match_lines_plain(state: MapState, a_ids: torch.Tensor, b_ids: torch.Tensor,
+                           present: torch.Tensor, intr: Intrinsics,
+                           cfg: SLAMConfig) -> matching.MatchResult:
+    """The line fuse's direction matches, all directions batched (the
+    reference's `direction_match`, :911-940): candidate lines' projected
+    midpoints within 8 px and 15 deg of an observed line, LBD distance
+    <= TH_HIGH through kernel 3, unique columns. Returns [2W, LF] idx /
+    dist / valid."""
     L = state.ml_valid.shape[0]
-    W = nb_ids.shape[0]
-    dev = state.kf_line_ml.device
-    obs = line_obs_counts(state)
-    nb_safe = torch.clamp(nb_ids, 0, K - 1).long()
-    nb_present = (nb_ids >= 0) & state.kf_valid[nb_safe] & (nb_safe != k_new)
-    k_new_b = torch.full((W,), int(k_new), dtype=torch.long, device=dev)
-    a_ids = torch.cat([k_new_b, nb_safe])
-    b_ids = torch.cat([nb_safe, k_new_b])
-    dir_present = torch.cat([nb_present, nb_present])
-
     ids = state.kf_line_ml[a_ids]                                   # [2W, LF]
-    has = (ids >= 0) & dir_present[:, None]
+    has = (ids >= 0) & present[:, None]
     safe = torch.clamp(ids, 0, L - 1).long()
     ep = state.ml_endpoints[safe]                                    # [2W, LF, 6]
     T_b = state.kf_T_cw[b_ids]
@@ -773,11 +816,38 @@ def fuse_projected_lines(state: MapState, k_new: int, nb_ids: torch.Tensor,
     dang = matching.jnp_mod(ang[..., :, None] - fr_ang[..., None, :] + torch.pi / 2,
                             torch.pi) - torch.pi / 2
     allow = allow & (torch.abs(dang) < 0.26)
-    m = matching.masked_match(state.ml_desc[safe], state.kf_ldesc[b_ids], allow,
-                              max_dist=cfg.matching.th_high)
-    midx = torch.clamp(m.idx.long(), 0, LF - 1)
-    kf_line_ml, ml_valid = _apply_fuse(state.kf_line_ml, state.ml_valid, obs, b_ids, ids,
-                                       midx, m.valid)
+    return matching.masked_match(state.ml_desc[safe], state.kf_ldesc[b_ids], allow,
+                                 max_dist=cfg.matching.th_high)
+
+
+def fuse_match_lines(state: MapState, a_ids: torch.Tensor, b_ids: torch.Tensor,
+                     present: torch.Tensor, intr: Intrinsics,
+                     cfg: SLAMConfig) -> matching.MatchResult:
+    """The line fuse's direction matches. CPU tensors -> plain version;
+    CUDA tensors -> kernel 22's lines entry (or raise)."""
+    if state.kf_line_ml.device.type == "cpu":
+        return fuse_match_lines_plain(state, a_ids, b_ids, present, intr, cfg)
+    LF = state.kf_line_ml.shape[1]
+    i32 = torch.int32
+    return matching.fused_match(
+        "fuse_match_lines", a_ids.shape[0], LF, LF, dict(
+            a_ids=a_ids.to(i32), b_ids=b_ids.to(i32), present=present,
+            table=state.kf_line_ml, endpoints=state.ml_endpoints, desc=state.ml_desc,
+            kf_T=state.kf_T_cw, line_ep=state.kf_line_ep, kf_valid=state.kf_line_valid,
+            kf_desc=state.kf_ldesc),
+        intr, width=cfg.camera.width, height=cfg.camera.height, P=state.ml_valid.shape[0],
+        max_dist=cfg.matching.th_high, radius=8.0)
+
+
+def fuse_projected_lines(state: MapState, k_new: int, nb_ids: torch.Tensor,
+                         intr: Intrinsics, cfg: SLAMConfig) -> MapState:
+    """Projection-space map-line fusion (SearchInNeighbors via LSDmatcher
+    Fuse): the 2W directions match in one batch (kernel 22 on the card),
+    the merges apply direction by direction (kernel 23)."""
+    obs = line_obs_counts(state)
+    a_ids, b_ids, present = _fuse_directions(state, k_new, nb_ids)
+    m = fuse_match_lines(state, a_ids, b_ids, present, intr, cfg)
+    kf_line_ml, ml_valid = _apply_fuse(state.kf_line_ml, state.ml_valid, obs, a_ids, b_ids, m)
     return state._replace(kf_line_ml=kf_line_ml, ml_valid=ml_valid)
 
 
@@ -902,4 +972,6 @@ __all__ = ["MAX_NEW_POINTS", "MAX_NEW_LINES", "BA_WINDOW", "BA_FIXED", "BA_LOCAL
            "_gather_ba_device", "cull_points", "cull_lines", "cull_keyframes",
            "fuse_duplicate_points_3d", "fuse_duplicate_lines_3d", "fuse3d_points_match",
            "fuse3d_points_match_plain", "fuse3d_lines_match", "fuse3d_lines_match_plain",
-           "FUSE3D_RECENT_MP", "FUSE3D_RECENT_ML"]
+           "FUSE3D_RECENT_MP", "FUSE3D_RECENT_ML", "fuse_match_points",
+           "fuse_match_points_plain", "fuse_match_lines", "fuse_match_lines_plain",
+           "fuse_merge", "fuse_merge_plain"]

@@ -9,21 +9,26 @@ edge lists; the device work runs through the kernels:
 - the vocabulary (host numpy training) and the keyframe BoW index,
   kernel 13 (ops/bow.transform, any number of keyframes per launch);
   relocalization shares this index, as in the reference;
-- `detect`: the covisibility matrix (two indicator products,
-  world/map_store.py) and the L1 scores of keyframe k against every
-  row, kernel 14 (ops/bow.query_database, nothing masked); the masks, the
-  0.75 x best cut and the consistency groups on a host copy;
+- `detect`: the covisibility matrix (kernel 24, world/map_store.py) and
+  the L1 scores of keyframe k against every row, kernel 14
+  (ops/bow.query_database, nothing masked); the masks, the 0.75 x best
+  cut and the consistency groups on a host copy;
 - `verify`: BoW-gated matching, kernel 3; Sim(3) RANSAC, kernel 16
   (optim/sim3_solver.py) on sample sets drawn from `rng` in the
   reference's order; the Sim(3) widening and the loop-pool acceptance,
-  kernel 3; the inlier-gated refinement, kernel 17 (optim/pose_graph.py);
+  kernel 22 (`sim3_widen_match`, `pool_match`); the inlier-gated
+  refinement, kernel 17 (optim/pose_graph.py); the group's covisibility
+  rows, kernel 24;
 - `correct`: the essential graph built on the host in the reference's
   edge order, optimized by kernel 18; landmarks and line endpoints
   corrected through their reference keyframes on the device; the loop
-  fuse with its eight projection matches as ONE batched kernel-3 launch
-  ([8, 4096, F], the pool's descriptors shared; none of the inputs
-  changes between the reference's eight sequential matches), the merges
-  then applied in the reference's order.
+  fuse with its eight projection matches in ONE kernel-22 launch
+  ([8, 4096, F], none of the inputs changes between the reference's
+  eight sequential matches), the merges then walked in the reference's
+  order by kernel 23 (`loop_merge`, `fuse_finish`).
+
+Each kernel wrapper takes its `_plain` version on CPU tensors: the
+reference's formulation in torch (window masks, kernel 3, host loops).
 
 `remap_keyframes` follows a pool compaction and waits for it
 (ROADMAP.md queue 1 item 16). As in the reference, nothing indexes a
@@ -71,8 +76,8 @@ def _cam_points(state: MapState, k: int) -> torch.Tensor:
     return X @ T[:3, :3].T + T[:3, 3]
 
 
-def _sim3_widen_matches(state: MapState, k: int, cand: int, S12: torch.Tensor,
-                        intr: Intrinsics, max_dist: int) -> matching.MatchResult:
+def _sim3_widen_matches_plain(state: MapState, k: int, cand: int, S12: torch.Tensor,
+                              intr: Intrinsics, max_dist: int) -> matching.MatchResult:
     """SearchBySim3: mutual Sim(3)-projection windowed descriptor match
     between the two keyframes' landmark-bound features; a pair is a
     candidate only when both projections land within 7.5 px. Rows =
@@ -92,6 +97,24 @@ def _sim3_widen_matches(state: MapState, k: int, cand: int, S12: torch.Tensor,
                                  max_dist=max_dist)
 
 
+def _sim3_widen_matches(state: MapState, k: int, cand: int, S12: torch.Tensor,
+                        intr: Intrinsics, max_dist: int) -> matching.MatchResult:
+    """SearchBySim3 ([F] idx / dist / valid). CPU tensors -> plain version;
+    CUDA tensors -> kernel 22's mutual-window entry (or raise), which
+    writes none of the three [F, F] masks. S21 comes from the plain
+    version's own lie.sim3_inverse."""
+    if state.kf_kp_mp.device.type == "cpu":
+        return _sim3_widen_matches_plain(state, k, cand, S12, intr, max_dist)
+    F = state.kf_kp_mp.shape[1]
+    m = matching.fused_match(
+        "sim3_widen_match", 1, F, F, dict(
+            table=state.kf_kp_mp, xyz=state.mp_xyz, kf_T=state.kf_T_cw, S12=S12,
+            S21=lie.sim3_inverse(S12), kf_xy=state.kf_xy, kf_desc=state.kf_desc),
+        intr, P=state.mp_valid.shape[0], max_dist=int(max_dist), k=int(k),
+        cand=int(cand), radius=7.5)
+    return matching.MatchResult(idx=m.idx[0], dist=m.dist[0], valid=m.valid[0])
+
+
 def _loop_pool(state: MapState, nb_ids: torch.Tensor) -> torch.Tensor:
     """[LOOP_POOL] int32 ids of the live landmarks observed by the group
     nb_ids ([W] keyframe ids, -1 padded), -1 padded."""
@@ -104,13 +127,15 @@ def _loop_pool(state: MapState, nb_ids: torch.Tensor) -> torch.Tensor:
     return nonzero_fixed(mask[:P] & state.mp_valid, LOOP_POOL).to(torch.int32)
 
 
-def _project_pool_matches(state: MapState, kf_id, M_cw: torch.Tensor, pool_ids: torch.Tensor,
-                          intr: Intrinsics, radius: float, max_dist: int):
+def _project_pool_matches_plain(state: MapState, kf_id, M_cw: torch.Tensor,
+                                pool_ids: torch.Tensor, intr: Intrinsics, radius: float,
+                                max_dist: int):
     """Project the loop pool through M_cw (world -> corrected camera of
     kf_id, may carry scale) and window-match the pool's descriptors
     against that keyframe's features. kf_id an int and M_cw [4, 4], or
     kf_id [B] and M_cw [B, 4, 4] for B keyframes in one kernel-3 launch.
-    Returns (MatchResult with rows = pool, visible mask)."""
+    Returns the MatchResult, rows = pool (the reference also returns the
+    visible mask, which no caller reads)."""
     P = state.mp_valid.shape[0]
     safe = torch.clamp(pool_ids, 0, P - 1).long()
     ok = pool_ids >= 0
@@ -119,9 +144,75 @@ def _project_pool_matches(state: MapState, kf_id, M_cw: torch.Tensor, pool_ids: 
     uv, z = cam_utils.project(intr, p)
     vis = ok & (z > 0.1)
     allow = matching.window_mask(uv, vis, state.kf_xy[kf_id], state.kf_kp_valid[kf_id], radius)
-    m = matching.masked_match(state.mp_desc[safe], state.kf_desc[kf_id], allow,
-                              max_dist=max_dist)
-    return m, vis
+    return matching.masked_match(state.mp_desc[safe], state.kf_desc[kf_id], allow,
+                                 max_dist=max_dist)
+
+
+def _project_pool_matches(state: MapState, kf_id, M_cw: torch.Tensor, pool_ids: torch.Tensor,
+                          intr: Intrinsics, radius: float, max_dist: int):
+    """The loop pool's projection match (MatchResult, rows = pool; [B, n]
+    for kf_id [B]). CPU tensors -> plain version; CUDA tensors ->
+    kernel 22's pool entry (or raise), no [B, n, F] mask written."""
+    if state.kf_kp_mp.device.type == "cpu":
+        return _project_pool_matches_plain(state, kf_id, M_cw, pool_ids, intr, radius,
+                                           max_dist)
+    batched = M_cw.dim() == 3
+    dev = state.kf_kp_mp.device
+    kf = torch.as_tensor(kf_id, device=dev).reshape(-1).to(torch.int32)
+    Mb = M_cw.reshape(-1, 4, 4)
+    F = state.kf_kp_mp.shape[1]
+    m = matching.fused_match(
+        "pool_match", Mb.shape[0], pool_ids.shape[0], F, dict(
+            b_ids=kf, M_cw=Mb, pool_ids=pool_ids.to(torch.int32), xyz=state.mp_xyz,
+            desc=state.mp_desc, kf_xy=state.kf_xy, kf_valid=state.kf_kp_valid,
+            kf_desc=state.kf_desc),
+        intr, P=state.mp_valid.shape[0], max_dist=int(max_dist), radius=float(radius))
+    return m if batched else matching.MatchResult(*(t[0] for t in m[:3]))
+
+
+def loop_merge_plain(table: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
+                     present: torch.Tensor, pool_ids: torch.Tensor, feat_idx: torch.Tensor,
+                     hits: torch.Tensor):
+    """The loop fuse's merges in the reference's order (its loop over the
+    FUSE_KFS keyframes rows, each `present` or padding): a pool match on a
+    feature bound to a landmark outside the pool redirects that landmark
+    to the pool's, a match on an unbound feature adds the observation.
+    Returns (table, valid, redirect)."""
+    F = table.shape[1]
+    P = valid.shape[0]
+    dev = table.device
+    redirect = torch.arange(P, dtype=torch.int32, device=dev)
+    is_pool = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    is_pool[torch.where(pool_ids >= 0, pool_ids, P).long()] = True
+    is_pool = is_pool[:P]
+    pool_val = torch.where(pool_ids >= 0, pool_ids, -1)
+    for w in range(rows.shape[0]):
+        t = rows[w]
+        hit = hits[w] & present[w]
+        feat = feat_idx[w]
+        cur = table[t][torch.clamp(feat, 0, F - 1).long()]
+        repl = (hit & (cur >= 0) & (cur != pool_ids)
+                & ~is_pool[torch.clamp(cur, 0, P - 1).long()])
+        gone = torch.where(repl, cur, P)
+        redirect = set_drop(redirect, gone, pool_val)
+        valid = set_drop(valid, gone, False)
+        add = hit & (cur < 0)
+        row = set_drop(table[t], torch.where(add, feat, F), pool_val)
+        table = table.clone()
+        table[t] = row
+    return table, valid, redirect
+
+
+def loop_merge(table: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
+               present: torch.Tensor, pool_ids: torch.Tensor, feat_idx: torch.Tensor,
+               hits: torch.Tensor):
+    """The loop fuse's merges. CPU tensors -> plain version; CUDA tensors
+    -> kernel 23's merge walk with the loop rule (or raise)."""
+    if table.device.type == "cpu":
+        return loop_merge_plain(table, valid, rows, present, pool_ids, feat_idx, hits)
+    i32 = torch.int32
+    return matching.merge_walk("loop_merge", table, valid, rows.to(i32), feat_idx, hits,
+                               present=present, pool_ids=pool_ids.to(i32))
 
 
 def _loop_fuse(state: MapState, tgt_ids: np.ndarray, pool_ids: torch.Tensor,
@@ -130,43 +221,19 @@ def _loop_fuse(state: MapState, tgt_ids: np.ndarray, pool_ids: torch.Tensor,
     current-side keyframe of tgt_ids ([FUSE_KFS], -1 padded); a match
     against a feature bound to another landmark merges that landmark into
     the loop one everywhere, a match against an unbound feature adds the
-    observation. The eight matches are one batched launch; the merges run
-    in the reference's order."""
-    from structure_slam_pointline_tpu_torch.models.local_mapping import (
-        _compose_redirect, _dedup_row_table)
-
-    K, F = state.kf_kp_mp.shape
-    P = state.mp_valid.shape[0]
+    observation. The eight matches are one batched launch (kernel 22 on
+    the card; none of their inputs changes between the reference's eight
+    sequential matches); the merges run in the reference's order (kernel
+    23)."""
+    K = state.kf_kp_mp.shape[0]
     dev = state.kf_kp_mp.device
-    redirect = torch.arange(P, dtype=torch.int32, device=dev)
-    mp_valid = state.mp_valid
-    kf_kp_mp = state.kf_kp_mp
-    is_pool = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    is_pool[torch.where(pool_ids >= 0, pool_ids, P).long()] = True
-    is_pool = is_pool[:P]
-    rows = np.clip(tgt_ids, 0, K - 1)
-    rows_t = torch.as_tensor(rows, dtype=torch.long, device=dev)
-    m, _ = _project_pool_matches(state, rows_t, state.kf_T_cw[rows_t], pool_ids, intr, 4.0,
-                                 max_dist)
-    pool_val = torch.where(pool_ids >= 0, pool_ids, -1)
-    for w in range(len(tgt_ids)):
-        t = int(rows[w])
-        hit = m.valid[w] & bool(tgt_ids[w] >= 0)
-        feat = m.idx[w]
-        cur = kf_kp_mp[t][torch.clamp(feat, 0, F - 1).long()]
-        repl = (hit & (cur >= 0) & (cur != pool_ids)
-                & ~is_pool[torch.clamp(cur, 0, P - 1).long()])
-        gone = torch.where(repl, cur, P)
-        redirect = set_drop(redirect, gone, pool_val)
-        mp_valid = set_drop(mp_valid, gone, False)
-        add = hit & (cur < 0)
-        row = set_drop(kf_kp_mp[t], torch.where(add, feat, F), pool_val)
-        kf_kp_mp = kf_kp_mp.clone()
-        kf_kp_mp[t] = row
-    redirect = _compose_redirect(redirect)
-    tbl = torch.where(kf_kp_mp >= 0, redirect[torch.clamp(kf_kp_mp, 0, P - 1).long()],
-                      kf_kp_mp)
-    return state._replace(kf_kp_mp=_dedup_row_table(tbl, P), mp_valid=mp_valid)
+    rows = torch.as_tensor(np.clip(tgt_ids, 0, K - 1), dtype=torch.long, device=dev)
+    present = torch.as_tensor(np.asarray(tgt_ids) >= 0, device=dev)
+    m = _project_pool_matches(state, rows, state.kf_T_cw[rows], pool_ids, intr, 4.0, max_dist)
+    table, mp_valid, redirect = loop_merge(state.kf_kp_mp, state.mp_valid, rows, present,
+                                           pool_ids, m.idx, m.valid)
+    table = matching.fuse_finish(table, mp_valid, redirect, clear_invalid=False)
+    return state._replace(kf_kp_mp=table, mp_valid=mp_valid)
 
 
 class LoopCloser:
@@ -369,8 +436,8 @@ class LoopCloser:
         if int(opt.n_inliers) < 20:
             return None
         pool = _loop_pool(state, torch.as_tensor(self._group_ids(state, cand), device=dev))
-        m2, _ = _project_pool_matches(state, k, opt.S12 @ state.kf_T_cw[cand], pool,
-                                      self.intr, 10.0, cfg.matching.th_low)
+        m2 = _project_pool_matches(state, k, opt.S12 @ state.kf_T_cw[cand], pool, self.intr,
+                                   10.0, cfg.matching.th_low)
         total = int(m2.valid.sum())
         if total < 40:
             return None
@@ -483,4 +550,5 @@ def _sim3_to_se3(S: np.ndarray) -> np.ndarray:
     return T
 
 
-__all__ = ["LoopCloser", "LoopCandidate", "LOOP_POOL", "FUSE_KFS"]
+__all__ = ["LoopCloser", "LoopCandidate", "LOOP_POOL", "FUSE_KFS", "loop_merge",
+           "loop_merge_plain"]

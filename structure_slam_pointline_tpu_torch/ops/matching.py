@@ -6,16 +6,27 @@ shares `masked_match`; the row reductions run in kernel 3
 logic stay in torch after it, as in the reference (matching.py:62-91).
 Column winners use the same float32 (dist * M + row) key and
 `scatter_reduce("amin")`, so a column is claimed by exactly one row.
+
+`fused_match` launches one entry of CUDA kernel 22 (csrc/fuse_match.cu),
+which projects each row, tests its gates and window and matches it in one
+pass, the searches of the projection fuses and the loop closer, without
+the [B, M, N] mask `window_mask` writes for their plain versions.
+`merge_walk` and `fuse_finish` launch kernel 23 (csrc/fuse_merge.cu),
+which applies those searches' matches: the merge walk of either rule (the
+local fuses' `fuse_merge`, the loop fuse's `loop_merge`) and the finish
+both share, without the [K, P + 1] table of `fuse_finish_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.ops import hamming
 
 _BIG = hamming.BIG
@@ -132,5 +143,152 @@ def predict_octave(dist: torch.Tensor, max_dist: torch.Tensor,
     return torch.clamp(lv, 0, n_levels - 1)
 
 
+class _MatchWork(ctypes.Structure):
+    """Kernel 22's description of one call (`struct Work` in
+    csrc/fuse_match.cu): sizes, scalars, then device pointers (null where
+    the entry reads no such input)."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "M", "N", "P", "n_levels", "max_dist", "k",
+                                             "cand")]
+                + [(n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "width", "height",
+                                                 "radius", "inv_log_sf")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "a_ids", "b_ids", "present", "M_cw", "table", "pool_ids", "xyz", "dmin",
+                    "dmax", "normal", "desc", "endpoints", "kf_T", "S12", "S21", "kf_xy",
+                    "line_ep", "kf_valid", "kf_oct", "kf_desc", "pow_sf", "sig2", "idx",
+                    "dist", "valid", "col_key", "flags")])
+
+
+_MATCH_DTYPES = {"a_ids": torch.int32, "b_ids": torch.int32, "present": torch.bool,
+                 "table": torch.int32, "pool_ids": torch.int32, "desc": torch.int32,
+                 "kf_valid": torch.bool, "kf_oct": torch.int32, "kf_desc": torch.int32}
+
+
+def fused_match(entry: str, B: int, M: int, N: int, inputs: dict, intr,
+                **scalars) -> MatchResult:
+    """Launch kernel 22's `entry` over B batches of M rows against N target
+    features: [B, M] idx / dist / valid. `inputs` maps the Work's pointer
+    fields to CUDA tensors (float32 unless listed in _MATCH_DTYPES),
+    `scalars` its other int / float fields (the image `width` and
+    `height` for the in-image gate)."""
+    for name, t in inputs.items():
+        kernels.check_dtype(f"{entry} ({name})", t, _MATCH_DTYPES.get(name, torch.float32))
+    ins = {name: t.contiguous() for name, t in inputs.items()}
+    dev = kernels.check_cuda(entry, *ins.values())
+    if N == 0:
+        raise ValueError(f"{entry}: empty column set")
+    out = {"idx": torch.empty((B, M), dtype=torch.int32, device=dev),
+           "dist": torch.empty((B, M), dtype=torch.int32, device=dev),
+           "valid": torch.empty((B, M), dtype=torch.bool, device=dev),
+           "col_key": torch.empty((B, N), dtype=torch.int32, device=dev),
+           "flags": torch.empty((B, M), dtype=torch.uint8, device=dev)}
+    work = _MatchWork(B=B, M=M, N=N, fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
+                      **scalars,
+                      **{k: t.data_ptr() for k, t in (*ins.items(), *out.items())})
+    if B * M > 0:
+        kernels.launch(entry, ctypes.addressof(work))
+    return MatchResult(idx=out["idx"], dist=out["dist"], valid=out["valid"])
+
+
+class _MergeWork(ctypes.Structure):
+    """Kernel 23's merge walk (`struct MergeWork` in csrc/fuse_merge.cu)."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("D", "M", "K", "F", "P", "loop")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "table_in", "table", "valid_in", "valid", "redirect", "obs", "a_ids",
+                    "b_ids", "present", "pool_ids", "feat", "hits", "win", "dec")])
+
+
+class _FinishWork(ctypes.Structure):
+    """Kernel 23's finish (`struct FinishWork` in csrc/fuse_merge.cu)."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("K", "F", "P", "clear_invalid")]
+                + [(n, ctypes.c_void_p) for n in ("table_in", "table", "valid", "redirect",
+                                                  "r1", "r2")])
+
+
+def merge_walk(entry: str, table: torch.Tensor, valid: torch.Tensor, b_ids: torch.Tensor,
+               feat_idx: torch.Tensor, hits: torch.Tensor, **inputs):
+    """Launch kernel 23's merge walk `entry` (fuse_merge or loop_merge) over
+    the D directions of b_ids / feat_idx / hits [D, M]; `inputs` are the
+    rule's other arrays (obs and a_ids, or present and pool_ids). Returns
+    (table, valid, redirect), new tensors."""
+    i32, b8 = torch.int32, torch.bool
+    typed = {"table_in": (table, i32), "valid_in": (valid, b8), "b_ids": (b_ids, i32),
+             "feat": (feat_idx, i32), "hits": (hits, b8),
+             **{k: (v, b8 if k == "present" else i32) for k, v in inputs.items()}}
+    for name, (t, dt) in typed.items():
+        kernels.check_dtype(f"{entry} ({name})", t, dt)
+    ins = {name: t.contiguous() for name, (t, _) in typed.items()}
+    dev = kernels.check_cuda(entry, *ins.values())
+    (K, F), P = table.shape, valid.shape[0]
+    D, M = hits.shape
+    out = {"table": torch.empty_like(ins["table_in"]), "valid": torch.empty_like(valid),
+           "redirect": torch.empty(P, dtype=i32, device=dev),
+           "win": torch.empty(P, dtype=i32, device=dev),
+           "dec": torch.empty(3 * M, dtype=i32, device=dev)}
+    work = _MergeWork(D=D, M=M, K=K, F=F, P=P, loop=int(entry == "loop_merge"),
+                      **{k: t.data_ptr() for k, t in (*ins.items(), *out.items())})
+    kernels.launch(entry, ctypes.addressof(work))
+    return out["table"], out["valid"], out["redirect"]
+
+
+def _compose_redirect(redirect: torch.Tensor) -> torch.Tensor:
+    for _ in range(3):
+        redirect = redirect[redirect.long()]
+    return redirect
+
+
+def _dedup_row_table(tbl: torch.Tensor, cap: int) -> torch.Tensor:
+    """Clear repeated landmark ids within each row, keeping the first."""
+    K, F = tbl.shape
+    dev = tbl.device
+    rows = torch.arange(K, device=dev)[:, None].expand(K, F)
+    feats = torch.arange(F, dtype=torch.int32, device=dev)[None, :].expand(K, F)
+    ids = torch.where(tbl >= 0, tbl, cap).long()
+    first = torch.full((K, cap + 1), F, dtype=torch.int32, device=dev)
+    lin = (rows * (cap + 1) + ids).reshape(-1)
+    first = first.reshape(-1).scatter_reduce(0, lin, feats.reshape(-1),
+                                             reduce="amin").reshape(K, cap + 1)
+    keep = (tbl >= 0) & (first[rows, ids] == feats)
+    return torch.where(keep, tbl, -1)
+
+
+def fuse_finish_plain(table: torch.Tensor, valid: torch.Tensor, redirect: torch.Tensor,
+                      clear_invalid: bool) -> torch.Tensor:
+    """The fuse's finish: redirect chains composed (three pointer jumps),
+    applied to every binding, bindings to dead landmarks cleared (the
+    local fuses; the loop fuse keeps them, as the reference does), then
+    repeated landmark ids within a row cleared, keeping the first."""
+    P = valid.shape[0]
+    redirect = _compose_redirect(redirect)
+    clampP = lambda t: torch.clamp(t, 0, P - 1).long()  # noqa: E731
+    table = torch.where(table >= 0, redirect[clampP(table)], table)
+    if clear_invalid:
+        table = torch.where((table >= 0) & valid[clampP(table)], table, -1)
+    return _dedup_row_table(table, P)
+
+
+def fuse_finish(table: torch.Tensor, valid: torch.Tensor, redirect: torch.Tensor,
+                clear_invalid: bool) -> torch.Tensor:
+    """The fuse's finish. CPU tensors -> plain version; CUDA tensors ->
+    kernel 23's finish (or raise), which writes no [K, P + 1] table."""
+    if table.device.type == "cpu":
+        return fuse_finish_plain(table, valid, redirect, clear_invalid)
+    name = "fuse_finish"
+    kernels.check_dtype(name, table, torch.int32)
+    kernels.check_dtype(name, valid, torch.bool)
+    kernels.check_dtype(name, redirect, torch.int32)
+    tin, v, r = table.contiguous(), valid.contiguous(), redirect.contiguous()
+    dev = kernels.check_cuda(name, tin, v, r)
+    (K, F), P = table.shape, valid.shape[0]
+    out = torch.empty_like(tin)
+    r1, r2 = (torch.empty(P, dtype=torch.int32, device=dev) for _ in range(2))
+    work = _FinishWork(K=K, F=F, P=P, clear_invalid=int(clear_invalid),
+                       **{k: t.data_ptr() for k, t in (("table_in", tin), ("table", out),
+                                                       ("valid", v), ("redirect", r),
+                                                       ("r1", r1), ("r2", r2))})
+    kernels.launch(name, ctypes.addressof(work))
+    return out
+
+
 __all__ = ["MatchResult", "masked_match", "window_mask", "rotation_consistency",
-           "mad_margin_gate", "predict_octave", "jnp_mod"]
+           "mad_margin_gate", "predict_octave", "jnp_mod", "fused_match", "merge_walk",
+           "fuse_finish", "fuse_finish_plain"]

@@ -10,12 +10,14 @@ Observations live only in the keyframe-major edge grid `kf_kp_mp[K, F]`
 (observation counts, covisibility, observer bits) is a segment op over it.
 
 `compute_obs_bits` and `votes_from_bits` are the wrappers of CUDA kernel 9
-(csrc/obs_bits.cu); `compute_obs_bits_plain` and `votes_from_bits_plain`
-are their plain versions.
+(csrc/obs_bits.cu), `covisibility_weights` and `covisibility_matrix` those
+of kernel 24 (csrc/covis.cu); the `_plain` functions are their plain
+versions.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -158,7 +160,7 @@ def _seen(row: torch.Tensor, cap: int) -> torch.Tensor:
     return seen[:cap]
 
 
-def covisibility_weights(state: MapState, kf_id) -> torch.Tensor:
+def covisibility_weights_plain(state: MapState, kf_id) -> torch.Tensor:
     """[K] landmarks (points + lines) shared between kf_id and every KF."""
     K = state.kf_valid.shape[0]
     P = state.mp_valid.shape[0]
@@ -172,7 +174,7 @@ def covisibility_weights(state: MapState, kf_id) -> torch.Tensor:
     return torch.where(state.kf_valid, w, torch.zeros_like(w))
 
 
-def covisibility_matrix(state: MapState) -> torch.Tensor:
+def covisibility_matrix_plain(state: MapState) -> torch.Tensor:
     """[K, K] int32 landmarks (points + lines) shared by every pair of
     keyframes: two [K, P] / [K, L] indicator products, as the reference
     (map_store.py:210) leaves them to XLA. The entries are integer counts
@@ -193,6 +195,56 @@ def covisibility_matrix(state: MapState) -> torch.Tensor:
     C = Mp @ Mp.T + Ml @ Ml.T
     C = C * (state.kf_valid[:, None] & state.kf_valid[None, :])
     return (C - torch.diag(torch.diag(C))).to(torch.int32)
+
+
+class _CovisWork(ctypes.Structure):
+    """Kernel 24's description of one call (`struct CovisWork` in
+    csrc/covis.cu)."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("K", "F", "LF", "P", "L", "kf_id")]
+                + [(n, ctypes.c_void_p) for n in ("pt", "ln", "kf_valid", "bits", "out")])
+
+
+def _covis_launch(entry: str, state: MapState, out: torch.Tensor, kf_id: int = 0,
+                  bits: torch.Tensor | None = None) -> torch.Tensor:
+    pt, ln, v = state.kf_kp_mp, state.kf_line_ml, state.kf_valid
+    for t, dt in ((pt, torch.int32), (ln, torch.int32), (v, torch.bool)):
+        kernels.check_dtype(entry, t, dt)
+    pt, ln, v = pt.contiguous(), ln.contiguous(), v.contiguous()
+    kernels.check_cuda(entry, pt, ln, v, out)
+    (K, F), LF = pt.shape, ln.shape[1]
+    work = _CovisWork(K=K, F=F, LF=LF, P=state.mp_valid.shape[0], L=state.ml_valid.shape[0],
+                      kf_id=kf_id, pt=pt.data_ptr(), ln=ln.data_ptr(), kf_valid=v.data_ptr(),
+                      bits=0 if bits is None else bits.data_ptr(), out=out.data_ptr())
+    kernels.launch(entry, ctypes.addressof(work))
+    return out
+
+
+def covisibility_weights(state: MapState, kf_id) -> torch.Tensor:
+    """[K] int32 landmarks (points + lines) shared between kf_id and every
+    keyframe. CPU tensors -> plain version; CUDA tensors -> kernel 24's
+    row entry (or raise)."""
+    if state.kf_kp_mp.device.type == "cpu":
+        return covisibility_weights_plain(state, kf_id)
+    K = state.kf_valid.shape[0]
+    kf_id = int(kf_id)
+    if not 0 <= kf_id < K:
+        raise ValueError(f"covisibility_weights: keyframe {kf_id} of {K}")
+    out = torch.empty(K, dtype=torch.int32, device=state.kf_kp_mp.device)
+    return _covis_launch("covis_row", state, out, kf_id=kf_id)
+
+
+def covisibility_matrix(state: MapState) -> torch.Tensor:
+    """[K, K] int32 landmarks (points + lines) shared by every pair of
+    valid keyframes. CPU tensors -> plain version; CUDA tensors ->
+    kernel 24's matrix entry (or raise), no indicator matrix written."""
+    if state.kf_kp_mp.device.type == "cpu":
+        return covisibility_matrix_plain(state)
+    K = state.kf_valid.shape[0]
+    dev = state.kf_kp_mp.device
+    n = state.mp_valid.shape[0] + state.ml_valid.shape[0]
+    out = torch.empty((K, K), dtype=torch.int32, device=dev)
+    bits = torch.empty((n, (K + 31) // 32), dtype=torch.int32, device=dev)
+    return _covis_launch("covis_matrix", state, out, bits=bits)
 
 
 def compute_obs_bits_plain(state: MapState) -> torch.Tensor:
@@ -274,6 +326,7 @@ def kf_match_votes(state: MapState, matched_pt: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["MapState", "MapCursors", "DESC_RING", "init_map", "point_obs_counts",
-           "line_obs_counts", "covisibility_weights", "covisibility_matrix", "compute_obs_bits",
+           "line_obs_counts", "covisibility_weights", "covisibility_weights_plain",
+           "covisibility_matrix", "covisibility_matrix_plain", "compute_obs_bits",
            "compute_obs_bits_plain", "votes_from_bits", "votes_from_bits_plain",
            "kf_match_votes"]

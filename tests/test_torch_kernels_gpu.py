@@ -1,4 +1,4 @@
-"""The twenty-one CUDA kernels of the PyTorch port against their plain
+"""The twenty-four CUDA kernels of the PyTorch port against their plain
 versions, on the card, at the main path's and the relocalization path's
 shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
@@ -17,7 +17,12 @@ kernels 5, 6 and 11 also at line_support_downsample = 2, the support on
 the half image, half-pixel anchors and 8 px cells; kernel 5 also on a
 75 x 101 frame whose border pixels are NMS peaks; kernels 20 / 21, the 3D
 duplicate searches, on pools at the default capacities with seeded
-near-copies; kernel 10's eigensolver entry on 24,576 Gram matrices).
+near-copies; kernel 10's eigensolver entry on 24,576 Gram matrices;
+kernels 22-24, the fuses' matches, merges and finish and the covisibility
+counts, on a synthetic map at the default pools with 2048 features a
+keyframe, twice the main path's, so kernel 22 stages two chunks
+(fuse_map), and on random merge inputs dense with colliding
+writes (merge_problem)).
 Marked `gpu`: they skip without a CUDA device. Kernels that share a
 fixture or a problem share one test item (each check a function of its
 own, each message naming its kernel and case): the suite's item count
@@ -65,7 +70,12 @@ refinement: S12 within 1e-4, inlier masks equal on >= 99.5% (analytic
 against forward-mode Jacobians, sums in another order). The pose graph:
 vertices within 1e-4, invalid ones untouched, two launches bit-identical,
 no host synchronization. Local BA at 64 keyframes: as at 16, and its 8
-invalid slots keep their poses with no inlier point edge.
+invalid slots keep their poses with no inlier point edge. Kernel 22:
+idx, dist and valid equal on >= 99.9% of rows (its projections round
+each op as the plain version's torch ops on the card are expected to,
+but a reduction order or logf can still move a last bit at a gate;
+chip_smoke.py prints each differing row with the gate's margin), and
+matches found. Kernels 23 and 24: bit-equal (integer work).
 """
 
 import numpy as np
@@ -76,9 +86,9 @@ from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.config import (CameraConfig, FrontendConfig, OptimConfig,
                                                       SLAMConfig)
 from structure_slam_pointline_tpu_torch.io import synthetic
-from structure_slam_pointline_tpu_torch.models import local_mapping
-from structure_slam_pointline_tpu_torch.ops import (bow, extract, fast, hamming, lbd, lsd, orb,
-                                                   pnp, pyramid)
+from structure_slam_pointline_tpu_torch.models import local_mapping, loop_closing
+from structure_slam_pointline_tpu_torch.ops import (bow, extract, fast, hamming, lbd, lsd,
+                                                   matching, orb, pnp, pyramid)
 from structure_slam_pointline_tpu_torch.optim import local_ba, pose_graph, pose_opt, sim3_solver
 from structure_slam_pointline_tpu_torch.utils import fmath, linalg
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
@@ -384,11 +394,219 @@ def _check_obs_bits_and_votes(cuda):
     assert v_k.sum().item() > 0
 
 
+def fuse_map(seed=37, n_kf=12, n_pts=6000, n_lines=300):
+    """A map at the default capacities (256 keyframes x 2048 features, 64
+    lines, 32768 points, 2048 lines) seen by n_kf keyframes on an arc:
+    each keyframe's features are the projections of the landmarks in its
+    view (0.7 px noise, octaves 0-3, descriptors 4 bits from their
+    landmark's), 60% bound to their landmark, 10% to a duplicate slot of
+    it (so the fuse merges), the rest unbound (so it adds); map lines
+    likewise. Returns (MapState on the CPU, config, intrinsics)."""
+    cfg = SLAMConfig(camera=CameraConfig(fy=480.0), frontend=FrontendConfig(n_lines=64))
+    intr = Intrinsics.from_config(cfg.camera)
+    st = map_store.init_map(cfg, "cpu", n_features=2048)
+    K, F = st.kf_kp_mp.shape
+    LF = st.kf_line_ml.shape[1]
+    P, L = st.mp_valid.shape[0], st.ml_valid.shape[0]
+    g = np.random.default_rng(seed)
+    f = {k: v.numpy().copy() for k, v in st._asdict().items()}
+    X = g.uniform([-3, -2, 3], [3, 2, 7], (n_pts, 3)).astype(np.float32)
+    dup = n_pts + np.arange(n_pts // 4)            # duplicate slots of the first quarter
+    f["mp_xyz"][:n_pts], f["mp_xyz"][dup] = X, X[: len(dup)]
+    desc = g.integers(-2 ** 31, 2 ** 31, (n_pts, 8), dtype=np.int64).astype(np.int32)
+    f["mp_desc"][:n_pts], f["mp_desc"][dup] = desc, desc[: len(dup)]
+    f["mp_valid"][: dup[-1] + 1] = True
+    d = np.linalg.norm(X, axis=1)
+    f["mp_dist_min"][:n_pts], f["mp_dist_max"][:n_pts] = 0.5 * d, 1.15 * d
+    f["mp_normal"][:n_pts] = X / d[:, None]
+    E = np.concatenate([X[:n_lines], X[:n_lines] + g.normal(size=(n_lines, 3)) * 0.4], 1)
+    f["ml_endpoints"][:n_lines] = E
+    ldesc = g.integers(-2 ** 31, 2 ** 31, (n_lines, 8), dtype=np.int64).astype(np.int32)
+    f["ml_desc"][:n_lines] = ldesc
+    f["ml_valid"][:n_lines] = True
+
+    def proj(T, P3):
+        pc = P3 @ T[:3, :3].T + T[:3, 3]
+        return pc[:, :2] / pc[:, 2:3] * [intr.fx, intr.fy] + [intr.cx, intr.cy], pc[:, 2]
+
+    def flips(n, bits=4):
+        w = np.zeros((n, 8), np.int64)
+        for _ in range(bits):
+            b = g.integers(0, 256, n)
+            w[np.arange(n), b // 32] ^= 1 << (b % 32)
+        return w.astype(np.uint32).view(np.int32)
+
+    for k in range(n_kf):
+        a = 0.08 * (k - n_kf / 2)
+        R = np.array([[np.cos(a), 0, -np.sin(a)], [0, 1, 0], [np.sin(a), 0, np.cos(a)]])
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3], T[:3, 3] = R, [0.3 * np.sin(a), 0.0, 0.1 * k]
+        f["kf_T_cw"][k], f["kf_valid"][k] = T, True
+        uv, z = proj(T, X)
+        seen = np.nonzero((z > 0.5) & (uv[:, 0] > 4) & (uv[:, 0] < 636) & (uv[:, 1] > 4)
+                          & (uv[:, 1] < 476))[0][:F]
+        n = len(seen)
+        f["kf_xy"][k, :n] = uv[seen] + g.normal(size=(n, 2)) * 0.7
+        f["kf_octave"][k, :n] = g.choice(4, n, p=[0.5, 0.25, 0.15, 0.1])
+        f["kf_desc"][k, :n] = desc[seen] ^ flips(n)
+        f["kf_kp_valid"][k, :n] = True
+        r = g.uniform(size=n)
+        bind = np.where(r < 0.6, seen, -1)
+        two = (r >= 0.6) & (r < 0.7) & (seen < len(dup))
+        bind[two] = dup[seen[two]]
+        f["kf_kp_mp"][k, :n] = bind
+        uvs, zs = proj(T, E[:, :3])
+        uve, ze = proj(T, E[:, 3:])
+        lseen = np.nonzero((zs > 0.5) & (ze > 0.5) & (np.abs(uvs - [320, 240]).max(1) < 300)
+                           & (np.abs(uve - [320, 240]).max(1) < 300))[0][:LF]
+        m = len(lseen)
+        f["kf_line_ep"][k, :m] = np.concatenate([uvs[lseen], uve[lseen]], 1) \
+            + g.normal(size=(m, 4)) * 0.5
+        f["kf_ldesc"][k, :m] = ldesc[lseen] ^ flips(m)
+        f["kf_line_valid"][k, :m] = True
+        f["kf_line_ml"][k, :m] = np.where(g.uniform(size=m) < 0.7, lseen, -1)
+    return map_store.MapState(**{k: torch.from_numpy(v) for k, v in f.items()}), cfg, intr
+
+
+def _to_state(st, dev):
+    return st._replace(**{k: v.to(dev) for k, v in st._asdict().items()})
+
+
+def _match_equal(name, out_k, out_p, min_valid):
+    """Kernel 22 against its plain version: idx, dist and valid equal on
+    every row (the kernel sums in PyTorch's order, so no gate flips on
+    these inputs; chip_smoke.py prints any row that differs on the main
+    path with its margin), and matches found."""
+    for what in ("idx", "dist", "valid"):
+        a, b = getattr(out_k, what), getattr(out_p, what)
+        assert torch.equal(a, b), f"{name}: {what} differs on {int((a != b).sum())} rows"
+    assert out_p.valid.sum().item() >= min_valid, f"{name}: {int(out_p.valid.sum())} matches"
+
+
+def _check_fuse_match(cuda):
+    """Kernel 22's four entries on fuse_map: the fuse directions of the
+    newest keyframe and its four neighbours (points and lines), the loop
+    pool through eight keyframes (B = 8) and one (B = 1, radius 10), the
+    Sim(3) widening between two keyframes."""
+    st, cfg, intr = fuse_map()
+    stc = _to_state(st, cuda)
+    nb = torch.tensor([10, 9, 8, 7], device=cuda)
+    a, b, pres = local_mapping._fuse_directions(stc, 11, nb)
+    for name, fn, plain, least in (
+            ("fuse_match_points", local_mapping.fuse_match_points,
+             local_mapping.fuse_match_points_plain, 2000),
+            ("fuse_match_lines", local_mapping.fuse_match_lines,
+             local_mapping.fuse_match_lines_plain, 50)):
+        before = kernels.COUNTS[name]
+        out_k = fn(stc, a, b, pres, intr, cfg)
+        assert kernels.COUNTS[name] == before + 1, f"{name}: launch count"
+        _match_equal(name, out_k, plain(stc, a, b, pres, intr, cfg), least)
+    pool = loop_closing._loop_pool(stc, torch.tensor([0, 1, 2, 3, -1, -1, -1, -1],
+                                                     dtype=torch.int32, device=cuda))
+    rows = torch.arange(4, 12, device=cuda)
+    for kf, M, radius in ((rows, stc.kf_T_cw[rows], 4.0), (5, stc.kf_T_cw[5], 10.0)):
+        before = kernels.COUNTS["pool_match"]
+        mk = loop_closing._project_pool_matches(stc, kf, M, pool, intr, radius, 50)
+        mp = loop_closing._project_pool_matches_plain(stc, kf, M, pool, intr, radius, 50)
+        assert kernels.COUNTS["pool_match"] == before + 1, "pool_match: launch count"
+        _match_equal("pool_match", mk, mp, 500)
+    S12 = stc.kf_T_cw[9] @ torch.linalg.inv(stc.kf_T_cw[4])
+    before = kernels.COUNTS["sim3_widen_match"]
+    mk = loop_closing._sim3_widen_matches(stc, 9, 4, S12, intr, 100)
+    assert kernels.COUNTS["sim3_widen_match"] == before + 1, "sim3_widen_match: launch count"
+    _match_equal("sim3_widen_match", mk,
+                 loop_closing._sim3_widen_matches_plain(stc, 9, 4, S12, intr, 100), 200)
+
+
+def merge_problem(seed=41, K=256, F=2048, P=32768, D=8, pool_n=4096):
+    """Random merge-walk inputs at the default capacities, dense with
+    collisions: landmark ids from a narrow range (rows repeat ids, so two
+    rows of a direction redirect one landmark), features drawn with
+    repeats (two rows add at one feature), the new keyframe the target of
+    the last D / 2 directions (each reads the row the one before left)."""
+    g = np.random.default_rng(seed)
+    table = np.where(g.uniform(size=(K, F)) < 0.5, g.integers(0, 3000, (K, F)), -1)
+    valid = g.uniform(size=P) < 0.9
+    obs = g.integers(0, 6, P)
+    a_ids = np.concatenate([np.full(D // 2, 11), [10, 9, 8, 10]])
+    b_ids = np.concatenate([[10, 9, 8, 10], np.full(D // 2, 11)])
+    feat = g.integers(0, F, (D, F))
+    hits = g.uniform(size=(D, F)) < 0.3
+    pool_ids = np.where(g.uniform(size=pool_n) < 0.8, g.choice(3000, pool_n), -1)
+    lrows = np.array([11, 10, 9, 8, 7, 6, 0, 0])
+    present = np.array([True] * 6 + [False] * 2)
+    lfeat = g.integers(0, F, (D, pool_n))
+    lhits = (g.uniform(size=(D, pool_n)) < 0.2) & (pool_ids >= 0)[None, :]
+    t = torch.from_numpy
+    i32 = lambda a: t(np.asarray(a, np.int32))  # noqa: E731
+    return (dict(table=i32(table), valid=t(valid), obs=i32(obs), a_ids=i32(a_ids),
+                 b_ids=i32(b_ids), feat=i32(feat), hits=t(hits)),
+            dict(rows=i32(lrows), present=t(present), pool_ids=i32(pool_ids), feat=i32(lfeat),
+                 hits=t(lhits)))
+
+
+def _check_fuse_merge(cuda):
+    """Kernel 23 on merge_problem: the local merge walk and the finish
+    (with and without clearing dead bindings) bit-equal to their plain
+    versions, a redirect chain found."""
+    loc, _ = merge_problem()
+    c = {k: v.to(cuda) for k, v in loc.items()}
+    args = (c["table"], c["valid"], c["obs"], c["a_ids"], c["b_ids"], c["feat"], c["hits"])
+    before = kernels.COUNTS["fuse_merge"]
+    out_k = local_mapping.fuse_merge(*args)
+    out_p = local_mapping.fuse_merge_plain(*args)
+    assert kernels.COUNTS["fuse_merge"] == before + 1, "fuse_merge: launch count"
+    for what, x, y in zip(("table", "valid", "redirect"), out_k, out_p):
+        assert torch.equal(x, y), f"fuse_merge: {what}"
+    chained = out_p[2][out_p[2].long()] != out_p[2]
+    assert chained.any().item(), "fuse_merge: no redirect chain"
+    for clear in (True, False):
+        fk = matching.fuse_finish(*out_p, clear_invalid=clear)
+        assert torch.equal(fk, matching.fuse_finish_plain(*out_p, clear_invalid=clear)), \
+            f"fuse_finish (clear_invalid={clear})"
+
+
+def _check_loop_merge(cuda):
+    """Kernel 23's loop rule on merge_problem: bit-equal, redirects found."""
+    loc, lp = merge_problem()
+    d = {k: v.to(cuda) for k, v in lp.items()}
+    largs = (loc["table"].to(cuda), loc["valid"].to(cuda), d["rows"], d["present"],
+             d["pool_ids"], d["feat"], d["hits"])
+    P = largs[1].shape[0]
+    before = kernels.COUNTS["loop_merge"]
+    out_k = loop_closing.loop_merge(*largs)
+    out_p = loop_closing.loop_merge_plain(*largs)
+    assert kernels.COUNTS["loop_merge"] == before + 1, "loop_merge: launch count"
+    for what, x, y in zip(("table", "valid", "redirect"), out_k, out_p):
+        assert torch.equal(x, y), f"loop_merge: {what}"
+    assert (out_p[2] != torch.arange(P, device=cuda)).any().item(), "loop_merge: no redirect"
+
+
+def _check_covis(cuda):
+    """Kernel 24 on fuse_map with repeated ids in a row and a bound
+    landmark marked dead: the row of every keyframe and the matrix equal."""
+    st, _, _ = fuse_map()
+    st.kf_kp_mp[3, :50] = st.kf_kp_mp[3, 50:100]
+    st.mp_valid[int(st.kf_kp_mp[2, 0].clamp(min=0))] = False
+    st.kf_valid[6] = False
+    stc = _to_state(st, cuda)
+    for k in (0, 3, 6, 11):
+        assert torch.equal(map_store.covisibility_weights(stc, k),
+                           map_store.covisibility_weights_plain(stc, k)), f"covis_row {k}"
+    C = map_store.covisibility_matrix(stc)
+    assert torch.equal(C, map_store.covisibility_matrix_plain(stc)), "covis_matrix"
+    assert C.sum().item() > 0
+
+
 def test_map_kernels_match_plain(cuda):
     """Kernel 9 (observer bits and votes); kernel 10 and its eigensolver
     entry; kernels 20 and 21, the landmark-space duplicate searches
-    (fuse3d_problem)."""
+    (fuse3d_problem); kernel 23, the fuse merges and their finish
+    (merge_problem); kernel 24, the covisibility row and matrix
+    (fuse_map)."""
     _check_obs_bits_and_votes(cuda)
+    _check_fuse_merge(cuda)
+    _check_covis(cuda)
     g = np.random.default_rng(6)
     A = g.normal(size=(12, 2048, 4, 4)).astype(np.float32)
     A[:, :64, 3] = A[:, :64, 2] * 1.0001      # near rank-deficient systems
@@ -725,9 +943,11 @@ def _check_batched_frontend(cuda):
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     """A CUDA tensor of the wrong dtype raises instead of falling back, and
-    the wrappers of kernels 9-21 (and kernels 5-6 through `detect_lines` at
-    line_support_downsample = 2) run on CUDA tensors with every plain
-    version made to raise."""
+    the wrappers of kernels 9-24 (kernels 5-6 through `detect_lines` at
+    line_support_downsample = 2, kernels 22-24 through the fuses, the loop
+    closer's matches and loop fuse, and the covisibility functions) run on
+    CUDA tensors with every plain version made to raise, and with it the
+    [B, M, N] window mask and the [K, P + 1] dedup table."""
     with pytest.raises(TypeError):
         fast.fast_score_nms(torch.zeros((64, 64), device=cuda))
     with pytest.raises(TypeError):
@@ -738,6 +958,12 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
         map_store.votes_from_bits(torch.zeros((4, 8), dtype=torch.int64, device=cuda),
                                   torch.ones(4, dtype=torch.bool, device=cuda),
                                   torch.ones(256, dtype=torch.bool, device=cuda))
+    with pytest.raises(TypeError):
+        matching.fuse_finish(torch.zeros((4, 8), dtype=torch.int64, device=cuda),
+                             torch.ones(16, dtype=torch.bool, device=cuda),
+                             torch.arange(16, dtype=torch.int32, device=cuda), True)
+    fst, fcfg, fintr = fuse_map(n_kf=6, n_pts=1500, n_lines=60)
+    fst = _to_state(fst, cuda)
 
     def boom(*a, **k):
         raise AssertionError("plain version reached from a CUDA tensor")
@@ -757,7 +983,16 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (compact, "compact_keyframes_plain"),
                       (local_ba, "bundle_adjust_sharded_plain"),
                       (fast, "fast_score_nms_plain"), (orb, "orient_and_describe_plain"),
-                      (linalg, "lu_solve_blocked_plain")):
+                      (linalg, "lu_solve_blocked_plain"),
+                      (local_mapping, "fuse_match_points_plain"),
+                      (local_mapping, "fuse_match_lines_plain"),
+                      (local_mapping, "fuse_merge_plain"), (matching, "fuse_finish_plain"),
+                      (matching, "_dedup_row_table"), (matching, "window_mask"),
+                      (loop_closing, "_project_pool_matches_plain"),
+                      (loop_closing, "_sim3_widen_matches_plain"),
+                      (loop_closing, "loop_merge_plain"),
+                      (map_store, "covisibility_weights_plain"),
+                      (map_store, "covisibility_matrix_plain")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -796,6 +1031,17 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     lines = lsd.detect_lines(torch.from_numpy(img).to(cuda),
                              FrontendConfig(line_support_downsample=2))
     assert lines.valid.any()
+    nb = torch.tensor([4, 3, 2, -1], device=cuda)
+    fst = local_mapping.fuse_projected_points(fst, 5, nb, fintr, fcfg)
+    fst = local_mapping.fuse_projected_lines(fst, 5, nb, fintr, fcfg)
+    pool = loop_closing._loop_pool(fst, torch.tensor([0, 1, -1, -1, -1, -1, -1, -1],
+                                                     dtype=torch.int32, device=cuda))
+    loop_closing._project_pool_matches(fst, 4, fst.kf_T_cw[4], pool, fintr, 10.0, 50)
+    loop_closing._sim3_widen_matches(fst, 4, 1, fst.kf_T_cw[4] @ torch.linalg.inv(
+        fst.kf_T_cw[1]), fintr, 100)
+    loop_closing._loop_fuse(fst, np.array([5, 4, 3, -1, -1, -1, -1, -1]), pool, fintr, 50)
+    map_store.covisibility_weights(fst, 5)
+    map_store.covisibility_matrix(fst)
     torch.cuda.synchronize()
 
 
@@ -1125,13 +1371,16 @@ def _check_local_ba_64_keyframes(cuda):
 
 def test_loop_closing_kernels_match_plain(cuda):
     """Kernels 16, 17 and 18 and kernel 12 at 64 keyframes, each against
-    its plain version, and the dense solver at the pose graph's sizes (one
-    item: the suite's xdist schedule depends on
-    the number of items, tests/test_torch_loop_closing.py)."""
+    its plain version, the dense solver at the pose graph's sizes, and
+    kernel 22's four entries (fuse_map) and kernel 23's loop rule
+    (merge_problem) (one item: the suite's xdist schedule depends on the
+    number of items, tests/test_torch_loop_closing.py)."""
     _check_ransac_sim3(cuda)
     _check_optimize_sim3_pair(cuda)
     _check_optimize_pose_graph(cuda)
     _check_local_ba_64_keyframes(cuda)
+    _check_fuse_match(cuda)
+    _check_loop_merge(cuda)
     # the pose graph's solve: 51 free keyframes at the 256-keyframe capacity
     # (panels of 16), and the capacity filled
     _check_dense_solve(cuda, ((357, 1792), (1792, 1792)))

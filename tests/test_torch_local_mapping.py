@@ -144,13 +144,71 @@ def test_create_new_points():
     assert_tuple_close(to_numpy_dict(ref.state), out.state, atol=1e-4)
 
 
+def _seeded_duplicates(S, tc, intr):
+    """The fuse's input with duplicates seeded as chip_smoke.seed_duplicates
+    seeds them (copies of live landmarks in free slots), here exact copies
+    bound in keyframe rows so that the point fuse meets them. A landmark X
+    that the new keyframe matches in directions 0 and 1 is replaced there
+    by its copy X1 and in direction 0's target by its copy X2 (X also
+    bound in a spare row, so it stays the most observed): direction 0
+    merges X2 into X1, direction 1 X1 into X, a chain X2 -> X1 -> X. Two
+    other landmarks C1, C2 matched in direction 0 (rows r1 < r2) are
+    replaced in its target by one copy Y: the direction writes Y's
+    redirect twice, and the last write (C2) wins. Returns (state dict,
+    (X, X1, X2), (Y, C1, C2), (r1, r2))."""
+    d = {key: v.copy() for key, v in S["st2"].items()}
+    k, tab = S["k"], d["kf_kp_mp"]
+    st = _state(S["st2"])
+    a, b, present = tlm._fuse_directions(st, k, torch.from_numpy(S["nbs"]))
+    m = tlm.fuse_match_points_plain(st, a, b, present, intr, tc)
+    v, idx = m.valid.numpy(), m.idx.numpy()
+    obs = tms.point_obs_counts(st).numpy()
+    b0, b1 = int(b[0]), int(b[1])
+
+    def co(di, bi, r):   # direction di matches row r to its own landmark in bi
+        return v[di, r] and tab[k, r] >= 0 and tab[bi, idx[di, r]] == tab[k, r]
+
+    rows = [r for r in range(tab.shape[1]) if co(0, b0, r) and obs[tab[k, r]] == 3]
+    chain = next(r for r in rows if co(1, b1, r))
+    r1, r2 = [r for r in rows if r != chain][:2]
+    P = d["mp_valid"].shape[0]
+    X, X1, X2, Y = tab[k, chain], P - 1, P - 2, P - 3
+    C1, C2 = tab[k, r1], tab[k, r2]
+    for dst, src in ((X1, X), (X2, X), (Y, C1)):
+        for key in [key for key in d if key.startswith("mp_")]:
+            d[key][dst] = d[key][src]
+    tab[k, chain], tab[b0, idx[0, chain]] = X1, X2
+    tab[-1, 0] = X
+    tab[b0, idx[0, r1]] = tab[b0, idx[0, r2]] = Y
+    return d, (X, X1, X2), (Y, C1, C2), (r1, r2)
+
+
 def test_fuse_projected_points():
+    """The port against JAX on the fuse's input, then on a copy with
+    seeded duplicates whose merges chain and collide (_seeded_duplicates):
+    there the edge grid and the validity equal."""
     S, jc, tc, jintr, intr = _setup()
     ref = jlm.fuse_projected_points(_j(S["st2"]), jnp.asarray(S["k"]), jnp.asarray(S["nbs"]),
                                     jintr, jc)
     out = tlm.fuse_projected_points(_state(S["st2"]), S["k"], torch.from_numpy(S["nbs"]),
                                     intr, tc)
     assert_tuple_close(to_numpy_dict(ref), out, atol=1e-4)
+    d, (X, X1, X2), (Y, C1, C2), (r1, r2) = _seeded_duplicates(S, tc, intr)
+    st = _state(d)
+    nbs = torch.from_numpy(S["nbs"])
+    a, b, present = tlm._fuse_directions(st, S["k"], nbs)
+    m = tlm.fuse_match_points_plain(st, a, b, present, intr, tc)
+    _, _, redirect = tlm.fuse_merge_plain(st.kf_kp_mp, st.mp_valid, tms.point_obs_counts(st),
+                                          a, b, m.idx, m.valid)
+    assert (int(redirect[X2]), int(redirect[X1])) == (X1, X)         # the chain
+    assert bool(m.valid[0, r1]) and bool(m.valid[0, r2]) and C1 != C2
+    assert int(redirect[Y]) == C2                                     # the last write
+    ref = jlm.fuse_projected_points(_j(d), jnp.asarray(S["k"]), jnp.asarray(S["nbs"]), jintr,
+                                    jc)
+    out = tlm.fuse_projected_points(st, S["k"], nbs, intr, tc)
+    np.testing.assert_array_equal(out.kf_kp_mp.numpy(), np.asarray(ref.kf_kp_mp))
+    np.testing.assert_array_equal(out.mp_valid.numpy(), np.asarray(ref.mp_valid))
+    assert not out.mp_valid[[X1, X2, Y]].any()
 
 
 def test_gather_ba_problem():

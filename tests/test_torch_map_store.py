@@ -62,6 +62,9 @@ def test_converter_round_trips():
 
 
 def test_counts_covisibility_and_obs_bits():
+    """Counts, covisibility rows and observer bits on the bootstrapped map;
+    then the covisibility matrix and rows on a copy with a repeated id and
+    a dead bound landmark."""
     _, j, t = _maps()
     np.testing.assert_array_equal(tms.point_obs_counts(t).numpy(),
                                   np.asarray(jms.point_obs_counts(j)))
@@ -73,6 +76,21 @@ def test_counts_covisibility_and_obs_bits():
     bits = tms.compute_obs_bits(t)
     np.testing.assert_array_equal(bits.numpy().view(np.uint32),
                                   np.asarray(jms.compute_obs_bits(j)))
+    # a repeated id in keyframe 1's row (the matrix counts the landmark
+    # once, the row counts both features) and a bound landmark marked dead
+    # (both count it, as the reference does)
+    jd = port_boot()["carry"]["state"]
+    d = {k: v.copy() for k, v in jd.items()}
+    bound = np.nonzero(d["kf_kp_mp"][1] >= 0)[0]
+    d["kf_kp_mp"][1, bound[1]] = d["kf_kp_mp"][1, bound[0]]
+    d["mp_valid"][d["kf_kp_mp"][0][d["kf_kp_mp"][0] >= 0][0]] = False
+    j2 = jms.MapState(**{k: jnp.asarray(v) for k, v in d.items()})
+    t2 = convert.map_state_from_numpy(d, "cpu")
+    np.testing.assert_array_equal(tms.covisibility_matrix(t2).numpy(),
+                                  np.asarray(jms.covisibility_matrix(j2)))
+    for k in (0, 1):
+        np.testing.assert_array_equal(tms.covisibility_weights(t2, k).numpy(),
+                                      np.asarray(jms.covisibility_weights(j2, k)))
 
 
 def test_votes():

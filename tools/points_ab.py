@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Points-only path of two checkouts of the port, alternated on one GPU.
+"""One scenario of two checkouts of the port, alternated on one GPU.
 
-    python3 tools/points_ab.py OLD_ROOT NEW_ROOT [--frames 200] [--out FILE]
+    python3 tools/points_ab.py OLD_ROOT NEW_ROOT [--scenario points|loop]
+        [--frames 200] [--repeats 2] [--out FILE]
 
 Each root is a checkout of this repository (for example the parent commit
 unpacked with `git archive` into a git-ignored directory, and this tree).
 The runs go old, new, new, old, each in a process of its own that imports
-the port from its root and builds that root's kernels into its `build/`.
-A run is the bench scene of chip_smoke.py at 640x480 with
-`SLAMConfig(camera=CameraConfig(fy=480.0), use_lines=False)`: bootstrap
-through `track()` (within 90 frames), then `--frames` frames through
-`track_sequence()`. Each run prints one JSON line (root, init frame,
-tracked fps, ATE-Sim3, tracked frames, keyframes, points, the launch
-counts); `--out` also writes them all to a file. Exits nonzero if a run
-fails or does not initialize.
+the port (and, for `loop`, chip_smoke.py) from its root and builds that
+root's kernels into its `build/`. The scenarios:
+
+- `points` (the default): the bench scene of chip_smoke.py at 640x480 with
+  `SLAMConfig(camera=CameraConfig(fy=480.0), use_lines=False)`: bootstrap
+  through `track()` (within 90 frames), then `--frames` frames through
+  `track_sequence()`. One JSON line per run (root, init frame, tracked
+  fps, ATE-Sim3, tracked frames, keyframes, points, the launch counts).
+- `loop`: chip_smoke.py's phase 2d with loop closing on (`loop_scenario`,
+  `run_loop`: the reference's loop test), `--repeats` times in the one
+  process, so the first run carries each kernel's first launch and the
+  later ones do not. One JSON line per repeat: the root, the repeat,
+  ATE-Sim3, tracked frames, the run's seconds and every correction's wall
+  ms with its detect / verify / correct / global BA split.
+
+`--out` also writes all the lines to a file. Exits nonzero if a run fails
+(or, for `points`, does not initialize).
 """
 
 import argparse
@@ -22,7 +32,7 @@ import os
 import subprocess
 import sys
 
-RUN = r"""
+RUN = {"points": r"""
 import json, sys, time
 import numpy as np
 sys.path.insert(0, ROOT)
@@ -59,32 +69,53 @@ print(json.dumps({"root": ROOT, "init_frame": i - 1, "frames": FRAMES, "fps": FR
                   "keyframes": slam.cur.n_kf, "points": slam.cur.n_mp,
                   "live_points": int(slam.map.mp_valid.sum()),
                   "launches": dict(kernels.COUNTS)}))
-"""
+""", "loop": r"""
+import json, sys
+sys.path.insert(0, ROOT)
+import torch
+import chip_smoke
+from structure_slam_pointline_tpu_torch import kernels
+from structure_slam_pointline_tpu_torch.config import CameraConfig
+
+kernels.build_all()
+cam = CameraConfig(fy=480.0)
+imgs, poses = chip_smoke.loop_scenario(cam)
+for rep in range(REPEATS):
+    res = chip_smoke.run_loop(cam, imgs, poses, True, sync=torch.cuda.synchronize)
+    res.pop("slam", None)
+    print(json.dumps({"root": ROOT, "repeat": rep, **{k: res.get(k) for k in (
+        "ate_sim3", "tracked", "frames", "seconds", "loop_corrected", "corrections",
+        "error")}}))
+"""}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old_root")
     ap.add_argument("new_root")
+    ap.add_argument("--scenario", choices=sorted(RUN), default="points")
     ap.add_argument("--frames", type=int, default=200)
+    ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     results = []
     for root in (args.old_root, args.new_root, args.new_root, args.old_root):
         root = os.path.abspath(root)
-        code = f"ROOT = {root!r}\nFRAMES = {args.frames}\n" + RUN
+        code = (f"ROOT = {root!r}\nFRAMES = {args.frames}\nREPEATS = {args.repeats}\n"
+                + RUN[args.scenario])
         proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                              timeout=900)
+                              timeout=900, cwd=root)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return 1
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        results.append(json.loads(line))
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)
+                results.append(json.loads(line))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    return 0
+    return 0 if all(r.get("error") is None for r in results) else 1
 
 
 if __name__ == "__main__":
