@@ -16,10 +16,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    a. the main path, `SLAMConfig()` with lines on: bootstrap through
       `SLAMSystem.track()` (must initialize within 90 frames), then 200
       frames through `track_sequence()`. Every kernel's launch counter is
-      zeroed just before and read just after; kernels 1-12 and the keyframe
-      path's entries of kernels 22-24 (`fuse_match_points`,
-      `fuse_match_lines`, `fuse_merge`, `fuse_finish`, `covis_row`) must
-      be nonzero.
+      zeroed just before and read just after; kernels 1-7 and 9-12, the
+      keyframe path's entries of kernels 22-24 (`fuse_match_points`,
+      `fuse_match_lines`, `fuse_merge`, `fuse_finish`, `covis_row`), the
+      per-frame glue's kernels 25 (`pyramid`) and 26 (`lsd_merge`,
+      `lsd_octave_merge`) and kernel 22's tracking entries
+      (`track_match_points`, `track_match_lines`) must be nonzero (kernel
+      8's atan2f runs inline in kernels 22 and 26; its entry is driven in
+      phase 3).
       ATE-Sim3 over the tracked frames must be <= 0.05, and map lines must
       have been made and be live at the end;
    b. the points-only path, `use_lines=False`: bootstrap, then 60 frames,
@@ -98,8 +102,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
       data-parallel frontend, `make_batch_extractor(frame_mesh(4),
       with_lines=True)` on 8 bench frames: every keypoint, descriptor,
       line and LBD word equal to the single-frame frontend's on the card,
-      the batch entries of kernels 1, 11 and 2 launched (counters zeroed
-      just before, read just after).
+      the batch entries of kernels 1, 11 and 2 and kernels 25 and 26
+      launched (counters zeroed just before, read just after).
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
    through its plain PyTorch version: FAST/NMS maps, Hamming best / second
@@ -152,7 +156,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
    every pyramid level and blurred level must be equal, and so must the
    valid keypoints, their descriptors and the line descriptors, with line
    endpoints within 1e-3 px; the first level or op that differs is
-   printed. Each kernel is
+   printed. Kernels 25, 26 and kernel 22's tracking entries on every call
+   of phase 2a's first frames and every 25th call after (`glue_kernels`):
+   kernel 25 bit-equal on every level and blurred plane (timed beside the
+   plain version's two torch.matmul calls per level, the resizes without
+   the blur); kernel 26's valid flags and octaves bit-equal, its floats
+   bit-equal or printed with their largest difference, within 1e-5; the
+   tracking entries' idx, dist, valid and visible mask exactly equal, each
+   differing row printed with its nearest gate. Kernel 8's entry runs on
+   the recorded merges' segment directions, bit-exact. Each kernel is
    timed on the device (torch.profiler's device events per call, host
    launch gaps left out) and from the caller (median of CUDA events around
    one call, gaps included); the null vector also against
@@ -201,8 +213,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    pipeline call is replayed with each stage timed from the caller
    (`keyframe_split`).
 4. Where the time goes: 20 further frames of the main path under
-   torch.profiler; prints the wall time, the device-busy time per frame and
-   the top device kernels.
+   torch.profiler; prints the wall time, the device-busy time and device
+   kernels per frame and the top device kernels; then one more frame with
+   every torch call labelled by its line (`pageable_copies`): its pageable
+   host-to-device copies grouped by the line of the port that issued them.
 
 Output: a JSON line of the end-to-end, function and profile numbers, the JSON line
 {"kernels": [...]}, the nvidia-smi line, and as the last line
@@ -282,7 +296,16 @@ OPS_FUSE_LN_PAIR = 60
 OPS_WINDOW_PAIR = 8
 OPS_DIST_PAIR = 27
 OPS_MATCH_ROW = {"fuse_match_points": 150, "fuse_match_lines": 200, "pool_match": 40,
-                 "sim3_widen_match": 80}
+                 "sim3_widen_match": 80, "track_match_points": 170, "track_match_lines": 200}
+# kernel 25 per pixel: the resize's taps (~3 x 3 products and sums, two
+# roundings) and the blur's 2 x 7 taps (a product, an add, two roundings
+# each); kernel 26 per candidate pair: the link test (~45 operations), the
+# suppression test (~40), the argmax and extents (~25), plus the closure's
+# word ORs; its octave step ~40 a pair
+OPS_PYR_RESIZE_PX = 24
+OPS_PYR_BLUR_PX = 56
+OPS_MERGE_PAIR = 110
+OPS_OCTAVE_PAIR = 40
 MATCH_AGREE_MIN = 0.999   # kernel 22 against its plain version, rows agreeing
 MATCH_MARGIN_MAX = 1e-5   # a differing row's flipped gate, relative to its threshold
 
@@ -363,6 +386,18 @@ KERNELS = {
                   "structure_slam_pointline_tpu_torch/csrc/covis.cu"),
     "covis_matrix": ("structure_slam_pointline_tpu/world/map_store.py:210",
                      "structure_slam_pointline_tpu_torch/csrc/covis.cu"),
+    # the per-frame glue: kernel 25, kernel 26's two entries, kernel 22's
+    # tracking entries
+    "pyramid": ("structure_slam_pointline_tpu/ops/pyramid.py:41",
+                "structure_slam_pointline_tpu_torch/csrc/pyramid.cu"),
+    "lsd_merge": ("structure_slam_pointline_tpu/ops/lsd.py:442",
+                  "structure_slam_pointline_tpu_torch/csrc/lsd_merge.cu"),
+    "lsd_octave_merge": ("structure_slam_pointline_tpu/ops/lsd.py:551",
+                         "structure_slam_pointline_tpu_torch/csrc/lsd_merge.cu"),
+    "track_match_points": ("structure_slam_pointline_tpu/models/tracking.py:187",
+                           "structure_slam_pointline_tpu_torch/csrc/fuse_match.cu"),
+    "track_match_lines": ("structure_slam_pointline_tpu/models/tracking.py:243",
+                          "structure_slam_pointline_tpu_torch/csrc/fuse_match.cu"),
 }
 # table rows that time one kernel at another path's shape: row -> (kernel,
 # the JAX lines that shape replaces)
@@ -373,8 +408,9 @@ RELOC_KERNELS = ("bow_transform", "bow_query", "ransac_pnp")
 LOOP_KERNELS = ("ransac_sim3", "sim3_pair", "pose_graph", "pool_match", "sim3_widen_match",
                 "loop_merge", "covis_matrix")
 DATASET_KERNELS = ("compact",)   # runs only when a pool passes its trigger (phase 2e)
-# no path calls these, in either package: phase 3 drives their entry points
-UNCALLED_KERNELS = ("fuse_points_3d", "fuse_lines_3d", "jacobi_eigh4")
+# no path of the port calls these (kernel 8's atan2f runs inline in kernels
+# 22 and 26 since the glue was ported): phase 3 drives their entry points
+UNCALLED_KERNELS = ("fuse_points_3d", "fuse_lines_3d", "jacobi_eigh4", "atan2_glibc")
 # the paths reach the dense solver through kernels 12 and 18; its own entry
 # is driven on their systems in phase 3
 SOLVER_KERNELS = ("dense_solve",)
@@ -406,7 +442,8 @@ OPS_PG_LANE = 1500
 OPS_PG_COST = 500
 POINT_KERNELS = ("fast_nms", "orb_describe", "hamming_best2", "pose_lm", "obs_bits",
                  "null_vector4", "kp_select", "local_ba", "fuse_match_points", "fuse_merge",
-                 "fuse_finish", "covis_row")
+                 "fuse_finish", "covis_row", "pyramid", "track_match_points",
+                 "track_match_lines")
 
 
 def fail(msg: str) -> None:
@@ -610,6 +647,57 @@ class Recorder:
         setattr(self.module, self.attr, self.fn)
 
 
+def pageable_copies(slam, img, idx: int) -> dict:
+    """One more frame of the main path under torch.profiler: its pageable
+    host-to-device copies, grouped by the line of the port that issued
+    them, and the frame's device kernels linked to ops. The profiler on
+    the card records no Python frames, so a TorchFunctionMode wraps every
+    torch call made from the package in a `record_function` range named
+    after the innermost package frame ("file(line): function"), and a
+    copy takes the name of the nearest such range above it."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pkg = "structure_slam_pointline_tpu_torch" + os.sep
+
+    class Sites(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            f = sys._getframe(1)
+            while f is not None and pkg not in f.f_code.co_filename:
+                f = f.f_back
+            if f is None:
+                return func(*args, **(kwargs or {}))
+            site = (f"{f.f_code.co_filename.split(pkg)[-1]}({f.f_lineno}): "
+                    f"{f.f_code.co_name}")
+            with record_function("site " + site):
+                return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with Sites():
+            slam.track_sequence(img[None], idx)
+        torch.cuda.synchronize()
+    by_line, n_copies, n_kernels = {}, 0, 0
+    for e in prof.events():
+        for k in getattr(e, "kernels", []) or []:
+            n_kernels += 1
+            if "HtoD" not in k.name or "Pageable" not in k.name:
+                continue
+            n_copies += 1
+            p = e
+            while p is not None and not p.name.startswith("site "):
+                p = p.cpu_parent
+            site = p.name[5:] if p is not None else "(no frame of the package)"
+            by_line[site] = by_line.get(site, 0) + 1
+    out = {"pageable_htod_per_frame": n_copies, "device_kernels_linked": n_kernels,
+           "by_line": dict(sorted(by_line.items(), key=lambda kv: -kv[1]))}
+    print(f"[profile] one frame with each torch call labelled by its line: {n_copies} "
+          f"pageable host-to-device copies, {n_kernels} device kernels linked to ops; "
+          f"copies by line: {out['by_line']}", flush=True)
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -705,6 +793,19 @@ def first_calls(tag: str, n: int):
     def key(*a, **kw):
         seen[0] += 1
         return (tag, seen[0] if seen[0] <= n else 0)
+    return key
+
+
+def sampled_calls(tag: str, first: int, every: int):
+    """A Recorder key function: a key of its own for each of the first
+    `first` calls and for every `every`-th call after them (each
+    recorded), one shared key for the rest."""
+    seen = [0]
+
+    def key(*a, **kw):
+        seen[0] += 1
+        n = seen[0]
+        return (tag, n if n <= first or n % every == 0 else 0)
     return key
 
 
@@ -1050,31 +1151,60 @@ def match_margins(entry: str, args, b: int, m: int, cols) -> dict:
         g[f"{tag} |du|"] = (abs(u - x), r)
         g[f"{tag} |dv|"] = (abs(v - y), r)
 
-    if entry in ("fuse_match_points", "fuse_match_lines"):
+    def point_gates(T, X, s_, cfg):
+        """The point gates of kernel 22's points entries: (u, v, predicted
+        octave)."""
+        u, v, p = proj(T, X)
+        dist = float(torch.linalg.norm(p))
+        dmin, dmax = float(st.mp_dist_min[s_]), float(st.mp_dist_max[s_])
+        g["depth"] = (float(p[2]), 0.1)
+        if 0.0 < dmax < 1e8:
+            g["band lo"] = (dist, dmin * 0.8)
+            g["band hi"] = (dist, dmax * 1.2)
+        maxd = dist if not 0.0 < dmax < 1e8 else dmax
+        q = float(np.log(max(maxd / max(dist, 1e-6), 1.0)) / np.log(np.float32(
+            cfg.frontend.scale_factor)))
+        g["octave"] = (q, float(np.round(q)))
+        c = -(T[:3, :3].T @ T[:3, 3])
+        ray = (X - c) / torch.linalg.norm(X - c).clamp(min=1e-9)
+        n = st.mp_normal[s_]
+        g["normal"] = (float(torch.linalg.norm(n)), 0.5)
+        g["view"] = (float(ray @ n), 0.5)
+        return u, v, int(np.clip(np.ceil(q), 0, cfg.frontend.n_levels - 1))
+
+    if entry in ("track_match_points", "track_match_lines"):
+        _, fr, T, ids, intr, cfg, radius = args[:7]
+        W, H = cfg.camera.width, cfg.camera.height
+        if entry == "track_match_points":
+            s_ = int(ids[m].clamp(0, st.mp_valid.shape[0] - 1))
+            u, v, lv = point_gates(T, st.mp_xyz[s_], s_, cfg)
+            for j in cols:
+                x, y = (float(w) for w in fr.xy[j])
+                window(f"feature {j}", u, v, x, y, radius * cfg.frontend.scale_factor ** lv)
+        else:
+            s_ = int(ids[m].clamp(0, st.ml_valid.shape[0] - 1))
+            ep = st.ml_endpoints[s_]
+            us, vs, ps = proj(T, ep[:3])
+            ue, ve, pe = proj(T, ep[3:])
+            u, v = 0.5 * (us + ue), 0.5 * (vs + ve)
+            g["depth start"] = (float(ps[2]), 0.1)
+            g["depth end"] = (float(pe[2]), 0.1)
+            ang = float(np.arctan2(ve - vs, ue - us))
+            for j in cols:
+                e = fr.line_ep[j].tolist()
+                window(f"line {j}", u, v, 0.5 * (e[0] + e[2]), 0.5 * (e[1] + e[3]), radius)
+                d = (ang - np.arctan2(e[3] - e[1], e[2] - e[0]) + np.pi / 2) % np.pi - np.pi / 2
+                g[f"line {j} angle"] = (abs(d), 0.26)
+        g["u lo"], g["u hi"] = (u, 4.0), (u, W - 4.0)
+        g["v lo"], g["v hi"] = (v, 4.0), (v, H - 4.0)
+    elif entry in ("fuse_match_points", "fuse_match_lines"):
         _, a_ids, b_ids, present, intr, cfg = args
         a, t = int(a_ids[b]), int(b_ids[b])
         T = st.kf_T_cw[t]
         W, H = cfg.camera.width, cfg.camera.height
         if entry == "fuse_match_points":
             s_ = int(st.kf_kp_mp[a, m].clamp(0, st.mp_valid.shape[0] - 1))
-            X = st.mp_xyz[s_]
-            u, v, p = proj(T, X)
-            dist = float(torch.linalg.norm(p))
-            dmin, dmax = float(st.mp_dist_min[s_]), float(st.mp_dist_max[s_])
-            g["depth"] = (float(p[2]), 0.1)
-            if 0.0 < dmax < 1e8:
-                g["band lo"] = (dist, dmin * 0.8)
-                g["band hi"] = (dist, dmax * 1.2)
-            maxd = dist if not 0.0 < dmax < 1e8 else dmax
-            q = float(np.log(max(maxd / max(dist, 1e-6), 1.0)) / np.log(np.float32(
-                cfg.frontend.scale_factor)))
-            g["octave"] = (q, float(np.round(q)))
-            c = -(T[:3, :3].T @ T[:3, 3])
-            ray = (X - c) / torch.linalg.norm(X - c).clamp(min=1e-9)
-            n = st.mp_normal[s_]
-            g["normal"] = (float(torch.linalg.norm(n)), 0.5)
-            g["view"] = (float(ray @ n), 0.5)
-            lv = int(np.clip(np.ceil(q), 0, cfg.frontend.n_levels - 1))
+            u, v, lv = point_gates(T, st.mp_xyz[s_], s_, cfg)
             r = 3.0 * cfg.frontend.scale_factor ** lv
             for j in cols:
                 x, y = (float(w) for w in st.kf_xy[t, j])
@@ -1408,6 +1538,158 @@ def frontend_card_vs_cpu(img: np.ndarray, cfg) -> dict:
     return out
 
 
+def glue_kernels(rec12: dict, frames: int) -> list:
+    """Kernels 25, 26 and kernel 22's tracking entries against their plain
+    versions on every call recorded in phase 2a (each of the first frames'
+    calls and a sample of later ones, `sampled_calls`); `frames` the
+    phase's frames. Kernel 25 bit-equal on every level and blurred plane;
+    kernel 26's integer outputs (valid, octave) bit-equal, its floats
+    bit-equal or printed with their largest difference, which must stay
+    within 1e-5; the tracking entries' idx, dist, valid and visible
+    exactly equal, each differing row printed with its nearest gate
+    (`match_margins`). Returns the table rows, each with its launches per
+    frame."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.ops import lsd, matching, pyramid
+
+    rows = []
+
+    def calls_of(name):
+        calls = rec12[name].calls
+        if not calls:
+            fail(f"{name}: no call recorded in phase 2a")
+        return calls
+
+    # kernel 25: every recorded frame's levels and blurred planes
+    calls = calls_of("pyramid")
+    for key, (args, kw) in calls.items():
+        (lk, bk), (lp, bp) = (pyramid.build_blurred_pyramid(*args, **kw),
+                              pyramid.build_blurred_pyramid_plain(*args, **kw))
+        for lv, (a, b, c, d) in enumerate(zip(lk, lp, bk, bp)):
+            if not (torch.equal(a, b) and torch.equal(c, d)):
+                fail(f"pyramid disagrees at {key} level {lv}: level {int((a != b).sum())} px, "
+                     f"blurred {int((c != d).sum())} px")
+    args, kw = calls[min(calls)]
+    lp, _ = pyramid.build_blurred_pyramid_plain(*args, **kw)
+    px = [t.numel() for t in lp]
+    mats = []
+    for lv in range(1, len(lp)):
+        (h, w), (h2, w2) = lp[lv - 1].shape, lp[lv].shape
+        wr = pyramid._bf16_weights(h, h2, lp[lv].device)
+        wc = pyramid._bf16_weights(w, w2, lp[lv].device)
+        x = lp[lv - 1].float()
+        mats.append((wr.T, x, (wr.T @ x).to(torch.bfloat16).float(), wc))
+
+    def library():   # the plain version's two torch.matmul calls per level
+        return [(a @ b, c @ d) for a, b, c, d in mats]
+
+    rows.append(dict(
+        name="pyramid", max_abs_err=0.0,
+        **timings(lambda: pyramid.build_blurred_pyramid(*args, **kw),
+                  lambda: pyramid.build_blurred_pyramid_plain(*args, **kw)),
+        library_ms=device_ms(library), library_wall_ms=time_ms(library),
+        library_shape="the plain version's 2 torch.matmul calls per level (the resizes "
+                      "alone, no blur)",
+        bytes=2 * (sum(px[:-1]) + sum(px[1:]) + sum(px)),
+        ops=sum(px) * OPS_PYR_BLUR_PX + sum(px[1:]) * OPS_PYR_RESIZE_PX,
+        shape=f"{len(lp)} levels of {tuple(lp[0].shape)} ({sum(px)} px), 8 launches a call "
+              f"({len(calls)} calls checked)"))
+
+    # kernel 26: integer outputs bit-equal, floats bit-equal or within 1e-5
+    def check_lines(name, fn, plain):
+        calls = calls_of(name)
+        err = 0.0
+        for key, (args, kw) in calls.items():
+            ok_, op = fn(*args, **kw), plain(*args, **kw)
+            for f in ("valid", "octave"):
+                if not torch.equal(getattr(ok_, f), getattr(op, f)):
+                    fail(f"{name} disagrees at {key}: {f}")
+            for f in ("endpoints", "line2d", "response", "angle"):
+                a, b = getattr(ok_, f), getattr(op, f)
+                if not torch.equal(a, b):
+                    e = (a - b).abs().max().item()
+                    print(f"[kernel 26] {name} at {key}: {f} not bit-equal, largest "
+                          f"difference {e:.3e}", flush=True)
+                    err = max(err, e)
+        if err > 1e-5:
+            fail(f"{name}: float outputs differ by {err:.3e} (> 1e-5)")
+        return calls, err
+
+    calls, err = check_lines("lsd_merge", lsd.lsd_merge, lsd.lsd_merge_plain)
+    # both octaves of the first frame (key 0 is the shared key of unsampled calls)
+    frame_calls = [calls[k] for k in sorted(k for k in calls if k[1] > 0)[:2]]
+    Ks = [a[0].shape[0] for a, _ in frame_calls]
+    rows.append(dict(
+        name="lsd_merge", max_abs_err=err, library_ms=None,
+        **timings(lambda: [lsd.lsd_merge(*a, **k) for a, k in frame_calls],
+                  lambda: [lsd.lsd_merge_plain(*a, **k) for a, k in frame_calls]),
+        bytes=sum(K * 29 + a[2] * 41 for K, (a, _) in zip(Ks, frame_calls)),
+        ops=sum(K * K * OPS_MERGE_PAIR + 4 * K ** 3 // 32 for K in Ks),
+        shape=f"one frame's 2 octaves, K = {Ks} candidates ({len(calls)} calls checked)"))
+    calls, err = check_lines("lsd_octave_merge", lsd.lsd_octave_merge,
+                             lsd.lsd_octave_merge_plain)
+    args, kw = calls[min(calls)]
+    L = args[0].valid.shape[0]
+    rows.append(dict(
+        name="lsd_octave_merge", max_abs_err=err, library_ms=None,
+        **timings(lambda: lsd.lsd_octave_merge(*args, **kw),
+                  lambda: lsd.lsd_octave_merge_plain(*args, **kw)),
+        bytes=2 * L * 25 + L * 41, ops=(2 * L) ** 2 * OPS_OCTAVE_PAIR,
+        shape=f"2 x {L} candidates ({len(calls)} calls checked)"))
+
+    # kernel 22's tracking entries: exactly equal on every recorded call
+    for entry, fn, plain in (
+            ("track_match_points", matching.track_match_points,
+             matching.track_match_points_plain),
+            ("track_match_lines", matching.track_match_lines,
+             matching.track_match_lines_plain)):
+        calls = calls_of(entry)
+        n_rows, diffs = 0, []
+        for key, (args, kw) in calls.items():
+            (mk, vk), (mp, vp) = fn(*args, **kw), plain(*args, **kw)
+            same = ((mk.idx == mp.idx) & (mk.dist == mp.dist) & (mk.valid == mp.valid)
+                    & (vk == vp))
+            n_rows += same.numel()
+            for m_ in torch.nonzero(~same).flatten().tolist()[:50]:
+                cols = sorted({int(mk.idx[m_]), int(mp.idx[m_])})
+                gate, rel = nearest_gate(match_margins(entry, args, 0, m_, cols))
+                diffs.append(m_)
+                print(f"[kernel 22] {entry} differs at {key} row {m_}: plain "
+                      f"({int(mp.idx[m_])}, {int(mp.dist[m_])}, {bool(mp.valid[m_])}, visible "
+                      f"{bool(vp[m_])}) kernel ({int(mk.idx[m_])}, {int(mk.dist[m_])}, "
+                      f"{bool(mk.valid[m_])}, visible {bool(vk[m_])}) | nearest gate {gate} "
+                      f"at {rel:.3e} relative", flush=True)
+        print(f"[kernel 22] {entry}: {len(calls)} calls, {n_rows} rows, {len(diffs)} differ",
+              flush=True)
+        if diffs:
+            fail(f"{entry}: {len(diffs)} rows differ from the plain version")
+        args, kw = calls[max(calls, key=lambda k: k[1])]
+        with Spy() as spy:
+            mp, vp = plain(*args, **kw)
+        st, fr, ids = args[0], args[1], args[3]
+        M = ids.shape[0]
+        if entry == "track_match_points":
+            N = fr.xy.shape[0]
+            b_ = M * (4 + 12 + 8 + 12 + 32 + 4) + N * (8 + 1 + 4 + 32 + 4) + M * 14
+            extra = M * 10
+        else:
+            N = fr.line_ep.shape[0]
+            nv = int(mp.valid.sum())
+            b_ = M * (4 + 24 + 32) + N * (16 + 1 + 32) + M * 14
+            extra = 4 * M * max(nv, 1)   # the two medians' rank counts
+        rows.append(dict(
+            name=entry, max_abs_err=0.0, library_ms=None,
+            **timings(lambda: fn(*args, **kw), lambda: plain(*args, **kw)),
+            bytes=b_, ops=spy.tests * OPS_WINDOW_PAIR + spy.pairs * OPS_DIST_PAIR
+            + M * OPS_MATCH_ROW[entry] + extra,
+            shape=f"{M} rows ({int(vp.sum())} visible) x {N} features, {spy.tests} window "
+                  f"tests, {spy.pairs} in-window pairs ({len(calls)} calls checked)"))
+    for r in rows:
+        r["frames"] = frames
+    return rows
+
+
 def kernels_22_24(fuse_rec: dict, glue_rec: dict, kf_shape) -> tuple:
     """Kernels 22-24 against their plain versions on the calls recorded in
     phase 2a (fuse_rec) and 2d (glue_rec), `kf_shape` the points grid's
@@ -1733,9 +2015,6 @@ def main() -> int:
         "lsd_refine": Recorder(lsd, "lsd_refine", refine_key),
         "lbd_describe": Recorder(lbd, "describe_lines",
                                  lambda img, ep, valid: ("lbd", tuple(img.shape), ep.shape[0])),
-        "atan2_glibc": Recorder(fmath, "atan2",
-                                lambda y, x: ("atan2", tuple(torch.broadcast_shapes(
-                                    y.shape, x.shape)))),
         "kp_select": Recorder(fast, "select_keypoints_levels", select_key),
         "null_vector4": Recorder(linalg, "null_vector_4",
                                  lambda A, **kw: ("null", tuple(A.shape))),
@@ -1773,11 +2052,24 @@ def main() -> int:
         "fuse_projected_lines": Recorder(lm, "fuse_projected_lines", first_calls("fuse", 12)),
         "keyframe_pipeline": Recorder(pipeline, "_keyframe_pipeline", first_calls("kfp", 12)),
     }
+    # kernels 25, 26 and kernel 22's tracking entries: each call of the
+    # first frames recorded, then a sample
+    from structure_slam_pointline_tpu_torch.ops import pyramid
+
+    rec12 = {
+        "pyramid": Recorder(pyramid, "build_blurred_pyramid", sampled_calls("pyr", 20, 25)),
+        "lsd_merge": Recorder(lsd, "lsd_merge", sampled_calls("merge", 40, 25)),
+        "lsd_octave_merge": Recorder(lsd, "lsd_octave_merge", sampled_calls("oct", 20, 25)),
+        "track_match_points": Recorder(matching, "track_match_points",
+                                       sampled_calls("pts", 40, 25)),
+        "track_match_lines": Recorder(matching, "track_match_lines",
+                                      sampled_calls("lns", 40, 25)),
+    }
     # 2a: the main path, lines on, every wrapper's first call of each shape recorded
-    for r in (*rec.values(), *fuse_rec.values()):
+    for r in (*rec.values(), *fuse_rec.values(), *rec12.values()):
         r.__enter__()
     slam, e2e, counts = drive(cfg, N_TRACK, frame, poses, "lines")
-    for r in (*rec.values(), *fuse_rec.values()):
+    for r in (*rec.values(), *fuse_rec.values(), *rec12.values()):
         r.__exit__()
     zero = [k for k, v in counts.items() if v == 0 and k not in OFF_MAIN_PATH]
     if zero:
@@ -2161,9 +2453,10 @@ def main() -> int:
           f"single-frame frontend ({batch_out['keypoints']} keypoints, {batch_out['lines']} "
           f"lines) | caller {batch_out['wall_ms']:.2f} ms against "
           f"{batch_out['single_frame_wall_ms']:.2f} ms frame by frame | launches "
-          f"{ {k: counts_batch[k] for k in BATCH_KERNELS} }", flush=True)
-    if not all(counts_batch[k] > 0 for k in BATCH_KERNELS):
-        fail(f"the batch entries never launched: {counts_batch}")
+          f"{ {k: counts_batch[k] for k in BATCH_KERNELS + ('pyramid', 'lsd_merge')} }",
+          flush=True)
+    if not all(counts_batch[k] > 0 for k in BATCH_KERNELS + ("pyramid", "lsd_merge")):
+        fail(f"the batch entries, kernel 25 or kernel 26 never launched: {counts_batch}")
     print(f"[time] phase 2 done at {time.time() - t_start:.0f} s", flush=True)
     i = e2e["init_frame"] + 1
 
@@ -2221,12 +2514,11 @@ def main() -> int:
                 fail(f"hamming_best2 disagrees at {key}: {int((a != b).sum())} rows")
             if a.numel():
                 ham_err = max(ham_err, int((a - b).abs().max()))
-    p2 = ("ham", (cfg.map.local_points_cap, 8), (cfg.frontend.n_keypoints, 8),
-          (cfg.map.local_points_cap, cfg.frontend.n_keypoints))   # tracking pass 2
-    if p2 not in ham_calls:
-        fail(f"no tracking-shape Hamming call recorded: {sorted(ham_calls)}")
-    a, b, m = ham_calls[p2][0]
-    M, N = m.shape
+    # the largest call (the keyframe searches; tracking runs kernel 22's
+    # entries since the glue was ported)
+    a, b, m = ham_calls[max(ham_calls, key=lambda k: int(np.prod(k[3])))][0]
+    M, N = m.shape[-2:]
+    M *= int(np.prod(m.shape[:-2]))
     rows.append(dict(
         name="hamming_best2", max_abs_err=float(ham_err),
         **timings(lambda: hamming.masked_best2(a, b, m),
@@ -2399,8 +2691,13 @@ def main() -> int:
         + L * (8 * 4 + lbd.DESC_FLOATS * 4),
         ops=L * (lbd.N_SAMPLES * lbd.N_BANDS * OPS_LBD_SAMPLE + OPS_LBD_SEGMENT),
         library_ms=None, shape=f"{L} segments at {tuple(im.shape)}"))
-    # atan2: every shape the main path gave it, bit-exact
-    at_calls = [v[0] for v in rec["atan2_glibc"].calls.values()]
+    # atan2 (kernel 8's entry; no path of the port calls it since kernels 22
+    # and 26 compute it inline): the segment directions of every recorded
+    # lsd_merge call, bit-exact; its launches are read in the uncalled block
+    at_calls = []
+    for (ref_, *_), _ in rec12["lsd_merge"].calls.values():
+        at_calls.append(((ref_[:, 3] - ref_[:, 1]).contiguous(),
+                         (ref_[:, 2] - ref_[:, 0]).contiguous()))
     for y, x in at_calls:
         if not torch.equal(fmath.atan2(y, x).view(torch.int32),
                            fmath.atan2_plain(y, x).view(torch.int32)):
@@ -2512,6 +2809,7 @@ def main() -> int:
     st_p = local_mapping.fuse_duplicate_points_3d(st_seed, n_kf_f, n_kf_f + 2, slam.intr, cfg)
     st_l = local_mapping.fuse_duplicate_lines_3d(st_seed, n_kf_f, n_kf_f + 2, slam.intr, cfg)
     linalg.jacobi_eigh_4x4(gram_eigh)
+    fmath.atan2(*at_calls[0])
     torch.cuda.synchronize()
     counts_uncalled = dict(kernels.COUNTS)
     merged = {"points": int(st_seed.mp_valid.sum() - st_p.mp_valid.sum()),
@@ -3172,6 +3470,8 @@ def main() -> int:
               f" {slam.map.mp_valid.shape[0]} points, {slam.map.ml_valid.shape[0]} lines, "
               f"half of phase 2a's live slots culled"))
     frontend = frontend_card_vs_cpu(frame(i), cfg)
+    rows += glue_kernels(rec12, e2e["init_frame"] + 1 + N_TRACK)
+    print(f"[time] glue kernels checked at {time.time() - t_start:.0f} s", flush=True)
     print(f"[time] kernel checks done at {time.time() - t_start:.0f} s", flush=True)
 
     # ---- kernels 22-24 against their plain versions (phases 2a and 2d) ----
@@ -3209,6 +3509,7 @@ def main() -> int:
     for t in top:
         print(f"[profile]   {t['ms_per_frame']:.4f} ms/frame  {t['calls_per_frame']:.1f}"
               f" calls/frame  {t['name']}", flush=True)
+    profile_out["pageable_copies"] = pageable_copies(slam, frame(j0 + n_prof), j0 + n_prof)
 
     table = []
     for r in rows:
@@ -3230,6 +3531,7 @@ def main() -> int:
         table.append({
             "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
+            **({"launches_per_frame": launches / r["frames"]} if "frames" in r else {}),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": r["library_ms"], "wall_ms": r["wall_ms"],

@@ -16,15 +16,19 @@ kernel 10 and its eigensolver entry in `null_vector4.cu`; the sharded
 form of kernel 12 and the dense solver of `csrc/dense_lu.cuh` alone in
 `local_ba.cu`, and the frame-batched entries of
 kernels 1, 11 and 2 in `fast.cu`, `kp_select.cu` and `orb.cu`; kernel
-22's four entries `fuse_match_points`, `fuse_match_lines`, `pool_match`
-and `sim3_widen_match` in `fuse_match.cu`, kernel 23's `fuse_merge`,
-`loop_merge` and `fuse_finish` in `fuse_merge.cu`, kernel 24's
-`covis_row` and `covis_matrix` in `covis.cu`): each source is built
+22's six entries `fuse_match_points`, `fuse_match_lines`, `pool_match`,
+`sim3_widen_match`, `track_match_points` and `track_match_lines` in
+`fuse_match.cu`, kernel 23's `fuse_merge`, `loop_merge` and `fuse_finish`
+in `fuse_merge.cu`, kernel 24's `covis_row` and `covis_matrix` in
+`covis.cu`, kernel 25's `pyramid` alone in `pyramid.cu`, kernel 26's
+`lsd_merge` and `lsd_octave_merge` in `lsd_merge.cu`): each source is built
 once, into one library, and each kernel is counted on its own; every
 launch of any of them adds one to its kernel's `COUNTS[name]`, where the
 wrapper launches it and nowhere else; `reset_counts()` zeroes them.
-Kernels 22-24's C entries make all of a call's launches (memsets and
-copies included), so each counts one per call.
+Kernels 22-26's C entries make all of a call's launches (memsets and
+copies included), so each counts one per call: kernel 25's call launches
+once per pyramid level, the tracking entries of kernel 22 a memset and two
+kernels.
 """
 
 from __future__ import annotations
@@ -81,6 +85,11 @@ SOURCES = {
     "fuse_finish": "fuse_merge.cu",
     "covis_matrix": "covis.cu",
     "covis_row": "covis.cu",
+    "track_match_points": "fuse_match.cu",
+    "track_match_lines": "fuse_match.cu",
+    "pyramid": "pyramid.cu",
+    "lsd_merge": "lsd_merge.cu",
+    "lsd_octave_merge": "lsd_merge.cu",
 }
 
 # sources built with nvcc's default -fmad=true (every other one gets
@@ -89,7 +98,9 @@ SOURCES = {
 # its own products and sums explicitly. Kernel 22's logf equals torch.log's
 # under either setting (tools/fuse_numerics.py), so fuse_match.cu, which
 # shares csrc/lines.cuh's atan2f with the -fmad=false line kernels, stays
-# -fmad=false
+# -fmad=false; so do kernel 26 (lsd_merge.cu: cosf / sinf equal torch.cos /
+# torch.sin under either setting, the same probe) and kernel 25
+# (pyramid.cu: its products must not fuse into its adds)
 FMAD = {"null_vector4.cu"}
 
 ENTRIES = {name: (name,) for name in SOURCES}
@@ -207,12 +218,15 @@ _ARGTYPES = {
     # n_arrays, host arrays of sources, destinations and lengths (int64),
     # table, table_len, clip, stream
     "compact_remap": [_I, _P, _P, _P, _P, _I, _I, _P],
-    # kernels 22-24: a pointer to the host-side work description
+    # kernels 22-26: a pointer to the host-side work description
     # (ops/matching.py _MatchWork / _MergeWork / _FinishWork,
-    # world/map_store.py _CovisWork)
+    # world/map_store.py _CovisWork, ops/pyramid.py _PyrWork, ops/lsd.py
+    # _LsdWork)
     **{e: [_P, _P] for e in ("fuse_match_points", "fuse_match_lines", "pool_match",
                              "sim3_widen_match", "fuse_merge", "loop_merge", "fuse_finish",
-                             "covis_matrix", "covis_row")},
+                             "covis_matrix", "covis_row", "track_match_points",
+                             "track_match_lines", "pyramid", "lsd_merge",
+                             "lsd_octave_merge")},
 }
 
 

@@ -703,7 +703,7 @@ def fuse_match_points(state: MapState, a_ids: torch.Tensor, b_ids: torch.Tensor,
             kf_oct=state.kf_octave, kf_desc=state.kf_desc, pow_sf=_pow(sf, lv),
             sig2=_pow(sf, 2.0 * lv)),
         intr, width=cfg.camera.width, height=cfg.camera.height, P=state.mp_valid.shape[0],
-        n_levels=n_levels, max_dist=cfg.matching.th_low,
+        n_levels=n_levels, max_dist=cfg.matching.th_low, radius=3.0,
         inv_log_sf=float(np.float32(1.0) / log_sf))
 
 

@@ -7,12 +7,14 @@ Counterpart of structure_slam_pointline_tpu/models/tracking.py
   pass 2: covisibility local map (keyframes voted by pass-1 matches),
           tight radius, refined pose
 
-Matching runs through kernel 3 (ops/matching.masked_match) and each pass's
-pose solve through kernel 4 (optim/pose_opt.pose_optimize). Lines take the
-same path on their own arrays, their angle gate's atan2 through kernel 8
-(utils/fmath.atan2); with `use_lines=False` those arrays are
-all invalid, exactly as in the reference, and the line edges carry no
-weight (`line_pose_weight` = 0).
+Each pass's matches run through kernel 22's tracking entries
+(ops/matching.track_match_points / track_match_lines: projection, gates,
+window, best-2, ratio, unique columns and the rotation histogram or the
+MAD margin gate, no [M, N] mask) and its pose solve through kernel 4
+(optim/pose_opt.pose_optimize). With `use_lines=False` the line arrays
+are all invalid, exactly as in the reference, and the line edges carry no
+weight (`line_pose_weight` = 0). The sf^k tables (the window radii, the
+sigma^2 of each octave) are gathered from `matching.sf_powers`' cache.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from structure_slam_pointline_tpu_torch.config import SLAMConfig
 from structure_slam_pointline_tpu_torch.ops import matching
 from structure_slam_pointline_tpu_torch.optim import pose_opt
 from structure_slam_pointline_tpu_torch.utils import camera as cam_utils
-from structure_slam_pointline_tpu_torch.utils import fmath
 from structure_slam_pointline_tpu_torch.utils.camera import Intrinsics
 from structure_slam_pointline_tpu_torch.utils.indexing import add_drop, set_drop, stable_topk
 from structure_slam_pointline_tpu_torch.world import map_store
@@ -76,9 +77,9 @@ class LocalSets(NamedTuple):
     wide_ln: torch.Tensor
 
 
-def _scale_sigma2(octave: torch.Tensor, scale_factor: float) -> torch.Tensor:
-    return torch.pow(torch.tensor(scale_factor, dtype=torch.float32,
-                                  device=octave.device), 2.0 * octave.float())
+def _scale_sigma2(octave: torch.Tensor, scale_factor: float, n_levels: int) -> torch.Tensor:
+    """sf^(2 octave) from the device's cached table (matching.sf_powers)."""
+    return matching.sf_powers(scale_factor, n_levels, octave.device, 2.0)[octave.long()]
 
 
 def _recency_top(valid, last_kf, kf_lo, size: int) -> torch.Tensor:
@@ -142,69 +143,6 @@ def _covis_local_sets(state: MapState, votes, n_kf: int, p_cap: int, l_cap: int)
     return _ids_triple(pidx, P), _ids_triple(lidx, L)
 
 
-def _match_points(state: MapState, frame: Frame, T_cw, ids_ok, safe_ids,
-                  intr: Intrinsics, cfg: SLAMConfig, radius_scale,
-                  check_rotation: bool = False, ratio: float = 1.0):
-    xyz = state.mp_xyz[safe_ids]
-    p_cam = xyz @ T_cw[:3, :3].T + T_cw[:3, 3]
-    uv, z = cam_utils.project(intr, p_cam)
-    in_img = cam_utils.in_image(cfg.camera, uv, margin=4.0) & (z > 0.1)
-    dist = torch.linalg.norm(p_cam, dim=-1)
-    dist_max = state.mp_dist_max[safe_ids]
-    no_band = (dist_max <= 0.0) | (dist_max >= 1e8)
-    band_ok = no_band | ((dist >= state.mp_dist_min[safe_ids] * 0.8)
-                         & (dist <= dist_max * 1.2))
-    ray = xyz - (-T_cw[:3, :3].T @ T_cw[:3, 3])
-    ray = ray / torch.clamp(torch.linalg.norm(ray, dim=-1, keepdim=True), min=1e-9)
-    nrm = state.mp_normal[safe_ids]
-    cos_view = torch.sum(ray * nrm, dim=-1)
-    has_normal = torch.linalg.norm(nrm, dim=-1) > 0.5
-    view_ok = torch.where(has_normal, cos_view > 0.5, True)
-    visible = ids_ok & in_img & band_ok & view_ok
-    pred_oct = matching.predict_octave(
-        dist, torch.where(no_band, dist, dist_max),
-        cfg.frontend.scale_factor, cfg.frontend.n_levels)
-    radius = radius_scale * torch.pow(
-        torch.tensor(cfg.frontend.scale_factor, device=dist.device), pred_oct.float())
-    allow = matching.window_mask(uv, visible, frame.xy, frame.kp_valid, radius,
-                                 kp_octave=frame.octave, pred_octave=pred_oct,
-                                 octave_slack=1)
-    m = matching.masked_match(state.mp_desc[safe_ids], frame.desc, allow,
-                              max_dist=cfg.matching.th_high, ratio=ratio,
-                              col_octave=frame.octave)
-    if check_rotation:
-        m = m._replace(valid=matching.rotation_consistency(
-            state.mp_angle[safe_ids], frame.angle, m, n_bins=cfg.matching.histo_bins))
-    return m, visible, uv
-
-
-def _match_lines(state: MapState, frame: Frame, T_cw, ids_ok, safe_ids,
-                 intr: Intrinsics, cfg: SLAMConfig, radius: float):
-    ep = state.ml_endpoints[safe_ids]
-
-    def proj(p):
-        return cam_utils.project(intr, p @ T_cw[:3, :3].T + T_cw[:3, 3])
-
-    uv_s, z_s = proj(ep[:, :3])
-    uv_e, z_e = proj(ep[:, 3:])
-    mid = 0.5 * (uv_s + uv_e)
-    vis = ids_ok & (z_s > 0.1) & (z_e > 0.1) & cam_utils.in_image(
-        cfg.camera, mid, margin=4.0)
-    fr_mid = 0.5 * (frame.line_ep[:, 0:2] + frame.line_ep[:, 2:4])
-    allow = matching.window_mask(mid, vis, fr_mid, frame.line_valid, radius)
-    seg = uv_e - uv_s
-    ang_m = fmath.atan2(seg[:, 1], seg[:, 0])
-    fr_ang = fmath.atan2(frame.line_ep[:, 3] - frame.line_ep[:, 1],
-                         frame.line_ep[:, 2] - frame.line_ep[:, 0])
-    dang = matching.jnp_mod(ang_m[:, None] - fr_ang[None, :] + torch.pi / 2,
-                            torch.pi) - torch.pi / 2
-    allow = allow & (torch.abs(dang) < 0.26)
-    m = matching.masked_match(state.ml_desc[safe_ids], frame.ldesc, allow,
-                              max_dist=cfg.matching.th_high, ratio=0.9)
-    m = m._replace(valid=matching.mad_margin_gate(m, scale=cfg.matching.line_mad_ratio))
-    return m, vis
-
-
 def track_step(state: MapState, frame: Frame, T_pred: torch.Tensor, kf_lo: int,
                intr: Intrinsics, cfg: SLAMConfig, radius_scale: float = 1.0,
                n_kf: int = 1 << 20, local_sets: LocalSets | None = None) -> TrackResult:
@@ -213,19 +151,20 @@ def track_step(state: MapState, frame: Frame, T_pred: torch.Tensor, kf_lo: int,
     P = state.mp_valid.shape[0]
     L = state.ml_valid.shape[0]
     dev = T_pred.device
-    pt_sigma2 = _scale_sigma2(frame.octave, cfg.frontend.scale_factor)
-    ln_sigma2 = _scale_sigma2(frame.loctave, cfg.frontend.line_scale_factor)
+    n_lv = cfg.frontend.n_levels
+    pt_sigma2 = _scale_sigma2(frame.octave, cfg.frontend.scale_factor, n_lv)
+    ln_sigma2 = _scale_sigma2(frame.loctave, cfg.frontend.line_scale_factor, n_lv)
     optim_p1 = dataclasses.replace(cfg.optim, pose_rounds=cfg.optim.pose_rounds_pass1,
                                    pose_iters=cfg.optim.pose_iters_pass1)
 
     def one_round(T, radius_scale, line_radius, pts, lns, check_rotation=False,
                   optim_cfg=None, ratio=1.0):
-        _, pt_ok, pt_safe = pts
-        _, ln_ok, ln_safe = lns
-        m, visible, _ = _match_points(state, frame, T, pt_ok, pt_safe, intr, cfg,
-                                      radius_scale, check_rotation=check_rotation,
-                                      ratio=ratio)
-        lm, lvis = _match_lines(state, frame, T, ln_ok, ln_safe, intr, cfg, line_radius)
+        pt_ids, _, pt_safe = pts
+        ln_ids, _, ln_safe = lns
+        m, visible = matching.track_match_points(state, frame, T, pt_ids, intr, cfg,
+                                                 radius_scale, check_rotation=check_rotation,
+                                                 ratio=ratio)
+        lm, lvis = matching.track_match_lines(state, frame, T, ln_ids, intr, cfg, line_radius)
         midx, lidx = m.idx.long(), lm.idx.long()
         w_l = cfg.optim.line_pose_weight
         l_valid = lm.valid if w_l > 0 else torch.zeros_like(lm.valid)

@@ -17,13 +17,16 @@ Counterpart of structure_slam_pointline_tpu/ops/lsd.py (`detect_lines`,
    3-sample bridge, the outward contiguous runs, the weighted PCA refit;
    `line_refine_iters` coarse passes and the fine evaluation pass give the
    endpoints, the length and the response. Replaces lsd.py:357-440.
-4. Merges of collinear fragments (transitive closure by 0/1 float32
-   matrix products, exact), pairwise suppression and the top-L, torch ops
-   on [K, K] matrices as in the reference (lsd.py:446-547), the segment
-   directions by kernel 8 (`fmath.atan2`, glibc's atan2f in one launch);
-   the cross-octave suppression of `detect_lines_pyramid` likewise.
+4. Merges (kernel 26, `lsd_merge`, csrc/lsd_merge.cu): collinear
+   fragments linked, the links closed by four squarings (bit rows in
+   shared memory), each component's representative and extents, the
+   pairwise suppression of duplicates, the stable top L and the line
+   coefficients, in one block that writes no [K, K] plane. Replaces
+   lsd.py:442-536. `detect_lines_pyramid`'s cross-octave dedup and top L
+   is kernel 26's `lsd_octave_merge` (lsd.py:551-641).
 
-`lsd_support_plain` / `lsd_refine_plain` are the plain versions, with the
+`lsd_support_plain` / `lsd_refine_plain` / `lsd_merge_plain` /
+`lsd_octave_merge_plain` are the plain versions, with the
 reference's arithmetic op for op: every gradient op rounds to bf16,
 `jnp.roll` wraps at the image border (gradient taps, NMS and ridge
 neighbours) while the support pass zero-fills, `jnp.round` rounds half to
@@ -39,6 +42,7 @@ refinement stay at full resolution.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import NamedTuple
@@ -77,6 +81,7 @@ _DIR_F = np.asarray([(float(np.mod(np.arctan2(vy, vx), np.pi)), float(np.hypot(v
 _N_DOUBLINGS = 3          # support window 2^3 steps each way
 _NBR_DIRS = ((1, 0), (1, 1), (0, 1), (-1, 1))   # NMS neighbour per 4-bin
 REFINE_OUT = 7            # sx, sy, ex, ey, total_len, mean_mag, response
+MERGE_MAX_K = 512         # kernel 26's candidates per block
 
 _F32 = np.float32
 
@@ -396,10 +401,10 @@ def _line_coeffs(eps: torch.Tensor) -> torch.Tensor:
 
 def detect_lines(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
     """One octave: dense support (kernel 5), anchors, refinement (kernel
-    6), fragment merges, suppression and the top `n_lines`."""
-    K, L = cfg.line_anchor_count, cfg.n_lines
+    6), then the fragment merges, suppression and the top `n_lines`
+    (kernel 26's `lsd_merge`)."""
+    K = cfg.line_anchor_count
     ds = cfg.line_support_downsample
-    dev = img.device
     best, packed = lsd_support(img, cfg.line_grad_threshold, cfg.line_angle_tol,
                                cfg.line_min_length, ds)
     # cell and border shrink with ds (one anchor per 16 full-res px); the
@@ -411,8 +416,20 @@ def detect_lines(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
     ref = lsd_refine(img, packed, axy[:, 0].contiguous(), axy[:, 1].contiguous(),
                      cfg.line_walk_steps, cfg.line_refine_iters, cfg.line_angle_tol,
                      cfg.line_grad_threshold)
+    return lsd_merge(ref, avalid, cfg.n_lines, cfg.line_min_length, cfg.line_angle_tol)
+
+
+def lsd_merge_plain(ref: torch.Tensor, avalid: torch.Tensor, n_lines: int,
+                    min_length: float, angle_tol: float) -> Lines:
+    """The refined segments [K, 7] of one octave and their anchors' valid
+    flags -> the top `n_lines` Lines: collinear fragments merged (the
+    transitive closure of the [K, K] links by four squarings of 0/1
+    float32 matrices, exact), duplicates suppressed pairwise, the stable
+    top L by response (lsd.py:442-536), the directions by kernel 8."""
+    K, L = ref.shape[0], n_lines
+    dev = ref.device
     sx, sy, ex, ey, total_len, mean_mag, response = ref.unbind(1)
-    ok = avalid & (total_len >= cfg.line_min_length)
+    ok = avalid & (total_len >= min_length)
     ar = torch.arange(K, device=dev)
 
     # merge collinear fragments: transitive closure of the [K, K] links
@@ -462,7 +479,7 @@ def detect_lines(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
     nxl, nyl = -torch.sin(seg_ang), torch.cos(seg_ang)
     dmid = torch.abs(nxl[:, None] * (mx[None, :] - mx[:, None])
                      + nyl[:, None] * (my[None, :] - my[:, None]))
-    angclose = angle_diff(seg_ang[:, None], seg_ang[None, :]) < _c(cfg.line_angle_tol)
+    angclose = angle_diff(seg_ang[:, None], seg_ang[None, :]) < _c(angle_tol)
     dxl, dyl = torch.cos(seg_ang), torch.sin(seg_ang)
 
     def proj(px_, py_):
@@ -489,6 +506,52 @@ def detect_lines(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
                  octave=torch.zeros((L,), dtype=torch.int32, device=dev))
 
 
+class _LsdWork(ctypes.Structure):
+    """Kernel 26's description of one call (`struct Work` in
+    csrc/lsd_merge.cu)."""
+    _fields_ = ([("K", ctypes.c_int), ("L", ctypes.c_int), ("min_length", ctypes.c_float),
+                 ("angle_tol", ctypes.c_float)]
+                + [(n, ctypes.c_void_p) for n in (
+                    "ref", "avalid", "ep0", "ep1", "resp0", "resp1", "ang0", "ang1", "valid0",
+                    "valid1", "endpoints", "line2d", "response", "angle", "valid", "octave")])
+
+
+def _merge_launch(entry: str, L: int, inputs: dict, **scalars) -> Lines:
+    """Launch kernel 26's `entry` on CUDA tensors `inputs` (the Work's
+    pointer fields, float32 but for the bool valid flags): new Lines of L."""
+    for name, t in inputs.items():
+        kernels.check_dtype(f"{entry} ({name})", t,
+                            torch.bool if "valid" in name else torch.float32)
+    ins = {name: t.contiguous() for name, t in inputs.items()}
+    dev = kernels.check_cuda(entry, *ins.values())
+    out = Lines(endpoints=torch.empty((L, 4), dtype=torch.float32, device=dev),
+                line2d=torch.empty((L, 3), dtype=torch.float32, device=dev),
+                response=torch.empty((L,), dtype=torch.float32, device=dev),
+                angle=torch.empty((L,), dtype=torch.float32, device=dev),
+                valid=torch.empty((L,), dtype=torch.bool, device=dev),
+                octave=torch.empty((L,), dtype=torch.int32, device=dev))
+    work = _LsdWork(L=L, **scalars, **{k: t.data_ptr() for k, t in ins.items()},
+                    **{k: getattr(out, k).data_ptr() for k in Lines._fields})
+    kernels.launch(entry, ctypes.addressof(work))
+    return out
+
+
+def lsd_merge(ref: torch.Tensor, avalid: torch.Tensor, n_lines: int, min_length: float,
+              angle_tol: float) -> Lines:
+    """The merges of one octave (`lsd_merge_plain`). CPU tensors -> plain
+    version; CUDA tensors -> kernel 26's `lsd_merge` (or raise), one block
+    that writes no [K, K] plane."""
+    if ref.device.type == "cpu":
+        return lsd_merge_plain(ref, avalid, n_lines, min_length, angle_tol)
+    K = ref.shape[0]
+    if ref.shape != (K, REFINE_OUT) or avalid.shape != (K,) or not 1 <= n_lines <= K \
+            or K > MERGE_MAX_K:
+        raise ValueError(f"lsd_merge: shapes {tuple(ref.shape)}, {tuple(avalid.shape)}, "
+                         f"{n_lines} lines (1 <= L <= K <= {MERGE_MAX_K})")
+    return _merge_launch("lsd_merge", n_lines, {"ref": ref, "avalid": avalid}, K=K,
+                         min_length=_c(min_length), angle_tol=_c(angle_tol))
+
+
 def half_octave(img: torch.Tensor) -> torch.Tensor:
     """2x2 box downsample: the reference's reduce_window sum times 0.25,
     the four values added in row-major window order."""
@@ -501,13 +564,21 @@ def half_octave(img: torch.Tensor) -> torch.Tensor:
 def detect_lines_pyramid(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
     """Two octaves (full resolution and the 2x2 half octave with half the
     anchors and walk steps), octave-1 duplicates of octave-0 segments
-    suppressed, then the top `n_lines` by response (lsd.py:551-638)."""
-    L = cfg.n_lines
-    dev = img.device
+    suppressed, then the top `n_lines` by response (lsd.py:551-638;
+    kernel 26's `lsd_octave_merge`)."""
     l0 = detect_lines(img, cfg)
     cfg_h = dataclasses.replace(cfg, line_anchor_count=max(cfg.line_anchor_count // 2, 32),
                                 line_walk_steps=max(cfg.line_walk_steps // 2, 8))
     l1 = detect_lines(half_octave(img).contiguous(), cfg_h)
+    return lsd_octave_merge(l0, l1, cfg.line_angle_tol)
+
+
+def lsd_octave_merge_plain(l0: Lines, l1: Lines, angle_tol: float) -> Lines:
+    """Octave 0's and octave 1's Lines (L each; octave 1 at half
+    resolution) -> the top L of both: octave-1 lines that duplicate an
+    octave-0 line dropped, the rest ranked by response (stable)."""
+    L = l0.valid.shape[0]
+    dev = l0.valid.device
     ep1 = l1.endpoints * 2.0 + 0.5
     resp1 = torch.where(l1.valid, l1.response * 2.0, torch.zeros_like(l1.response))
     eps = torch.cat([l0.endpoints, ep1])
@@ -523,7 +594,7 @@ def detect_lines_pyramid(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
     nxl, nyl = -torch.sin(ang), torch.cos(ang)
     dmid = torch.abs(nxl[:, None] * (mx[None, :] - mx[:, None])
                      + nyl[:, None] * (my[None, :] - my[:, None]))
-    angclose = angle_diff(ang[:, None], ang[None, :]) < _c(cfg.line_angle_tol)
+    angclose = angle_diff(ang[:, None], ang[None, :]) < _c(angle_tol)
     dxl, dyl = torch.cos(ang), torch.sin(ang)
 
     def proj(px_, py_):
@@ -546,6 +617,23 @@ def detect_lines_pyramid(img: torch.Tensor, cfg: FrontendConfig) -> Lines:
                  angle=ang[top_i], valid=out_valid, octave=octv[top_i])
 
 
+def lsd_octave_merge(l0: Lines, l1: Lines, angle_tol: float) -> Lines:
+    """The cross-octave merge (`lsd_octave_merge_plain`). CPU tensors ->
+    plain version; CUDA tensors -> kernel 26's `lsd_octave_merge` (or
+    raise)."""
+    if l0.valid.device.type == "cpu":
+        return lsd_octave_merge_plain(l0, l1, angle_tol)
+    L = l0.valid.shape[0]
+    if l1.valid.shape[0] != L or 2 * L > MERGE_MAX_K:
+        raise ValueError(f"lsd_octave_merge: {L} and {l1.valid.shape[0]} lines "
+                         f"(equal, 2L <= {MERGE_MAX_K})")
+    return _merge_launch("lsd_octave_merge", L, {
+        "ep0": l0.endpoints, "ep1": l1.endpoints, "resp0": l0.response,
+        "resp1": l1.response, "ang0": l0.angle, "ang1": l1.angle, "valid0": l0.valid,
+        "valid1": l1.valid}, K=2 * L, min_length=0.0, angle_tol=_c(angle_tol))
+
+
 __all__ = ["Lines", "gradients", "angle_diff", "lsd_support", "lsd_support_plain",
-           "lsd_refine", "lsd_refine_plain", "detect_lines", "detect_lines_pyramid",
-           "half_octave", "REFINE_OUT"]
+           "lsd_refine", "lsd_refine_plain", "lsd_merge", "lsd_merge_plain",
+           "lsd_octave_merge", "lsd_octave_merge_plain", "detect_lines",
+           "detect_lines_pyramid", "half_octave", "REFINE_OUT"]

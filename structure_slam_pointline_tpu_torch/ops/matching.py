@@ -11,6 +11,12 @@ Column winners use the same float32 (dist * M + row) key and
 which projects each row, tests its gates and window and matches it in one
 pass, the searches of the projection fuses and the loop closer, without
 the [B, M, N] mask `window_mask` writes for their plain versions.
+The tracking round's two matches are kernel 22's tracking entries
+(`track_match_points`, `track_match_lines`): the same pass plus the ratio
+test, and a block per call for the gates that need every row, the
+rotation histogram and the MAD margin gate; their plain versions are the
+window_mask + masked_match + rotation_consistency / mad_margin_gate
+sequence of the reference's `_match_points` / `_match_lines`.
 `merge_walk` and `fuse_finish` launch kernel 23 (csrc/fuse_merge.cu),
 which applies those searches' matches: the merge walk of either rule (the
 local fuses' `fuse_merge`, the loop fuse's `loop_merge`) and the finish
@@ -28,6 +34,8 @@ import torch
 
 from structure_slam_pointline_tpu_torch import kernels
 from structure_slam_pointline_tpu_torch.ops import hamming
+from structure_slam_pointline_tpu_torch.utils import camera as cam_utils
+from structure_slam_pointline_tpu_torch.utils import fmath
 
 _BIG = hamming.BIG
 
@@ -155,7 +163,11 @@ class _MatchWork(ctypes.Structure):
                     "a_ids", "b_ids", "present", "M_cw", "table", "pool_ids", "xyz", "dmin",
                     "dmax", "normal", "desc", "endpoints", "kf_T", "S12", "S21", "kf_xy",
                     "line_ep", "kf_valid", "kf_oct", "kf_desc", "pow_sf", "sig2", "idx",
-                    "dist", "valid", "col_key", "flags")])
+                    "dist", "valid", "col_key", "flags")]
+                + [(n, ctypes.c_float) for n in ("margin", "ratio", "inv_two_pi", "mad_scale")]
+                + [("n_bins", ctypes.c_int)]
+                + [(n, ctypes.c_void_p) for n in ("ref_angle", "frame_angle", "visible",
+                                                  "aux")])
 
 
 _MATCH_DTYPES = {"a_ids": torch.int32, "b_ids": torch.int32, "present": torch.bool,
@@ -169,7 +181,14 @@ def fused_match(entry: str, B: int, M: int, N: int, inputs: dict, intr,
     features: [B, M] idx / dist / valid. `inputs` maps the Work's pointer
     fields to CUDA tensors (float32 unless listed in _MATCH_DTYPES),
     `scalars` its other int / float fields (the image `width` and
-    `height` for the in-image gate)."""
+    `height` for the in-image gate, its `margin`, 2 px unless given)."""
+    out = _fused(entry, B, M, N, inputs, intr, **{"margin": 2.0, **scalars})
+    return MatchResult(idx=out["idx"], dist=out["dist"], valid=out["valid"])
+
+
+def _fused(entry: str, B: int, M: int, N: int, inputs: dict, intr, **scalars) -> dict:
+    """`fused_match`'s launch: the dict of its output tensors (the tracking
+    entries' also hold `visible`)."""
     for name, t in inputs.items():
         kernels.check_dtype(f"{entry} ({name})", t, _MATCH_DTYPES.get(name, torch.float32))
     ins = {name: t.contiguous() for name, t in inputs.items()}
@@ -181,12 +200,155 @@ def fused_match(entry: str, B: int, M: int, N: int, inputs: dict, intr,
            "valid": torch.empty((B, M), dtype=torch.bool, device=dev),
            "col_key": torch.empty((B, N), dtype=torch.int32, device=dev),
            "flags": torch.empty((B, M), dtype=torch.uint8, device=dev)}
+    if entry.startswith("track_"):
+        out["visible"] = torch.empty((B, M), dtype=torch.bool, device=dev)
+        out["aux"] = torch.empty((B, M), dtype=torch.int32, device=dev)
     work = _MatchWork(B=B, M=M, N=N, fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
                       **scalars,
                       **{k: t.data_ptr() for k, t in (*ins.items(), *out.items())})
     if B * M > 0:
         kernels.launch(entry, ctypes.addressof(work))
-    return MatchResult(idx=out["idx"], dist=out["dist"], valid=out["valid"])
+    return out
+
+
+_POWERS: dict = {}
+
+
+def sf_powers(scale_factor: float, n: int, device, step: float = 1.0) -> torch.Tensor:
+    """[n] float32 sf^(step k), k = 0..n-1: torch.pow on `device`, computed
+    once per device (the values the per-call powers of the tracking round
+    had, now a gather)."""
+    key = (float(scale_factor), int(n), float(step), str(device))
+    if key not in _POWERS:
+        base = torch.tensor(scale_factor, dtype=torch.float32, device=device)
+        _POWERS[key] = torch.pow(base, step * torch.arange(n, dtype=torch.float32,
+                                                           device=device))
+    return _POWERS[key]
+
+
+def track_match_points_plain(state, frame, T_cw: torch.Tensor, ids: torch.Tensor, intr, cfg,
+                             radius_scale: float, check_rotation: bool = False,
+                             ratio: float = 1.0):
+    """The tracking round's point match (reference models/tracking.py
+    `_match_points`): the local landmarks `ids` ([M], -1 padded) projected
+    through T_cw and gated (depth and in-image at a 4 px margin, scale
+    band, viewing angle), windowed at radius_scale sf^predicted octave
+    with octave slack 1 against the frame's keypoints, matched at TH_HIGH
+    with the ratio test and unique columns, then (check_rotation) the
+    rotation histogram. Returns (MatchResult [M], visible [M])."""
+    P = state.mp_valid.shape[0]
+    ids_ok = ids >= 0
+    safe_ids = torch.clamp(ids, 0, P - 1).long()
+    xyz = state.mp_xyz[safe_ids]
+    p_cam = xyz @ T_cw[:3, :3].T + T_cw[:3, 3]
+    uv, z = cam_utils.project(intr, p_cam)
+    in_img = cam_utils.in_image(cfg.camera, uv, margin=4.0) & (z > 0.1)
+    dist = torch.linalg.norm(p_cam, dim=-1)
+    dist_max = state.mp_dist_max[safe_ids]
+    no_band = (dist_max <= 0.0) | (dist_max >= 1e8)
+    band_ok = no_band | ((dist >= state.mp_dist_min[safe_ids] * 0.8)
+                         & (dist <= dist_max * 1.2))
+    ray = xyz - (-T_cw[:3, :3].T @ T_cw[:3, 3])
+    ray = ray / torch.clamp(torch.linalg.norm(ray, dim=-1, keepdim=True), min=1e-9)
+    nrm = state.mp_normal[safe_ids]
+    cos_view = torch.sum(ray * nrm, dim=-1)
+    has_normal = torch.linalg.norm(nrm, dim=-1) > 0.5
+    view_ok = torch.where(has_normal, cos_view > 0.5, True)
+    visible = ids_ok & in_img & band_ok & view_ok
+    sf, n_levels = cfg.frontend.scale_factor, cfg.frontend.n_levels
+    pred_oct = predict_octave(dist, torch.where(no_band, dist, dist_max), sf, n_levels)
+    radius = radius_scale * sf_powers(sf, n_levels, dist.device)[pred_oct.long()]
+    allow = window_mask(uv, visible, frame.xy, frame.kp_valid, radius,
+                        kp_octave=frame.octave, pred_octave=pred_oct, octave_slack=1)
+    m = masked_match(state.mp_desc[safe_ids], frame.desc, allow,
+                     max_dist=cfg.matching.th_high, ratio=ratio, col_octave=frame.octave)
+    if check_rotation:
+        m = m._replace(valid=rotation_consistency(
+            state.mp_angle[safe_ids], frame.angle, m, n_bins=cfg.matching.histo_bins))
+    return m, visible
+
+
+def track_match_lines_plain(state, frame, T_cw: torch.Tensor, ids: torch.Tensor, intr, cfg,
+                            radius: float):
+    """The tracking round's line match (reference `_match_lines`): both
+    endpoints in front, the projected midpoint in the image (4 px) and
+    within `radius` of the frame line's, the undirected angle within 0.26
+    rad (glibc atan2f), TH_HIGH, ratio 0.9, unique columns, then the MAD
+    margin gate. Returns (MatchResult [M], visible [M])."""
+    L = state.ml_valid.shape[0]
+    ids_ok = ids >= 0
+    safe_ids = torch.clamp(ids, 0, L - 1).long()
+    ep = state.ml_endpoints[safe_ids]
+
+    def proj(p):
+        return cam_utils.project(intr, p @ T_cw[:3, :3].T + T_cw[:3, 3])
+
+    uv_s, z_s = proj(ep[:, :3])
+    uv_e, z_e = proj(ep[:, 3:])
+    mid = 0.5 * (uv_s + uv_e)
+    vis = ids_ok & (z_s > 0.1) & (z_e > 0.1) & cam_utils.in_image(
+        cfg.camera, mid, margin=4.0)
+    fr_mid = 0.5 * (frame.line_ep[:, 0:2] + frame.line_ep[:, 2:4])
+    allow = window_mask(mid, vis, fr_mid, frame.line_valid, radius)
+    seg = uv_e - uv_s
+    ang_m = fmath.atan2(seg[:, 1], seg[:, 0])
+    fr_ang = fmath.atan2(frame.line_ep[:, 3] - frame.line_ep[:, 1],
+                         frame.line_ep[:, 2] - frame.line_ep[:, 0])
+    dang = jnp_mod(ang_m[:, None] - fr_ang[None, :] + torch.pi / 2,
+                   torch.pi) - torch.pi / 2
+    allow = allow & (torch.abs(dang) < 0.26)
+    m = masked_match(state.ml_desc[safe_ids], frame.ldesc, allow,
+                     max_dist=cfg.matching.th_high, ratio=0.9)
+    m = m._replace(valid=mad_margin_gate(m, scale=cfg.matching.line_mad_ratio))
+    return m, vis
+
+
+def _track_result(out: dict):
+    return MatchResult(idx=out["idx"][0], dist=out["dist"][0],
+                       valid=out["valid"][0]), out["visible"][0]
+
+
+def track_match_points(state, frame, T_cw: torch.Tensor, ids: torch.Tensor, intr, cfg,
+                       radius_scale: float, check_rotation: bool = False,
+                       ratio: float = 1.0):
+    """The tracking round's point match (`track_match_points_plain`). CPU
+    tensors -> plain version; CUDA tensors -> kernel 22's
+    `track_match_points` (or raise), which writes no [M, N] mask and
+    uploads nothing: the sf^k table is `sf_powers`' cached one."""
+    if ids.device.type == "cpu":
+        return track_match_points_plain(state, frame, T_cw, ids, intr, cfg, radius_scale,
+                                        check_rotation, ratio)
+    sf, n_levels = cfg.frontend.scale_factor, cfg.frontend.n_levels
+    log_sf = np.float32(np.log(np.float32(sf)))
+    return _track_result(_fused(
+        "track_match_points", 1, ids.shape[0], frame.xy.shape[0], dict(
+            pool_ids=ids.to(torch.int32), kf_T=T_cw, xyz=state.mp_xyz,
+            dmin=state.mp_dist_min, dmax=state.mp_dist_max, normal=state.mp_normal,
+            desc=state.mp_desc, kf_xy=frame.xy, kf_valid=frame.kp_valid,
+            kf_oct=frame.octave, kf_desc=frame.desc, ref_angle=state.mp_angle,
+            frame_angle=frame.angle, pow_sf=sf_powers(sf, n_levels, ids.device)),
+        intr, width=cfg.camera.width, height=cfg.camera.height, margin=4.0,
+        P=state.mp_valid.shape[0], n_levels=n_levels, max_dist=cfg.matching.th_high,
+        inv_log_sf=float(np.float32(1.0) / log_sf), radius=float(radius_scale),
+        ratio=float(ratio), inv_two_pi=float(np.float32(1.0) / np.float32(2.0 * math.pi)),
+        n_bins=cfg.matching.histo_bins if check_rotation else 0))
+
+
+def track_match_lines(state, frame, T_cw: torch.Tensor, ids: torch.Tensor, intr, cfg,
+                      radius: float):
+    """The tracking round's line match (`track_match_lines_plain`). CPU
+    tensors -> plain version; CUDA tensors -> kernel 22's
+    `track_match_lines` (or raise), which writes no [M, N] mask."""
+    if ids.device.type == "cpu":
+        return track_match_lines_plain(state, frame, T_cw, ids, intr, cfg, radius)
+    return _track_result(_fused(
+        "track_match_lines", 1, ids.shape[0], frame.line_ep.shape[0], dict(
+            pool_ids=ids.to(torch.int32), kf_T=T_cw, endpoints=state.ml_endpoints,
+            desc=state.ml_desc, line_ep=frame.line_ep, kf_valid=frame.line_valid,
+            kf_desc=frame.ldesc),
+        intr, width=cfg.camera.width, height=cfg.camera.height, margin=4.0,
+        P=state.ml_valid.shape[0], max_dist=cfg.matching.th_high, radius=float(radius),
+        ratio=0.9, mad_scale=cfg.matching.line_mad_ratio * 1.4826))
 
 
 class _MergeWork(ctypes.Structure):
@@ -291,4 +453,5 @@ def fuse_finish(table: torch.Tensor, valid: torch.Tensor, redirect: torch.Tensor
 
 __all__ = ["MatchResult", "masked_match", "window_mask", "rotation_consistency",
            "mad_margin_gate", "predict_octave", "jnp_mod", "fused_match", "merge_walk",
-           "fuse_finish", "fuse_finish_plain"]
+           "fuse_finish", "fuse_finish_plain", "sf_powers", "track_match_points",
+           "track_match_points_plain", "track_match_lines", "track_match_lines_plain"]

@@ -19,15 +19,27 @@ single frame's is, so the BLAS picks the same product and the levels are
 bit-equal to the frame's own (a batched product may block its float32
 sums otherwise); the blur's rolls, products and sums run over the whole
 stack at once (elementwise: bit-equal).
+
+Those bodies are the plain versions (`*_plain`). The public functions
+are the wrappers of kernel 25 (csrc/pyramid.cu): a CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises. The kernel
+writes a level and its blurred plane in one launch per level, for all
+frames of a stack at once, from weight tables (`_taps`, the non-zero run
+of each output index's bf16 weights) uploaded once per device and shape
+list; the blur's 7 weights go in as arguments. `resize_bilinear` and
+`blur` alone launch the kernel's one-op forms.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from structure_slam_pointline_tpu_torch import kernels
 
 
 def level_shapes(height: int, width: int, n_levels: int,
@@ -76,11 +88,11 @@ def _bf16_weights(m: int, n: int, device) -> torch.Tensor:
     return w.to(device=device, dtype=torch.float32)
 
 
-def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+def resize_bilinear_plain(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     """bf16 [H, W] -> bf16 `shape`, rows contracted first (a [B, H, W]
     stack frame by frame)."""
     if img.dim() == 3:
-        return torch.stack([resize_bilinear(f, shape) for f in img])
+        return torch.stack([resize_bilinear_plain(f, shape) for f in img])
     h, w = img.shape
     wr = _bf16_weights(h, shape[0], img.device)      # [H, h']
     wc = _bf16_weights(w, shape[1], img.device)      # [W, w']
@@ -88,7 +100,7 @@ def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     return (rows.float() @ wc).to(torch.bfloat16)
 
 
-def blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor:
+def blur_plain(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor:
     """Separable 7-tap Gaussian via rolled adds over the last two axes
     ([H, W] or a [B, H, W] stack), every op rounded to the image dtype
     (bf16 on the main path)."""
@@ -103,23 +115,168 @@ def blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor
     return y
 
 
-def build_pyramid(img: torch.Tensor, n_levels: int = 8,
-                  scale_factor: float = 1.2) -> List[torch.Tensor]:
+def build_pyramid_plain(img: torch.Tensor, n_levels: int = 8,
+                        scale_factor: float = 1.2) -> List[torch.Tensor]:
     """Grayscale [H, W] (or a [B, H, W] stack) -> list of per-level images,
     each resized from the previous one."""
     h, w = img.shape[-2:]
     shapes = level_shapes(h, w, n_levels, scale_factor)
     levels = [img]
     for lv in range(1, n_levels):
-        levels.append(resize_bilinear(levels[-1], shapes[lv]))
+        levels.append(resize_bilinear_plain(levels[-1], shapes[lv]))
     return levels
+
+
+def build_blurred_pyramid_plain(img: torch.Tensor, n_levels: int = 8,
+                                scale_factor: float = 1.2, sigma: float = 2.0):
+    levels = build_pyramid_plain(img, n_levels, scale_factor)
+    return levels, [blur_plain(lv, sigma) for lv in levels]
+
+
+# ---- kernel 25 (csrc/pyramid.cu) ----
+
+MAX_LEVELS = 16
+TAPS = 8                 # resize taps per output index the kernel takes
+_ENTRY = 2 + TAPS        # (first, count, weights) per output index
+
+
+class _PyrWork(ctypes.Structure):
+    """Kernel 25's description of one call (`struct Work` in
+    csrc/pyramid.cu)."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "n_levels", "first", "blur")]
+                + [(n, ctypes.c_int * MAX_LEVELS) for n in ("H", "W", "row_tab", "col_tab")]
+                + [(n, ctypes.c_void_p * MAX_LEVELS) for n in ("level", "out", "blurred")]
+                + [("tab", ctypes.c_void_p), ("taps", ctypes.c_float * 7)])
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(m: int, n: int) -> np.ndarray:
+    """[n, 2 + TAPS] float32: per output index of an m -> n resize, the
+    first source index, the count and the bf16-rounded weights of its
+    contiguous run of non-zero taps."""
+    w = torch.from_numpy(_resize_weights(m, n)).to(torch.bfloat16).float().numpy()
+    out = np.zeros((n, _ENTRY), np.float32)
+    for j in range(n):
+        nz = np.flatnonzero(w[:, j])
+        if nz.size == 0:
+            continue
+        lo, cnt = int(nz[0]), int(nz[-1] - nz[0] + 1)
+        if cnt > TAPS:
+            raise ValueError(f"pyramid: {m} -> {n} needs {cnt} taps, the kernel takes {TAPS}")
+        out[j, 0], out[j, 1] = lo, cnt
+        out[j, 2:2 + cnt] = w[lo:lo + cnt, j]
+    return out
+
+
+_TABLES: dict = {}
+
+
+def _table(shapes: tuple, device) -> tuple:
+    """(device table, row offsets, column offsets) of the resizes between
+    consecutive `shapes`, uploaded once per device and shape list."""
+    key = (str(device), shapes)
+    if key not in _TABLES:
+        parts, rows, cols, n = [], [0] * MAX_LEVELS, [0] * MAX_LEVELS, 0
+        for lv in range(1, len(shapes)):
+            for axis, offs in ((0, rows), (1, cols)):
+                t = _taps(shapes[lv - 1][axis], shapes[lv][axis])
+                offs[lv] = n
+                parts.append(t)
+                n += t.shape[0]
+        tab = np.concatenate(parts) if parts else np.zeros((1, _ENTRY), np.float32)
+        _TABLES[key] = (torch.from_numpy(tab).to(device), rows, cols)
+    return _TABLES[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps(sigma: float, radius: int) -> tuple:
+    """The 7 tap weights as the bf16 values `blur_plain` multiplies by."""
+    k = torch.from_numpy(gaussian_kernel1d(sigma, radius)).to(torch.bfloat16).float()
+    return tuple(float(v) for v in k)
+
+
+def _launch(img: torch.Tensor, shapes: list, first: int, blur: bool, sigma: float):
+    """Kernel 25 over levels first..len(shapes)-1 of `img` ([H, W] or a
+    [B, H, W] stack, bf16, level first - 1 or level 0): the new levels and,
+    with `blur`, the blurred planes (level 0's too when first is 0), all
+    views of one new buffer."""
+    name = "pyramid"
+    kernels.check_dtype(name, img, torch.bfloat16)
+    if img.dim() not in (2, 3) or len(shapes) > MAX_LEVELS:
+        raise ValueError(f"{name}: expects [H, W] or [B, H, W] and at most {MAX_LEVELS} "
+                         f"levels, got {tuple(img.shape)}, {len(shapes)} levels")
+    img = img.contiguous()
+    dev = kernels.check_cuda(name, img)
+    lead = tuple(img.shape[:-2])
+    B = int(np.prod(lead)) if lead else 1
+    shapes = tuple(tuple(int(v) for v in s) for s in shapes)
+    tab, rows, cols = _table(shapes, dev)
+    sizes = [(lv, "out", shapes[lv]) for lv in range(max(first, 1), len(shapes))]
+    if blur:
+        sizes += [(lv, "blurred", shapes[lv]) for lv in range(first, len(shapes))]
+    buf = torch.empty(B * sum(h * w for _, _, (h, w) in sizes), dtype=torch.bfloat16,
+                      device=dev)
+    planes, o = {}, 0
+    for lv, kind, (h, w) in sizes:
+        planes[kind, lv] = buf[o:o + B * h * w].view(lead + (h, w))
+        o += B * h * w
+    work = _PyrWork(B=B, n_levels=len(shapes), first=first, blur=int(blur), tab=tab.data_ptr(),
+                    taps=(ctypes.c_float * 7)(*(_blur_taps(float(sigma), 3) if blur else ())))
+    for lv, (h, w) in enumerate(shapes):
+        work.H[lv], work.W[lv] = h, w
+        work.row_tab[lv], work.col_tab[lv] = rows[lv], cols[lv]
+        if ("out", lv) in planes:
+            work.out[lv] = work.level[lv] = planes["out", lv].data_ptr()
+        if ("blurred", lv) in planes:
+            work.blurred[lv] = planes["blurred", lv].data_ptr()
+    work.level[0] = img.data_ptr()
+    kernels.launch(name, ctypes.addressof(work))
+    return planes
+
+
+def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """bf16 [H, W] (or a [B, H, W] stack) -> bf16 `shape`. CPU tensor ->
+    plain version; CUDA tensor -> kernel 25's resize alone (or raise)."""
+    if img.device.type == "cpu":
+        return resize_bilinear_plain(img, shape)
+    return _launch(img, [tuple(img.shape[-2:]), tuple(shape)], 1, False, 0.0)["out", 1]
+
+
+def blur(img: torch.Tensor, sigma: float = 2.0, radius: int = 3) -> torch.Tensor:
+    """The 7-tap blur of a bf16 [H, W] (or [B, H, W]) image. CPU tensor ->
+    plain version; CUDA tensor -> kernel 25's blur alone (or raise)."""
+    if img.device.type == "cpu":
+        return blur_plain(img, sigma, radius)
+    if radius != 3:
+        raise ValueError(f"blur: kernel 25 takes radius 3, got {radius}")
+    return _launch(img, [tuple(img.shape[-2:])], 0, True, sigma)["blurred", 0]
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int = 8,
+                  scale_factor: float = 1.2) -> List[torch.Tensor]:
+    """Grayscale bf16 [H, W] (or a [B, H, W] stack) -> list of per-level
+    images. CPU tensor -> plain version; CUDA tensor -> kernel 25 (or
+    raise)."""
+    if img.device.type == "cpu":
+        return build_pyramid_plain(img, n_levels, scale_factor)
+    shapes = level_shapes(*img.shape[-2:], n_levels, scale_factor)
+    planes = _launch(img, shapes, 1, False, 0.0)
+    return [img] + [planes["out", lv] for lv in range(1, n_levels)]
 
 
 def build_blurred_pyramid(img: torch.Tensor, n_levels: int = 8,
                           scale_factor: float = 1.2, sigma: float = 2.0):
-    levels = build_pyramid(img, n_levels, scale_factor)
-    return levels, [blur(lv, sigma) for lv in levels]
+    """(levels, blurred levels) of a grayscale bf16 [H, W] image or a
+    [B, H, W] stack. CPU tensor -> plain version; CUDA tensor -> kernel 25
+    (or raise): one launch per level for all frames, level 0 blurred only."""
+    if img.device.type == "cpu":
+        return build_blurred_pyramid_plain(img, n_levels, scale_factor, sigma)
+    shapes = level_shapes(*img.shape[-2:], n_levels, scale_factor)
+    planes = _launch(img, shapes, 0, True, sigma)
+    return ([img] + [planes["out", lv] for lv in range(1, n_levels)],
+            [planes["blurred", lv] for lv in range(n_levels)])
 
 
-__all__ = ["level_shapes", "level_scales", "blur", "resize_bilinear",
-           "build_pyramid", "build_blurred_pyramid"]
+__all__ = ["level_shapes", "level_scales", "blur", "blur_plain", "resize_bilinear",
+           "resize_bilinear_plain", "build_pyramid", "build_pyramid_plain",
+           "build_blurred_pyramid", "build_blurred_pyramid_plain"]

@@ -1,4 +1,4 @@
-"""The twenty-four CUDA kernels of the PyTorch port against their plain
+"""The twenty-six CUDA kernels of the PyTorch port against their plain
 versions, on the card, at the main path's and the relocalization path's
 shapes (640x480 levels, 1024
 keypoints, 2048 local points x 1024 features, pose problems of 2048
@@ -116,14 +116,44 @@ def levels(cuda):
 
 
 def test_point_frontend_kernels_match_plain(levels, octaves):
-    """Kernels 1 (FAST + NMS) and 2 (ORB) on every level of one bench
-    frame; kernel 11 on the ORB levels at 1024 and 2048 keypoints and as
-    the LSD anchor selection of both octaves."""
+    """Kernel 25 (the pyramid and blur) at 640x480, 75 x 101 and on a
+    [2, H, W] stack; kernels 1 (FAST + NMS) and 2 (ORB) on every level of
+    one bench frame; kernel 11 on the ORB levels at 1024 and 2048
+    keypoints and as the LSD anchor selection of both octaves."""
+    _check_pyramid(octaves[0])
     _check_fast_nms(levels)
     _check_orb(levels)
     for n_kp in (1024, 2048):
         _check_kp_select(levels, n_kp)
     _check_kp_select_lsd_anchors(octaves)
+
+
+def _check_pyramid(img):
+    """Kernel 25 bit-equal to its plain version on the card: every level
+    and blurred plane of a bench frame, of a 75 x 101 frame (the blur's
+    halo wraps more than one tile there) and of a [2, H, W] stack, one
+    launch per call; the one-op forms (resize alone, blur alone) on each
+    level."""
+    fe = FrontendConfig()
+    small = border_frame().to(img.device)
+    for frame in (img, small, torch.stack([img, img.flip(1)])):
+        x = frame.to(torch.bfloat16)
+        before = kernels.COUNTS["pyramid"]
+        lv_k, bl_k = pyramid.build_blurred_pyramid(x, fe.n_levels, fe.scale_factor,
+                                                   fe.blur_sigma)
+        assert kernels.COUNTS["pyramid"] == before + 1, "pyramid: launch count"
+        lv_p, bl_p = pyramid.build_blurred_pyramid_plain(x, fe.n_levels, fe.scale_factor,
+                                                         fe.blur_sigma)
+        for lv in range(fe.n_levels):
+            at = f"pyramid at {tuple(x.shape)} level {lv}"
+            assert torch.equal(lv_k[lv], lv_p[lv]), f"{at}: {int((lv_k[lv] != lv_p[lv]).sum())} px"
+            assert torch.equal(bl_k[lv], bl_p[lv]), f"{at} blurred: {int((bl_k[lv] != bl_p[lv]).sum())} px"
+            if lv:
+                shape = tuple(lv_p[lv].shape[-2:])
+                assert torch.equal(pyramid.resize_bilinear(lv_p[lv - 1], shape),
+                                   pyramid.resize_bilinear_plain(lv_p[lv - 1], shape)), at
+            assert torch.equal(pyramid.blur(lv_p[lv], fe.blur_sigma),
+                               pyramid.blur_plain(lv_p[lv], fe.blur_sigma)), at
 
 
 def _check_fast_nms(levels):
@@ -155,8 +185,10 @@ def _descs(g, n):
 
 
 def test_tracking_kernels_match_plain(cuda):
-    """Kernel 3 (Hamming best / second) and kernel 4 (pose LM)."""
+    """Kernel 3 (Hamming best / second), kernel 22's tracking entries and
+    kernel 4 (pose LM)."""
     _check_hamming_best2(cuda)
+    _check_track_match(cuda)
     for line_weight in (0.0, 1.0):
         _check_pose_lm(cuda, line_weight)
 
@@ -187,6 +219,68 @@ def _check_hamming_best2(cuda):
         out_p = hamming.masked_best2_plain(aa, b, allow)
         for i, (x, y) in enumerate(zip(out_k, out_p)):
             assert torch.equal(x.cpu(), y), f"hamming_best2 batched {tuple(aa.shape)}: output {i}"
+
+
+def track_frame(st, k, seed=43):
+    """The tracking Frame of keyframe k of a fuse_map (its features, lines
+    and seeded keypoint angles) and the map with seeded landmark angles:
+    the rotation deltas of true matches crowd one bin."""
+    from structure_slam_pointline_tpu_torch.models.tracking import Frame
+
+    g = np.random.default_rng(seed)
+    dev = st.mp_valid.device
+    P, F, LF = st.mp_valid.shape[0], st.kf_xy.shape[1], st.kf_line_ep.shape[1]
+    f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    ang = f32(g.uniform(-np.pi, np.pi, P))
+    ids = st.kf_kp_mp[k].clamp(0, P - 1).long()
+    kp_ang = torch.where(st.kf_kp_mp[k] >= 0, ang[ids] - 0.2 + f32(g.normal(0, 0.05, F)),
+                         f32(g.uniform(-np.pi, np.pi, F)))
+    fr = Frame(xy=st.kf_xy[k], desc=st.kf_desc[k], octave=st.kf_octave[k], angle=kp_ang,
+               kp_valid=st.kf_kp_valid[k], line2d=torch.zeros((LF, 3), device=dev),
+               line_ep=st.kf_line_ep[k], ldesc=st.kf_ldesc[k],
+               loctave=torch.zeros(LF, dtype=torch.int32, device=dev),
+               line_valid=st.kf_line_valid[k])
+    return st._replace(mp_angle=ang), fr
+
+
+def _check_track_match(cuda):
+    """Kernel 22's tracking entries on fuse_map seen from keyframe 6's
+    frame: pass 1's and pass 2's settings, the local sets the most recent
+    2048 landmarks and 256 lines (and the same with a quarter of the ids
+    -1), an empty local set, and every row invisible (the pose moved
+    behind the map); idx, dist, valid and visible equal."""
+    st, cfg, intr = fuse_map()
+    st, fr = track_frame(st, 6)
+    st, fr = _to_state(st, cuda), type(fr)(*[t.to(cuda) for t in fr])
+    T = st.kf_T_cw[6].clone()
+    pts = torch.arange(2048, dtype=torch.int32, device=cuda)
+    lns = torch.arange(256, dtype=torch.int32, device=cuda)
+    holes = lambda ids: torch.where(ids % 4 == 1, -1, ids)  # noqa: E731
+    behind = T.clone()
+    behind[2, 3] -= 100.0
+    m = cfg.matching
+    cases = [("pass 1", T, pts, lns, 15.0, True, m.nn_ratio_tracking, 30.0, 100, 5),
+             ("pass 2", T, pts, lns, 4.0, False, m.nn_ratio_localmap, 15.0, 100, 5),
+             ("pass 1 with holes", T, holes(pts), holes(lns), 15.0, True,
+              m.nn_ratio_tracking, 30.0, 50, 3),
+             ("empty local set", T, torch.full_like(pts, -1), torch.full_like(lns, -1), 15.0,
+              True, m.nn_ratio_tracking, 30.0, 0, 0),
+             ("all rows invisible", behind, pts, lns, 15.0, True, m.nn_ratio_tracking, 30.0,
+              0, 0)]
+    for what, T_, p_ids, l_ids, rs, rot, ratio, lr, least, least_l in cases:
+        for name, fn, plain, args, n_min in (
+                ("track_match_points", matching.track_match_points,
+                 matching.track_match_points_plain, (p_ids, intr, cfg, rs, rot, ratio), least),
+                ("track_match_lines", matching.track_match_lines,
+                 matching.track_match_lines_plain, (l_ids, intr, cfg, lr), least_l)):
+            before = kernels.COUNTS[name]
+            mk, vk = fn(st, fr, T_, *args)
+            assert kernels.COUNTS[name] == before + 1, f"{name}: launch count"
+            mp, vp = plain(st, fr, T_, *args)
+            assert torch.equal(vk, vp), f"{name} {what}: visible differs on {int((vk != vp).sum())} rows"
+            _match_equal(f"{name} {what}", mk, mp, n_min)
+            if n_min == 0:
+                assert not mp.valid.any() and not vp.any(), f"{name} {what}: rows visible"
 
 
 def _check_pose_lm(cuda, line_weight):
@@ -234,10 +328,12 @@ def octaves(cuda):
 
 
 def test_line_kernels_match_plain(octaves):
-    """Kernels 5 (LSD dense support), 6 (LSD refinement) and 7 (LBD) on
-    both octaves of one bench frame; kernel 8 (atan2)."""
+    """Kernels 5 (LSD dense support), 6 (LSD refinement), 26 (the merges)
+    and 7 (LBD) on both octaves of one bench frame; kernel 26 also on a
+    chain of collinear fragments; kernel 8 (atan2)."""
     _check_lsd_support(octaves)
     _check_lsd_refine(octaves)
+    _check_lsd_merge(octaves)
     _check_lbd(octaves)
     _check_atan2(octaves[0].device)
 
@@ -301,6 +397,78 @@ def _check_lsd_refine(octaves):
             assert avalid.sum().item() > 50 // ds, f"lsd_refine: too few valid anchors {at}"
             share = (err <= 1e-3).float().mean().item()
             assert share >= 0.999, f"lsd_refine {at}: {share} within 1e-3 px"
+
+
+def _lines_equal(what, out_k, out_p):
+    """Kernel 26 against its plain version: valid and octave bit-equal,
+    endpoints, response and angle bit-equal on valid slots, line
+    coefficients within 1e-5 (torch.linalg.cross's product order)."""
+    assert torch.equal(out_k.valid, out_p.valid), f"{what}: valid"
+    assert torch.equal(out_k.octave, out_p.octave), f"{what}: octave"
+    v = out_p.valid
+    for f in ("endpoints", "response", "angle"):
+        a, b = getattr(out_k, f)[v], getattr(out_p, f)[v]
+        assert torch.equal(a, b), f"{what}: {f} differs by {(a - b).abs().max().item()}"
+    err = (out_k.line2d[v] - out_p.line2d[v]).abs().max().item() if v.any() else 0.0
+    assert err <= 1e-5, f"{what}: line2d err {err}"
+
+
+def collinear_chain(K=256, n=40, seed=3):
+    """Refined segments [K, 7] and anchor flags: a chain of n collinear
+    fragments 25 px long, 3 px apart (each links only to its neighbours,
+    so the chain is longer than the 16 hops of four squarings), a second
+    chain at another angle, scattered segments, a few failing anchors."""
+    g = np.random.default_rng(seed)
+    ref = np.zeros((K, 7), np.float32)
+    d = np.array([np.cos(0.3), np.sin(0.3)])
+    for i in range(n):
+        s = np.array([20.0, 30.0]) + d * 28.0 * i
+        ref[i, :4] = [*s, *(s + 25.0 * d)]
+    d2 = np.array([np.cos(-1.1), np.sin(-1.1)])
+    for i in range(20):
+        s = np.array([100.0, 400.0]) + d2 * 28.0 * i
+        ref[n + i, :4] = [*s, *(s + 25.0 * d2)]
+    m = K - n - 20
+    a = g.uniform(0, np.pi, m)
+    c = g.uniform([20, 20], [620, 460], (m, 2))
+    ln = g.uniform(10, 60, m)
+    half = 0.5 * ln[:, None] * np.stack([np.cos(a), np.sin(a)], 1)
+    ref[n + 20:, :4] = np.concatenate([c - half, c + half], 1)
+    ref[:, 4] = np.hypot(ref[:, 2] - ref[:, 0], ref[:, 3] - ref[:, 1])
+    ref[:, 5] = g.uniform(5, 40, K)
+    ref[:, 6] = ref[:, 4] * ref[:, 5]
+    valid = g.uniform(size=K) < 0.95
+    return torch.from_numpy(ref), torch.from_numpy(valid)
+
+
+def _check_lsd_merge(octaves):
+    """Kernel 26's lsd_merge on both octaves' refined anchors and on
+    collinear_chain, its lsd_octave_merge on the two octaves' lines."""
+    fe = FrontendConfig()
+    cases = []
+    for img, K, S in zip(octaves, (256, 128), (48, 24)):
+        ax, ay, avalid, packed = _anchors(img, K, 1)
+        cases.append((f"octave {tuple(img.shape)}", lsd.lsd_refine_plain(
+            img, packed, ax, ay, S, fe.line_refine_iters, fe.line_angle_tol,
+            fe.line_grad_threshold), avalid))
+    ref, valid = collinear_chain()
+    cases.append(("collinear chain", ref.to(octaves[0].device), valid.to(octaves[0].device)))
+    outs = []
+    for what, ref, avalid in cases:
+        before = kernels.COUNTS["lsd_merge"]
+        args = (ref, avalid, fe.n_lines, fe.line_min_length, fe.line_angle_tol)
+        out_k = lsd.lsd_merge(*args)
+        assert kernels.COUNTS["lsd_merge"] == before + 1, "lsd_merge: launch count"
+        out_p = lsd.lsd_merge_plain(*args)
+        _lines_equal(f"lsd_merge {what}", out_k, out_p)
+        assert out_p.valid.sum().item() >= 8, f"lsd_merge {what}: too few lines"
+        outs.append(out_p)
+    chain_len = (outs[2].endpoints[:, 2:] - outs[2].endpoints[:, :2]).norm(dim=1).max().item()
+    assert chain_len > 400.0, f"lsd_merge: the chain merged to {chain_len} px only"
+    out_k = lsd.lsd_octave_merge(outs[0], outs[1], fe.line_angle_tol)
+    out_p = lsd.lsd_octave_merge_plain(outs[0], outs[1], fe.line_angle_tol)
+    _lines_equal("lsd_octave_merge", out_k, out_p)
+    assert (out_p.octave[out_p.valid] == 1).any(), "lsd_octave_merge: no octave-1 line kept"
 
 
 def _check_lbd(octaves):
@@ -943,11 +1111,13 @@ def _check_batched_frontend(cuda):
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     """A CUDA tensor of the wrong dtype raises instead of falling back, and
-    the wrappers of kernels 9-24 (kernels 5-6 through `detect_lines` at
-    line_support_downsample = 2, kernels 22-24 through the fuses, the loop
-    closer's matches and loop fuse, and the covisibility functions) run on
-    CUDA tensors with every plain version made to raise, and with it the
-    [B, M, N] window mask and the [K, P + 1] dedup table."""
+    the wrappers of kernels 9-26 (kernels 5-6 and 26 through `detect_lines`
+    at line_support_downsample = 2 and `detect_lines_pyramid`, kernels
+    22-24 through the fuses, the loop closer's matches and loop fuse, the
+    covisibility functions and the tracking matches, kernel 25 through
+    `extract_orb` and `build_pyramid`) run on CUDA tensors with every
+    plain version made to raise, and with it the [B, M, N] window mask,
+    masked_match and its gates, and the [K, P + 1] dedup table."""
     with pytest.raises(TypeError):
         fast.fast_score_nms(torch.zeros((64, 64), device=cuda))
     with pytest.raises(TypeError):
@@ -992,7 +1162,14 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (loop_closing, "_sim3_widen_matches_plain"),
                       (loop_closing, "loop_merge_plain"),
                       (map_store, "covisibility_weights_plain"),
-                      (map_store, "covisibility_matrix_plain")):
+                      (map_store, "covisibility_matrix_plain"),
+                      (pyramid, "resize_bilinear_plain"), (pyramid, "blur_plain"),
+                      (pyramid, "build_pyramid_plain"),
+                      (pyramid, "build_blurred_pyramid_plain"), (lsd, "lsd_merge_plain"),
+                      (lsd, "lsd_octave_merge_plain"),
+                      (matching, "track_match_points_plain"),
+                      (matching, "track_match_lines_plain"), (matching, "masked_match"),
+                      (matching, "rotation_consistency"), (matching, "mad_margin_gate")):
         monkeypatch.setattr(mod, name, boom)
     fast.select_keypoints(torch.rand((64, 96), device=cuda) * 30, 16, cell=16, cell_cap=2)
     linalg.null_vector_4(torch.rand((3, 5, 4, 4), device=cuda))
@@ -1031,6 +1208,16 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
     lines = lsd.detect_lines(torch.from_numpy(img).to(cuda),
                              FrontendConfig(line_support_downsample=2))
     assert lines.valid.any()
+    lines = lsd.detect_lines_pyramid(torch.from_numpy(img).to(cuda), FrontendConfig())
+    assert lines.valid.any()
+    with pytest.raises(TypeError):
+        pyramid.blur(torch.zeros((64, 64), device=cuda))
+    pyramid.build_pyramid(torch.rand((2, 96, 128), device=cuda).to(torch.bfloat16), 3)
+    tst, tfr = track_frame(fst, 3)
+    tfr = type(tfr)(*[t.to(cuda) for t in tfr])
+    ids = torch.arange(2048, dtype=torch.int32, device=cuda)
+    matching.track_match_points(tst, tfr, tst.kf_T_cw[3], ids, fintr, fcfg, 15.0, True, 0.9)
+    matching.track_match_lines(tst, tfr, tst.kf_T_cw[3], ids[:256], fintr, fcfg, 30.0)
     nb = torch.tensor([4, 3, 2, -1], device=cuda)
     fst = local_mapping.fuse_projected_points(fst, 5, nb, fintr, fcfg)
     fst = local_mapping.fuse_projected_lines(fst, 5, nb, fintr, fcfg)

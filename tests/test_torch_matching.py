@@ -118,6 +118,30 @@ def test_rotation_consistency_and_mad_gate():
     np.testing.assert_array_equal(
         tm.mad_margin_gate(out, 0.5).numpy(),
         np.asarray(jm.mad_margin_gate(D, jnp.asarray(allow), ref, 0.5)))
+    # the cases the tracking entries must keep: 40 valid rows (an even
+    # count, so the MAD's lower medians are not middle elements) whose
+    # rotation bins hold 6, 5, 4 and 4 rows and the rest one each (a tie at
+    # the third largest count: both tied bins survive)
+    np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
+    v = out.valid.numpy().copy()
+    rows = np.flatnonzero(v)[:40]
+    assert len(rows) == 40
+    v[:] = False
+    v[rows] = True
+    idx = out.idx.numpy()
+    busy = (2, 7, 11, 20)
+    bins = np.concatenate([np.full(c, b) for c, b in zip((6, 5, 4, 4), busy)]
+                          + [np.setdiff1d(np.arange(30), busy)[:21]])
+    ang_t = ang_a.copy()
+    ang_t[rows] = ang_b[idx[rows]] + ((bins + 0.5) * (2 * np.pi / 30)).astype(np.float32)
+    out_t, ref_t = out._replace(valid=torch.from_numpy(v)), ref._replace(valid=jnp.asarray(v))
+    keep = tm.rotation_consistency(_t(ang_t), _t(ang_b), out_t).numpy()
+    np.testing.assert_array_equal(
+        keep, np.asarray(jm.rotation_consistency(jnp.asarray(ang_t), jnp.asarray(ang_b), ref_t)))
+    assert keep.sum() == 19
+    np.testing.assert_array_equal(
+        tm.mad_margin_gate(out_t, 0.5).numpy(),
+        np.asarray(jm.mad_margin_gate(D, jnp.asarray(allow), ref_t, 0.5)))
 
 
 def test_predict_octave():

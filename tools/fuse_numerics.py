@@ -14,7 +14,16 @@ differ:
   host, rounded once), on the card and on the CPU; torch.sum of the
   same vectors against the two orders of a sum of three;
 - torch.log of ratios near sf^k against the CUDA math library's logf in
-  a probe kernel built here with nvcc at -fmad=false and at -fmad=true.
+  a probe kernel built here with nvcc at -fmad=false and at -fmad=true;
+- the ops the tracking entries and kernel 26 add: the [n, 3] @ R^T + t
+  product of `track_match_points_plain`, the camera centre -R^T @ t (a
+  matrix-vector product), torch.linalg.cross of homogeneous endpoints
+  (`ops/lsd.py _line_coeffs`), against candidate orders, and torch.cos /
+  torch.sin against cosf / sinf in the probe kernel at either -fmad. On
+  an H100 with torch 2.11 + CUDA 12.8 the product is the FMA chain, the
+  matrix-vector product fma(a1, v1, a0 v0) + a2 v2 (`mv_fma01_plus2`),
+  the cross product's third term fma(x1, y2, -(x2 y1)), and cos / sin
+  equal cosf / sinf under either -fmad.
 Needs a CUDA device and nvcc (the card's machine). One JSON line.
 """
 
@@ -33,12 +42,12 @@ sys.path.insert(0, ROOT)
 from structure_slam_pointline_tpu_torch import kernels  # noqa: E402
 SRC = r"""
 #include <cuda_runtime.h>
-__global__ void k(const float* x, float* y, int n) {
+__global__ void k(const float* x, float* y, int n, int op) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) y[i] = logf(x[i]);
+  if (i < n) y[i] = op == 0 ? logf(x[i]) : op == 1 ? cosf(x[i]) : sinf(x[i]);
 }
-extern "C" int probe_logf(const void* x, void* y, int n) {
-  k<<<(n + 255) / 256, 256>>>((const float*)x, (float*)y, n);
+extern "C" int probe_logf(const void* x, void* y, int n, int op) {
+  k<<<(n + 255) / 256, 256>>>((const float*)x, (float*)y, n, op);
   return (int)cudaDeviceSynchronize();
 }
 """
@@ -55,9 +64,75 @@ def build(fmad: str) -> ctypes.CDLL:
                     f"-fmad={fmad}", "-shared", "-Xcompiler", "-fPIC", "-o", lib, src],
                    check=True)
     h = ctypes.CDLL(lib)
-    h.probe_logf.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    h.probe_logf.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     h.probe_logf.restype = ctypes.c_int
     return h
+
+
+def tracking_orders(g, n: int) -> dict:
+    """Mismatch counts of the tracking entries' and kernel 26's extra ops
+    on the card against candidate orders (FMAs emulated in float64)."""
+    import torch
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c.astype(np.float64)).astype(np.float32)
+
+    out = {}
+    f32 = np.float32
+    mv = ("mv_fma_chain", "mv_fma_reverse", "mv_seq", "mv_xz_y", "mv_fma01_plus2",
+          "mv_fma02_plus1", "mv_0_plus_fma12", "mv_fma_chain_201", "mv_right")
+    bad = {"mm_fma_chain": 0, "mm_seq": 0, **{k: 0 for k in mv}}
+    for trial in range(16):
+        q, _ = np.linalg.qr(g.normal(size=(3, 3)))
+        R = q.astype(f32)
+        t = g.normal(size=3).astype(f32) * f32(3.0)
+        T = np.eye(4, dtype=f32)
+        T[:3, :3], T[:3, 3] = R, t
+        X = (g.normal(size=(n // 16, 3)) * 4).astype(f32)
+        Tc = torch.from_numpy(T).cuda()
+        pc = (torch.from_numpy(X).cuda() @ Tc[:3, :3].T + Tc[:3, 3]).cpu().numpy()
+        x, y, z = X[:, 0], X[:, 1], X[:, 2]
+        for r in range(3):
+            chain = fma(z, R[r, 2], fma(y, R[r, 1], x * R[r, 0])) + t[r]
+            seq = ((x * R[r, 0] + y * R[r, 1]) + z * R[r, 2]) + t[r]
+            bad["mm_fma_chain"] += int((pc[:, r] != chain).sum())
+            bad["mm_seq"] += int((pc[:, r] != seq).sum())
+    n_mv = 0
+    for trial in range(512):
+        q, _ = np.linalg.qr(g.normal(size=(3, 3)))
+        R = q.astype(f32)
+        t = (g.normal(size=3) * 3).astype(f32)
+        T = np.eye(4, dtype=f32)
+        T[:3, :3], T[:3, 3] = R, t
+        Tc = torch.from_numpy(T).cuda()
+        c = (-Tc[:3, :3].T @ Tc[:3, 3]).cpu().numpy()
+        for j in range(3):
+            a = [(-R[r, j:j + 1]).astype(f32) for r in range(3)]
+            v = [t[r:r + 1] for r in range(3)]
+            p = [a[r] * v[r] for r in range(3)]
+            cand = {"mv_fma_chain": fma(a[2], v[2], fma(a[1], v[1], p[0])),
+                    "mv_fma_reverse": fma(a[0], v[0], fma(a[1], v[1], p[2])),
+                    "mv_seq": (p[0] + p[1]) + p[2], "mv_xz_y": (p[0] + p[2]) + p[1],
+                    "mv_fma01_plus2": fma(a[1], v[1], p[0]) + p[2],
+                    "mv_fma02_plus1": fma(a[2], v[2], p[0]) + p[1],
+                    "mv_0_plus_fma12": p[0] + fma(a[2], v[2], p[1]),
+                    "mv_fma_chain_201": fma(a[1], v[1], fma(a[0], v[0], p[2])),
+                    "mv_right": p[0] + (p[1] + p[2])}
+            for k, x_ in cand.items():
+                bad[k] += int(c[j] != x_[0])
+            n_mv += 1
+    out.update({f"{k}_of_{n_mv if k.startswith('mv') else 3 * (n // 16) * 16}": v
+                for k, v in bad.items()})
+    p = (g.uniform(0, 640, (n, 4))).astype(f32)
+    one = np.ones((n, 1), f32)
+    a, b = np.concatenate([p[:, :2], one], 1), np.concatenate([p[:, 2:], one], 1)
+    l2 = torch.linalg.cross(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())[:, 2]
+    l2 = l2.cpu().numpy()
+    sx, sy, ex, ey = p.T
+    out["cross_vs_fma_first"] = int((l2 != fma(sx, ey, -(sy * ex))).sum())
+    out["cross_vs_fma_second"] = int((l2 != fma(-sy, ex, sx * ey)).sum())
+    out["cross_vs_plain"] = int((l2 != sx * ey - sy * ex).sum())
+    return out
 
 
 def main() -> int:
@@ -95,13 +170,18 @@ def main() -> int:
     r = (sf.astype(np.float64) ** k * (1 + g.normal(size=args.n) * 1e-6)).astype(np.float32)
     rt = torch.from_numpy(r).cuda()
     ref = torch.log(rt)
+    ang = torch.from_numpy(g.uniform(-np.pi, np.pi, args.n).astype(np.float32)).cuda()
     for fmad in ("false", "true"):
         h = build(fmad)
-        o = torch.empty_like(rt)
-        if h.probe_logf(rt.data_ptr(), o.data_ptr(), args.n) != 0:
-            print("probe kernel failed", file=sys.stderr)
-            return 1
-        out[f"log_vs_logf_fmad_{fmad}"] = int((o != ref).sum())
+        for op, name, x_, want in ((0, "log_vs_logf", rt, ref),
+                                   (1, "cos_vs_cosf", ang, torch.cos(ang)),
+                                   (2, "sin_vs_sinf", ang, torch.sin(ang))):
+            o = torch.empty_like(x_)
+            if h.probe_logf(x_.data_ptr(), o.data_ptr(), args.n, op) != 0:
+                print("probe kernel failed", file=sys.stderr)
+                return 1
+            out[f"{name}_fmad_{fmad}"] = int((o != want).sum())
+    out.update(tracking_orders(g, args.n))
     line = json.dumps(out)
     print(line)
     if args.out:
