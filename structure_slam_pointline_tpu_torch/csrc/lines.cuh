@@ -74,9 +74,13 @@ __device__ __forceinline__ float atanf_nonneg(float t) {
   const float p2 = w * (a1 + w * (a3 + w * (a5 + w * (a7 + w * a9))));
   const float xs = x * (p1 + p2);
   if (id < 0) return x - xs;
-  const float hi[4] = {f32(0x3eed6338), f32(0x3f490fda), f32(0x3f7b985e), f32(0x3fc90fda)};
-  const float lo[4] = {f32(0x31ac3769), f32(0x33222168), f32(0x33140fb4), f32(0x33a22168)};
-  return hi[id] - ((xs - lo[id]) - x);
+  // atanhi[id] / atanlo[id] as selects: a table indexed at run time would
+  // live in local memory
+  const float hi = id == 0 ? f32(0x3eed6338)
+                 : id == 1 ? f32(0x3f490fda) : id == 2 ? f32(0x3f7b985e) : f32(0x3fc90fda);
+  const float lo = id == 0 ? f32(0x31ac3769)
+                 : id == 1 ? f32(0x33222168) : id == 2 ? f32(0x33140fb4) : f32(0x33a22168);
+  return hi - ((xs - lo) - x);
 }
 
 // glibc 2.36 atan2f (sysdeps/ieee754/flt-32/e_atan2f.c), finite arguments

@@ -135,12 +135,13 @@ _ARGTYPES = {
     "orb_describe_batch": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     # a, b, allow, B, M, N, batch_a, batch_b, best, best_j, second, second_j, stream
     "hamming_best2": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # T_init, X, obs_uv, pt_mask, pt_info, line_obs, ln_mask, ln_info, N, M,
-    # fx, fy, cx, cy, rounds, iters, chi2_mono, chi2_line, delta_pt,
-    # delta_ln, lam, T_out, pt_in, ln_in, cost, stream
-    "pose_lm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+    # T_init, pts, pts row stride, line starts, stride, line ends, stride,
+    # obs_uv, pt_mask, pt_sigma2, line_obs, ln_mask, ln_sigma2, N, M, fx, fy,
+    # cx, cy, rounds, iters, chi2_mono, chi2_line, delta_pt, delta_ln, lam,
+    # T_out, pt_in, ln_in, cost, n_inliers, stream
+    "pose_lm": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                 _F, _F, _F, _F, _I, _I, _F, _F, _F, _F, _F,
-                _P, _P, _P, _P, _P],
+                _P, _P, _P, _P, _P, _P],
     # img, H, W, ds, grad_thresh, angle_tol, min_support_px, scratch, best,
     # packed, stream
     "lsd_support": [_P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],

@@ -4,10 +4,14 @@ Counterpart of structure_slam_pointline_tpu/optim/pose_opt.py.
 
 `pose_optimize` is the wrapper of CUDA kernel 4 (csrc/pose_lm.cu), which
 replaces the reference's `pose_optimize` (pose_opt.py:114): the whole
-rounds x iterations schedule runs in ONE launch of one block (edge pass
-as a block reduction to (H | g), the unrolled damped 6x6 Cholesky of
-`_chol_solve6` (:43), the 0.5 step clip, T <- se3_exp(dx) @ T, and the
-chi2 reclassification with the floor of 10 edges between rounds).
+rounds x iterations schedule runs in ONE launch of one block (the masked
+rows staged in shared memory, the active rows compacted after each chi2
+classification with the floor of 10 edges, an edge pass reduced to
+(H | g) with one block-wide barrier, the unrolled damped 6x6 Cholesky of
+`_chol_solve6` (:43), the 0.5 step clip and T <- se3_exp(dx) @ T in every
+thread, and the final inlier count). The kernel reads the landmark arrays
+through their row strides and the raw sigma2, so nothing else launches
+around it.
 `pose_optimize_plain` is the plain version, written with the same
 per-edge planes, rounds and solve as the reference.
 
@@ -184,26 +188,35 @@ def pose_optimize(T_init, pts_w, obs_uv, pt_mask, pt_sigma2, line_sw, line_ew,
         kernels.check_dtype(name, t, torch.float32)
     for t in (pt_mask, ln_mask):
         kernels.check_dtype(name, t, torch.bool)
-    if (T_init.shape != (4, 4) or obs_uv.shape != (N, 2) or pt_mask.shape != (N,)
-            or line_obs.shape != (M, 3) or ln_mask.shape != (M,)):
+    if (T_init.shape != (4, 4) or pts_w.shape != (N, 3) or obs_uv.shape != (N, 2)
+            or pt_mask.shape != (N,) or pt_sigma2.shape != (N,)
+            or line_sw.shape != (M, 3) or line_ew.shape != (M, 3)
+            or line_obs.shape != (M, 3) or ln_mask.shape != (M,) or ln_sigma2.shape != (M,)):
         raise ValueError(f"{name}: inconsistent edge shapes")
-    X = torch.cat([pts_w, line_sw, line_ew]).contiguous()          # [N + 2M, 3]
-    pt_info = (1.0 / torch.clamp(pt_sigma2, min=1e-12)).contiguous()
-    ln_info = (1.0 / torch.clamp(ln_sigma2, min=1e-12)).contiguous()
-    ins = [T_init.contiguous(), X, obs_uv.contiguous(), pt_mask.contiguous(),
-           pt_info, line_obs.contiguous(), ln_mask.contiguous(), ln_info]
+    if N + M > 8192:   # a thread of the kernel's block stages at most 32 rows
+        raise ValueError(f"{name}: at most 8192 edges (N + M), got {N + M}")
+    # the landmark arrays go in with their row strides (the tracking's line
+    # endpoints are column slices of one [M, 6] array): no copy
+    rows3 = [t if t.stride(1) == 1 else t.contiguous() for t in (pts_w, line_sw, line_ew)]
+    ins = [T_init.contiguous(), obs_uv.contiguous(), pt_mask.contiguous(),
+           pt_sigma2.contiguous(), line_obs.contiguous(), ln_mask.contiguous(),
+           ln_sigma2.contiguous()]
     dev = kernels.check_cuda(name, *ins)
+    if any(t.device != dev for t in rows3):
+        raise ValueError(f"{name}: tensors on more than one device")
     T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
     pt_in = torch.empty((N,), dtype=torch.bool, device=dev)
     ln_in = torch.empty((M,), dtype=torch.bool, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
-    kernels.launch("pose_lm", *[kernels.ptr(t) for t in ins], N, M,
+    n_inl = torch.empty((), dtype=torch.int32, device=dev)
+    strided = [a for t in rows3 for a in (kernels.ptr(t), t.stride(0))]
+    kernels.launch("pose_lm", kernels.ptr(ins[0]), *strided,
+                   *[kernels.ptr(t) for t in ins[1:]], N, M,
                    intr.fx, intr.fy, intr.cx, intr.cy, cfg.pose_rounds,
                    cfg.pose_iters, cfg.chi2_mono, cfg.chi2_line,
                    cfg.huber_delta_point, cfg.huber_delta_line,
                    cfg.lm_lambda_init, kernels.ptr(T_out), kernels.ptr(pt_in),
-                   kernels.ptr(ln_in), kernels.ptr(cost))
-    n_inl = pt_in.sum().to(torch.int32) + ln_in.sum().to(torch.int32)
+                   kernels.ptr(ln_in), kernels.ptr(cost), kernels.ptr(n_inl))
     return PoseOptResult(T_cw=T_out, point_inliers=pt_in, line_inliers=ln_in,
                          n_inliers=n_inl, chi2=cost)
 

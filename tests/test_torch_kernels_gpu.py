@@ -36,12 +36,11 @@ arithmetic and bf16 roundings reproduced op for op); ORB descriptors equal
 on >= 99.5% of keypoints and angles within 1e-4 rad (float32 moment sums
 in another order can move atan2 by an ulp and, rarely, flip the bank);
 pose within 1e-4 with inlier masks equal on >= 99.5% (float32 reductions
-in another order). Line kernels: the dense support pass (score and
-packed ridge plane) exactly equal (bf16 roundings, glibc's atan2f and
-integer support counts reproduced op for op); refinement endpoints within
-1e-3 px on >= 99.9% of valid anchors (both sum in sample order; the bound
-leaves room for an ulp of cos / sin moving a sample across a pixel
-boundary); LBD words equal on >= 99% of segments with descriptors within
+in another order) and n_inliers equal to the masks' sum. Line kernels:
+the dense support pass (score and packed ridge plane) exactly equal (bf16
+roundings, glibc's atan2f and integer support counts reproduced op for
+op); the refinement's seven outputs bit-equal on every valid anchor (both
+sum in sample order; cos / sin equal torch's on the card); LBD words equal on >= 99% of segments with descriptors within
 1e-5 (the plain version sums in the kernel's order, so they are expected
 equal; the bounds leave room for an ulp in a transcendental); atan2
 bit-exact against the torch-op version on the card and on the CPU.
@@ -77,6 +76,8 @@ but a reduction order or logf can still move a last bit at a gate;
 chip_smoke.py prints each differing row with the gate's margin), and
 matches found. Kernels 23 and 24: bit-equal (integer work).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -190,7 +191,11 @@ def test_tracking_kernels_match_plain(cuda):
     _check_hamming_best2(cuda)
     _check_track_match(cuda)
     for line_weight in (0.0, 1.0):
-        _check_pose_lm(cuda, line_weight)
+        for schedule in ((4, 6), (2, 4)):
+            _check_pose_lm(cuda, line_weight, schedule)
+    _check_pose_lm(cuda, 0.0, (4, 6), active=0)
+    _check_pose_lm(cuda, 1.0, (4, 6), active=9)
+    _check_pose_lm(cuda, 0.0, (2, 4), active=9, N=1024, M=1)
 
 
 def _check_hamming_best2(cuda):
@@ -283,11 +288,17 @@ def _check_track_match(cuda):
                 assert not mp.valid.any() and not vp.any(), f"{name} {what}: rows visible"
 
 
-def _check_pose_lm(cuda, line_weight):
-    """Kernel 4 with line weight 0 (the main path) and 1 (line rows on)."""
+def pose_problem(line_weight, N=2048, M=256, active=None, keep=None):
+    """Kernel 4's seeded problem: N points (the first tenth outliers) and M
+    lines (masked out at line weight 0) seen from a pose 6 cm off; `active`
+    keeps that many masked edges (0: none; 9: eight inliers and one outlier,
+    so every gated round falls under the floor of 10 and takes the
+    fallback); `keep` keeps a seeded random `keep` of the masked points (the
+    main path masks ~150 of its 2048 rows). The line endpoints are column
+    slices of one [M, 6] array, as the tracking passes them. Returns (args,
+    intr)."""
     g = np.random.default_rng(int(line_weight) + 11)
     intr = Intrinsics.from_config(CameraConfig(fy=480.0))
-    N, M = 2048, 256
     pts = np.stack([g.uniform(-3, 3, N), g.uniform(-2, 2, N), g.uniform(4, 9, N)], 1)
     sw = np.stack([g.uniform(-3, 3, M), g.uniform(-2, 2, M), g.uniform(4, 9, M)], 1)
     ew = sw + g.normal(0, 0.5, (M, 3))
@@ -303,19 +314,57 @@ def _check_pose_lm(cuda, line_weight):
     l /= np.hypot(l[:, 0], l[:, 1])[:, None]
     T0 = np.eye(4, dtype=np.float32)
     T0[:3, 3] = [0.03, -0.02, 0.05]
+    pt_mask = g.uniform(size=N) < 0.8
+    ln_mask = g.uniform(size=M) < (0.8 if line_weight else 0.0)
+    if active is not None:
+        keep = np.zeros(N, bool)
+        keep[N // 10: N // 10 + max(active - 1, 0)] = True
+        keep[0] = active > 0
+        pt_mask, ln_mask = keep, np.zeros(M, bool)
+    elif keep is not None:
+        pt_mask[np.random.default_rng(keep).permutation(np.flatnonzero(pt_mask))[keep:]] = False
     f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)  # noqa: E731
-    args = [f(T0), f(pts), f(obs), torch.from_numpy(g.uniform(size=N) < 0.8),
-            f(1.2 ** (2 * g.integers(0, 8, N))), f(sw), f(ew), f(l),
-            torch.from_numpy(g.uniform(size=M) < (0.8 if line_weight else 0.0)),
-            f(np.full(M, 1.0 / max(line_weight, 1e-9)))]
-    cfg = OptimConfig()
+    eps = f(np.concatenate([sw, ew], 1))
+    args = [f(T0), f(pts), f(obs), torch.from_numpy(pt_mask),
+            f(1.2 ** (2 * g.integers(0, 8, N))), eps[:, :3], eps[:, 3:], f(l),
+            torch.from_numpy(ln_mask), f(np.full(M, 1.0 / max(line_weight, 1e-9)))]
+    return args, intr
+
+
+def pose_to(args, dev):
+    """`pose_problem`'s args on `dev`, the endpoints still slices of one array."""
+    eps = torch.cat([args[5], args[6]], 1).to(dev)
+    out = [a.to(dev) for a in args]
+    out[5:7] = eps[:, :3], eps[:, 3:]
+    return out
+
+
+def _check_pose_lm(cuda, line_weight, schedule, active=None, N=2048, M=256):
+    """Kernel 4 with line weight 0 (the main path) and 1 (line rows on), at
+    the tracking's two schedules (rounds x iterations: pass 1's 2 x 4, pass
+    2's 4 x 6), on `pose_problem`'s inputs; N 1024 with one masked-out line
+    is the relocalization's shape. n_inliers must equal the two masks'
+    sum."""
+    args, intr = pose_problem(line_weight, N, M, active)
+    cfg = dataclasses.replace(OptimConfig(), pose_rounds=schedule[0], pose_iters=schedule[1])
+    what = f"pose_lm (line weight {line_weight}, {schedule}, {N} x {M}, active {active})"
     rp = pose_opt.pose_optimize_plain(*args, intr, cfg)
-    rk = pose_opt.pose_optimize(*[a.to(cuda) for a in args], intr, cfg)
+    args_k = pose_to(args, cuda)
+    before = kernels.COUNTS["pose_lm"]
+    rk = pose_opt.pose_optimize(*args_k, intr, cfg)
+    assert kernels.COUNTS["pose_lm"] == before + 1, f"{what}: launch count"
     err = (rk.T_cw.cpu() - rp.T_cw).abs().max().item()
-    assert err <= 1e-4, f"pose_lm (line weight {line_weight}): pose err {err}"
+    assert err <= 1e-4, f"{what}: pose err {err}"
     same = torch.cat([rk.point_inliers.cpu() == rp.point_inliers,
                       rk.line_inliers.cpu() == rp.line_inliers]).float().mean().item()
-    assert same >= 0.995, f"pose_lm (line weight {line_weight}): inliers equal {same}"
+    assert same >= 0.995, f"{what}: inliers equal {same}"
+    n_masks = int(rk.point_inliers.sum()) + int(rk.line_inliers.sum())
+    assert rk.n_inliers.dtype == torch.int32 and int(rk.n_inliers) == n_masks, \
+        f"{what}: n_inliers {int(rk.n_inliers)}, masks {n_masks}"
+    if active == 0:
+        assert n_masks == 0 and torch.equal(rk.T_cw.cpu(), args[0]), f"{what}: moved"
+    if active:
+        assert not (rk.point_inliers.cpu() & ~args[3]).any(), f"{what}: unmasked inlier"
 
 
 @pytest.fixture(scope="module")
@@ -385,18 +434,26 @@ def _anchors(img, K, ds):
 
 
 def _check_lsd_refine(octaves):
+    """Kernel 6 on both octaves' anchors at ds 1 and 2, then on the first
+    anchor alone and on the first 13 (a block takes 8): every valid
+    anchor's output bit-equal to the plain version's."""
     fe = FrontendConfig()
     for ds in (1, 2):
         for img, K, S in zip(octaves, (256, 128), (48, 24)):
             ax, ay, avalid, packed = _anchors(img, K, ds)
             args = (S, fe.line_refine_iters, fe.line_angle_tol, fe.line_grad_threshold)
-            out_k = lsd.lsd_refine(img, packed, ax, ay, *args)
-            out_p = lsd.lsd_refine_plain(img, packed, ax, ay, *args)
-            err = (out_k[:, :4] - out_p[:, :4]).abs().amax(1)[avalid]
             at = f"at {tuple(img.shape)}, ds {ds}"
             assert avalid.sum().item() > 50 // ds, f"lsd_refine: too few valid anchors {at}"
-            share = (err <= 1e-3).float().mean().item()
-            assert share >= 0.999, f"lsd_refine {at}: {share} within 1e-3 px"
+            for n in (K, 1, 13):
+                before = kernels.COUNTS["lsd_refine"]
+                out_k = lsd.lsd_refine(img, packed, ax[:n], ay[:n], *args)
+                assert kernels.COUNTS["lsd_refine"] == before + 1, f"lsd_refine {at}: launches"
+                out_p = lsd.lsd_refine_plain(img, packed, ax[:n], ay[:n], *args)
+                v = avalid[:n]
+                diff = (out_k[v] != out_p[v]).any(1)
+                assert not diff.any(), (
+                    f"lsd_refine {at}, K {n}: {int(diff.sum())} of {int(v.sum())} valid anchors "
+                    f"differ, max {(out_k[v] - out_p[v]).abs().max().item()}")
 
 
 def _lines_equal(what, out_k, out_p):

@@ -25,6 +25,17 @@ all):
 - lsd_support: both octaves of bench frame 40 (640x480 and 320x240) at
   line_support_downsample 1 and 2, bit for bit against
   `lsd_support_plain`, timed per frame;
+- pose_lm: `tests/test_torch_kernels_gpu.py pose_problem()` (N 2048, M
+  256) at line weight 0 and 1, each at the tracking's two schedules
+  (rounds x iterations 2 x 4 and 4 x 6), the same at line weight 0 with
+  144 masked points (the main path's density), and N 1024 with one line row on
+  (the relocalization's shape) at 4 x 6; against `pose_optimize_plain`
+  (pose within 1e-4, inlier masks equal on >= 99.5%, n_inliers equal to
+  the kernel's masks' sum);
+- lsd_refine: both octaves of bench frame 40 (256 anchors at 48 walk
+  steps, 128 at 24) at line_support_downsample 1 and 2, the anchors as
+  `detect_lines` selects them; every valid anchor's output bit-equal to
+  `lsd_refine_plain`'s, timed per frame;
 - dense_solve: per N:CAP (`--systems`), a damped J^T J + 1e-3 I of N rows
   and a random right side (numpy, seed 1, drawn in the order given) at a
   capacity of CAP rows (which picks the panel width); pivots and x against
@@ -108,6 +119,75 @@ def case_lsd_support(cs, reps: int, _systems) -> dict:
     return out
 
 
+def case_pose_lm(cs, reps: int, _systems) -> dict:
+    import dataclasses
+
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.config import OptimConfig
+    from structure_slam_pointline_tpu_torch.optim import pose_opt
+    from test_torch_kernels_gpu import pose_problem, pose_to
+
+    out = {}
+    cases = [(w, 2048, 256, s, None) for w in (0.0, 1.0) for s in ((2, 4), (4, 6))]
+    cases += [(0.0, 2048, 256, s, 144) for s in ((2, 4), (4, 6))]
+    cases.append((1.0, 1024, 1, (4, 6), None))
+    for w, N, M, (rounds, iters), keep in cases:
+        args, intr = pose_problem(w, N, M, keep=keep)
+        if M == 1:
+            args[8] = torch.ones(1, dtype=torch.bool)   # the one line row on
+        cfg = dataclasses.replace(OptimConfig(), pose_rounds=rounds, pose_iters=iters)
+        args_k = pose_to(args, "cuda")
+        args_p = [a.cuda() for a in args]
+        run = lambda: pose_opt.pose_optimize(*args_k, intr, cfg)  # noqa: E731
+        kernels.reset_counts()
+        rk = run()
+        launches = kernels.COUNTS["pose_lm"]
+        rp = pose_opt.pose_optimize_plain(*args_p, intr, cfg)
+        err = (rk.T_cw - rp.T_cw).abs().max().item()
+        same = torch.cat([rk.point_inliers == rp.point_inliers,
+                          rk.line_inliers == rp.line_inliers]).float().mean().item()
+        n_ok = int(rk.n_inliers) == int(rk.point_inliers.sum()) + int(rk.line_inliers.sum())
+        active = int(args[3].sum()) + 2 * int(args[8].sum())
+        out[f"w{w:g}_N{N}_M{M}_{rounds}x{iters}" + (f"_keep{keep}" if keep else "")] = {
+            "ok": err <= 1e-4 and same >= 0.995 and n_ok, "pose_err": err,
+            "inliers_equal": same, "n_inliers": int(rk.n_inliers), "n_inliers_ok": n_ok,
+            "active_rows": active, "launches": launches, **timed(cs, run, reps)}
+    return out
+
+
+def case_lsd_refine(cs, reps: int, _systems) -> dict:
+    import torch
+
+    from structure_slam_pointline_tpu_torch.config import CameraConfig, FrontendConfig
+    from structure_slam_pointline_tpu_torch.io import synthetic
+    from structure_slam_pointline_tpu_torch.ops import lsd
+    from test_torch_kernels_gpu import _anchors
+
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    pose = synthetic.circular_trajectory(610, radius=0.5)[40]
+    img = torch.from_numpy(synthetic.render(scene, pose, cam, noise=2.0, seed=40)).cuda()
+    octaves = [img, lsd.half_octave(img).contiguous()]
+    fe = FrontendConfig()
+    out = {}
+    for ds in (1, 2):
+        calls, valid = [], []
+        for o, K, S in zip(octaves, (256, 128), (48, 24)):
+            ax, ay, avalid, packed = _anchors(o, K, ds)
+            calls.append((o, packed, ax, ay, S, fe.line_refine_iters, fe.line_angle_tol,
+                          fe.line_grad_threshold))
+            valid.append(avalid)
+        differ = 0
+        for a, v in zip(calls, valid):
+            differ += int((lsd.lsd_refine(*a)[v] != lsd.lsd_refine_plain(*a)[v]).any(1).sum())
+        out[f"ds{ds}"] = {"ok": differ == 0, "valid_anchors": int(sum(v.sum() for v in valid)),
+                          "anchors_differing": differ,
+                          **timed(cs, lambda: [lsd.lsd_refine(*a) for a in calls], reps)}
+    return out
+
+
 def case_dense_solve(cs, reps: int, systems) -> dict:
     import numpy as np
     import torch
@@ -134,6 +214,7 @@ def case_dense_solve(cs, reps: int, systems) -> dict:
 
 
 CASES = {"ransac_pnp": case_ransac_pnp, "lsd_support": case_lsd_support,
+         "pose_lm": case_pose_lm, "lsd_refine": case_lsd_refine,
          "dense_solve": case_dense_solve}
 
 
