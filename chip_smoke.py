@@ -114,7 +114,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    kernel's masks' sum; the LSD refinement's outputs bit-equal on every
    valid anchor; LBD words equal on >= 99% of
    segments and float descriptors within 1e-5; atan2 bit-exact; keypoint
-   selection (ORB levels and LSD anchors) `valid` equal and `resp`, `xy`
+   selection (ORB levels and LSD anchors, every call of phase 2a's first
+   20 frames and of every 25th frame) `valid` equal and `resp`, `xy`
    equal on valid slots; observer bits and votes equal; null vectors
    within 1e-6; local BA poses and landmarks within 1e-3 with point and
    line inlier masks equal on >= 99.5% of edges, two launches
@@ -158,7 +159,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    valid keypoints, their descriptors and the line descriptors, with line
    endpoints within 1e-3 px; the first level or op that differs is
    printed. Kernels 25, 26 and kernel 22's tracking entries on every call
-   of phase 2a's first frames and every 25th call after (`glue_kernels`):
+   of phase 2a's first frames and a sample after (kernel 26: the first 20
+   frames and every 25th frame, its row with the first and the last
+   recorded frame's times; `glue_kernels`):
    kernel 25 bit-equal on every level and blurred plane (timed beside the
    plain version's two torch.matmul calls per level, the resizes without
    the blur); kernel 26's valid flags and octaves bit-equal, its floats
@@ -807,6 +810,20 @@ def sampled_calls(tag: str, first: int, every: int):
         seen[0] += 1
         n = seen[0]
         return (tag, n if n <= first or n % every == 0 else 0)
+    return key
+
+
+def sampled_frames(tag: str, per_frame: int, first: int, every: int):
+    """A Recorder key function for a wrapper called `per_frame` times a
+    frame: a key of its own for each call of the first `first` frames and
+    of every `every`-th frame after them (each recorded), one shared key
+    for the rest."""
+    seen = [0]
+
+    def key(*a, **kw):
+        seen[0] += 1
+        f = (seen[0] - 1) // per_frame
+        return (tag, seen[0] if f < first or f % every == 0 else 0)
     return key
 
 
@@ -1619,26 +1636,28 @@ def glue_kernels(rec12: dict, frames: int) -> list:
 
     calls, err = check_lines("lsd_merge", lsd.lsd_merge, lsd.lsd_merge_plain)
     # a frame's two octaves: every recorded call (the first 20 frames' and
-    # every 25th after; key 0 is the shared key of unsampled calls), timed
+    # every 25th frame's; key 0 is the shared key of unsampled calls), timed
     # together and counted per frame, as phase 4's profile counts it; the
-    # first frame's two calls beside it
+    # first frame's two calls and the last recorded frame's beside it
     rec_calls = [calls[k] for k in sorted(k for k in calls if k[1] > 0)]
     per_frame = 2 / len(rec_calls)
     first_ms = device_ms(lambda: [lsd.lsd_merge(*a, **k) for a, k in rec_calls[:2]])
+    late_ms = device_ms(lambda: [lsd.lsd_merge(*a, **k) for a, k in rec_calls[-2:]])
+    late_frame = (max(k[1] for k in calls) - 1) // 2
     t = timings(lambda: [lsd.lsd_merge(*a, **k) for a, k in rec_calls],
                 lambda: [lsd.lsd_merge_plain(*a, **k) for a, k in rec_calls])
     Ks = [a[0].shape[0] for a, _ in rec_calls]
     print(f"[kernel 26] lsd_merge a frame: {t['ms'] * per_frame:.4f} ms on the device, the "
           f"mean of {len(rec_calls)} recorded calls; the first frame's two calls "
-          f"{first_ms:.4f} ms", flush=True)
+          f"{first_ms:.4f} ms, frame {late_frame}'s {late_ms:.4f} ms", flush=True)
     rows.append(dict(
         name="lsd_merge", max_abs_err=err, library_ms=None,
         **{k: v * per_frame for k, v in t.items()},
         bytes=per_frame * sum(K * 29 + a[2] * 41 for K, (a, _) in zip(Ks, rec_calls)),
         ops=per_frame * sum(K * K * OPS_MERGE_PAIR + 4 * K ** 3 // 32 for K in Ks),
         shape=f"a frame's 2 octaves (K = {sorted(set(Ks))} candidates), the mean of "
-              f"{len(rec_calls)} recorded calls; the first frame {first_ms:.4f} ms "
-              f"({len(calls)} calls checked)"))
+              f"{len(rec_calls)} recorded calls; the first frame {first_ms:.4f} ms, frame "
+              f"{late_frame} {late_ms:.4f} ms ({len(calls)} calls checked)"))
     calls, err = check_lines("lsd_octave_merge", lsd.lsd_octave_merge,
                              lsd.lsd_octave_merge_plain)
     args, kw = calls[min(calls)]
@@ -2012,6 +2031,14 @@ def main() -> int:
     def select_key(score_raw, ks, **kw):
         return ("sel", tuple(ks), kw.get("cell"), kw.get("cell_cap"))
 
+    # kernel 11 in phase 2a: each call of the first 20 frames and of every
+    # 25th frame (3 a frame: ORB, the two octaves' anchors), keyed by shape
+    # and call
+    sel_frames = sampled_frames("sel", 3, 20, 25)
+
+    def select_sampled(score_raw, ks, **kw):
+        return select_key(score_raw, ks, **kw) + (sel_frames()[1],)
+
     rec = {
         "fast_nms": Recorder(fast, "fast_score_nms",
                              lambda img: ("fast", tuple(img.shape))),
@@ -2027,7 +2054,7 @@ def main() -> int:
         "lsd_refine": Recorder(lsd, "lsd_refine", refine_key),
         "lbd_describe": Recorder(lbd, "describe_lines",
                                  lambda img, ep, valid: ("lbd", tuple(img.shape), ep.shape[0])),
-        "kp_select": Recorder(fast, "select_keypoints_levels", select_key),
+        "kp_select": Recorder(fast, "select_keypoints_levels", select_sampled),
         "null_vector4": Recorder(linalg, "null_vector_4",
                                  lambda A, **kw: ("null", tuple(A.shape))),
         "local_ba": Recorder(local_ba, "bundle_adjust",
@@ -2070,7 +2097,7 @@ def main() -> int:
 
     rec12 = {
         "pyramid": Recorder(pyramid, "build_blurred_pyramid", sampled_calls("pyr", 20, 25)),
-        "lsd_merge": Recorder(lsd, "lsd_merge", sampled_calls("merge", 40, 25)),
+        "lsd_merge": Recorder(lsd, "lsd_merge", sampled_frames("merge", 2, 20, 25)),
         "lsd_octave_merge": Recorder(lsd, "lsd_octave_merge", sampled_calls("oct", 20, 25)),
         "track_match_points": Recorder(matching, "track_match_points",
                                        sampled_calls("pts", 40, 25)),
@@ -2726,11 +2753,11 @@ def main() -> int:
         bytes=n_at * 12, ops=n_at * OPS_ATAN2, library_ms=None,
         shape=f"{n_at} elements (+{len(at_calls) - 1} other shapes checked)"))
 
-    # keypoint selection: every call shape (ORB levels at 1024 and 2048
-    # keypoints, the LSD anchors of both octaves), valid equal, resp and xy
-    # equal on valid slots
-    sel_calls = rec["kp_select"].calls
-    for key, (args, kw) in sel_calls.items():
+    # keypoint selection: every sampled call of phase 2a (ORB levels at 1024
+    # and 2048 keypoints, the LSD anchors of both octaves), valid equal, resp
+    # and xy equal on valid slots; each shape's first call timed
+    sel_all = rec["kp_select"].calls
+    for key, (args, kw) in sel_all.items():
         out_k = fast.select_keypoints_levels(*args, **kw)
         out_p = fast.select_keypoints_levels_plain(*args, **kw)
         for li, ((xk, rk_, vk), (xp, rp_, vp)) in enumerate(zip(out_k, out_p)):
@@ -2738,6 +2765,11 @@ def main() -> int:
                     and torch.equal(xk[vk], xp[vp])):
                 fail(f"kp_select disagrees at {key} level {li}: valid "
                      f"{int((vk != vp).sum())} slots")
+    sel_calls = {}
+    for key in sorted(sel_all, key=lambda k: (k[4] == 0, k[4])):
+        sel_calls.setdefault(key[:4], sel_all[key])
+    print(f"[check] kp_select: {len(sel_all)} recorded calls of {len(sel_calls)} shapes equal",
+          flush=True)
     orb_key = next((k for k in sel_calls if sum(k[1]) == cfg.frontend.n_keypoints), None)
     if orb_key is None or len(sel_calls) < 3:
         fail(f"keypoint selection shapes missing: {sorted(sel_calls)}")
@@ -2758,7 +2790,7 @@ def main() -> int:
         frame_plain_wall_ms=time_ms(frame_selection(fast.select_keypoints_levels_plain)),
         bytes=px * 4 + nsel * (5 * 4 + 8 + 4 + 1), ops=px * 6, library_ms=None,
         shape=f"{len(sel_args[0])} levels, {px} px, {nsel} keypoints "
-              f"(+{len(sel_calls) - 1} other shapes checked)"))
+              f"(+{len(sel_calls) - 1} other shapes; {len(sel_all)} calls checked)"))
 
     # observer bits and votes: exactly equal
     (st_bits,), _ = rec["obs_bits"].calls[("bits",)]

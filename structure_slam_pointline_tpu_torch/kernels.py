@@ -105,7 +105,6 @@ FMAD = {"null_vector4.cu"}
 
 ENTRIES = {name: (name,) for name in SOURCES}
 ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
-ENTRIES["kp_select"] = ("kp_select_cells", "kp_select_rank")
 ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
                        "ba_solve", "ba_backsub", "ba_edges")
 ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_select")
@@ -113,7 +112,6 @@ ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
 ENTRIES["pose_graph"] = ("pg_jacobians", "pg_assemble", "pg_solve", "pg_cost", "pg_decide")
 ENTRIES["compact"] = ("compact_scan", "compact_gather", "compact_remap")
 ENTRIES["local_ba_shard"] = ENTRIES["local_ba"]
-ENTRIES["kp_select_batch"] = ("kp_select_cells_batch", "kp_select_rank_batch")
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -164,15 +162,11 @@ _ARGTYPES = {
     # best, has, stream
     "fuse_points_3d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "fuse_lines_3d": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # scores, hs, ws, cell_off, L, cell, cap, threshold, min_threshold,
-    # border, top_s, top_i, stream
-    "kp_select_cells": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
-    # raws, hs, ws, cell_off, ks, out_off, L, cell, cap, top_s, top_i,
-    # xy, resp, valid, stream
-    "kp_select_rank": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # the same with the number of frames B before the outputs
-    "kp_select_cells_batch": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P],
-    "kp_select_rank_batch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # a pointer to the host-side work description (ops/fast.py _SelWork:
+    # the level tables, maps, scratch, counters and outputs; B frames in
+    # the batch entry)
+    "kp_select": [_P, _P],
+    "kp_select_batch": [_P, _P],
     # local BA: a pointer to the host-side work description (optim/local_ba.py
     # _Work), then per entry: classify's mode, edges' two output masks
     "ba_grid": [_P, _P],

@@ -15,8 +15,12 @@ the border zeroing hides that from the raw map but not from the NMS
 input, and the kernel reproduces the wrap.
 
 `select_keypoints_levels` is the wrapper of CUDA kernel 11
-(csrc/kp_select.cu: one warp per cell for the per-cell top `cell_cap`,
-one block per level for the ranking and the sub-pixel offsets).
+(csrc/kp_select.cu, one launch: a warp per cell for the per-cell top
+`cell_cap`, then each level's last block to finish selects its top k by
+a radix select and writes the sub-pixel offsets). The wrapper keeps one
+ctypes work description per (shapes, budgets, options, stream), with the
+level tables, the candidate scratch and the per-level counters, and fills
+in only the maps and the outputs on each call.
 `select_keypoints_levels_plain` is its plain version: `cell_cap` rounds
 of masked argmax per cell (argmax keeps the first index, like
 jnp.argmax) and one global ranking per level by a STABLE descending
@@ -24,8 +28,8 @@ sort, so ties go to the lower index as in `lax.top_k`.
 
 Both also take a [B, H, W] stack of frames per level (the data-parallel
 frontend, parallel/batch_frontend.py): kernels 1 and 11's batch entries,
-one launch for all B frames (two for the selection), each frame
-bit-equal to its single-frame call. Their plain versions run a stack
+one launch for all B frames, each frame bit-equal to its
+single-frame call. Their plain versions run a stack
 frame by frame.
 """
 
@@ -227,7 +231,65 @@ def select_keypoints_levels_plain(score_raw: list, ks: list, cell: int = 32,
     return outs
 
 
-MAX_LEVELS = 16   # kernel 11's level table
+MAX_LEVELS = 16          # kernel 11's level table
+MAX_LEVEL_CANDIDATES = 16384   # a level's cells x cap, whose keys kernel 11 holds in shared memory
+
+
+class _SelWork(ctypes.Structure):
+    """Kernel 11's description of one call (`struct Work` in
+    csrc/kp_select.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p * MAX_LEVELS) for n in ("score", "raw")]
+                + [(n, ctypes.c_int * MAX_LEVELS) for n in ("h", "w", "k", "out_off")]
+                + [("cell_off", ctypes.c_int * (MAX_LEVELS + 1))]
+                + [(n, ctypes.c_int) for n in ("L", "cell", "cap", "border", "B")]
+                + [(n, ctypes.c_float) for n in ("threshold", "min_threshold")]
+                + [(n, ctypes.c_void_p) for n in ("top_s", "top_i", "done", "xy", "resp",
+                                                  "valid")])
+
+
+# (map and raw shapes, budgets, options, device, stream) -> (work with its
+# tables filled, its scratch and counters kept alive, the leading shape,
+# the budgets, the output offsets); one per stream, since a call's counters
+# and scratch must not be shared with a call running beside it
+_SEL_PLANS: dict = {}
+
+
+def _sel_plan(key, score_raw, ks, cell, cell_cap, threshold, min_threshold, border, dev):
+    """The checks of a new (shapes, budgets, options, stream) and its cached
+    work description: the level tables filled, the candidate scratch and
+    the per-level counters (zeroed once; the kernel leaves them zero)."""
+    what = "select_keypoints_levels"
+    L = len(score_raw)
+    if L != len(ks) or not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"{what}: {L} levels, {len(ks)} budgets")
+    if not 1 <= cell <= 64:
+        raise ValueError(f"{what}: cell {cell} outside 1..64")
+    shapes, raw_shapes = key[0], key[1]
+    lead = shapes[0][:-2]
+    if any(sh[:-2] != lead or len(sh) not in (2, 3) or r not in (None, sh)
+           for sh, r in zip(shapes, raw_shapes)):
+        raise ValueError(f"{what}: expects [H, W] or [B, H, W] maps of one shape per level "
+                         "and one leading size")
+    cap = min(cell_cap, cell * cell)
+    cell_off = np.cumsum([0] + [-(-sh[-2] // cell) * -(-sh[-1] // cell) for sh in shapes])
+    if max(np.diff(cell_off)) * cap > MAX_LEVEL_CANDIDATES:
+        raise ValueError(f"{what}: too many candidates per level (> {MAX_LEVEL_CANDIDATES})")
+    out_off = [int(o) for o in np.cumsum([0] + list(ks))]
+    B = lead[0] if lead else 1
+    top_s = torch.empty((B, int(cell_off[-1]) * cap), dtype=torch.float32, device=dev)
+    top_i = torch.empty((B, int(cell_off[-1]) * cap), dtype=torch.int32, device=dev)
+    done = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    work = _SelWork(L=L, cell=cell, cap=cap, border=int(border), B=B,
+                    threshold=float(threshold), min_threshold=float(min_threshold),
+                    top_s=top_s.data_ptr(), top_i=top_i.data_ptr(), done=done.data_ptr())
+    for li, sh in enumerate(shapes):
+        work.h[li], work.w[li], work.k[li] = sh[-2], sh[-1], int(ks[li])
+        work.out_off[li] = out_off[li]
+    for li in range(L + 1):
+        work.cell_off[li] = int(cell_off[li])
+    plan = (work, (top_s, top_i, done), tuple(lead), [int(k) for k in ks], out_off)
+    _SEL_PLANS[key] = plan
+    return plan
 
 
 def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
@@ -235,58 +297,33 @@ def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
                             min_threshold: float = 7.0, border: int = 16):
     """`select_keypoints_levels_plain`'s result, over [H, W] maps or [B, H,
     W] stacks (one frame per leading index). CPU tensors -> plain version;
-    CUDA tensors -> kernel 11, two launches (its batch entries for
-    stacks, all B frames at once), or raise."""
+    CUDA tensors -> kernel 11, one launch (its batch entry for stacks, all
+    B frames at once), or raise."""
     if score_raw[0][0].device.type == "cpu":
         return select_keypoints_levels_plain(score_raw, ks, cell, cell_cap, threshold,
                                              min_threshold, border)
-    batch = score_raw[0][0].shape[0] if score_raw[0][0].dim() == 3 else None
     what = "select_keypoints_levels"
-    L = len(score_raw)
-    if L != len(ks) or not 1 <= L <= MAX_LEVELS:
-        raise ValueError(f"{what}: {L} levels, {len(ks)} budgets")
-    if not 1 <= cell <= 64:
-        raise ValueError(f"{what}: cell {cell} outside 1..64")
-    cap = min(cell_cap, cell * cell)
     maps = [t for pair in score_raw for t in pair if t is not None]
-    for t in maps:
-        kernels.check_dtype(what, t, torch.float32)
-    kernels.check_cuda(what, *maps)
-    dev = maps[0].device
-    lead = () if batch is None else (batch,)
-    hs = [s.shape[-2] for s, _ in score_raw]
-    ws = [s.shape[-1] for s, _ in score_raw]
-    for (s, r) in score_raw:
-        if s.shape[:-2] != lead or s.dim() != 2 + len(lead) \
-                or (r is not None and r.shape != s.shape):
-            raise ValueError(f"{what}: expects {'[B, H, W]' if lead else '[H, W]'} maps of "
-                             "one shape per level")
-    cell_off = np.cumsum([0] + [-(-h // cell) * -(-w // cell) for h, w in zip(hs, ws)])
-    out_off = np.cumsum([0] + list(ks))
-    if max(np.diff(cell_off)) * cap > 16384:   # launch B sorts a level in shared memory
-        raise ValueError(f"{what}: too many candidates per level")
-    ints = lambda v: (ctypes.c_int * len(v))(*[int(x) for x in v])  # noqa: E731
-    ptrs = lambda v: (ctypes.c_void_p * len(v))(  # noqa: E731
-        *[t.data_ptr() if t is not None else None for t in v])
-    c_hs, c_ws, c_off = ints(hs), ints(ws), ints(cell_off)
-    name = "kp_select" if batch is None else "kp_select_batch"
-    suffix = "" if batch is None else "_batch"
-    nb = [] if batch is None else [int(batch)]
-    top_s = torch.empty(lead + (int(cell_off[-1]) * cap,), dtype=torch.float32, device=dev)
-    top_i = torch.empty(lead + (int(cell_off[-1]) * cap,), dtype=torch.int32, device=dev)
-    kernels.launch(name, ptrs([s for s, _ in score_raw]), c_hs, c_ws, c_off, L,
-                   cell, cap, float(threshold), float(min_threshold), int(border), *nb,
-                   kernels.ptr(top_s), kernels.ptr(top_i), entry="kp_select_cells" + suffix)
-    n_out = int(out_off[-1])
-    xy = torch.empty(lead + (n_out, 2), dtype=torch.float32, device=dev)
-    resp = torch.empty(lead + (n_out,), dtype=torch.float32, device=dev)
-    valid = torch.empty(lead + (n_out,), dtype=torch.bool, device=dev)
-    kernels.launch(name, ptrs([r for _, r in score_raw]), c_hs, c_ws, c_off,
-                   ints(ks), ints(out_off[:-1]), L, cell, cap, *nb, kernels.ptr(top_s),
-                   kernels.ptr(top_i), kernels.ptr(xy), kernels.ptr(resp),
-                   kernels.ptr(valid), entry="kp_select_rank" + suffix)
-    return [(xy[..., a:b, :], resp[..., a:b], valid[..., a:b])
-            for a, b in zip(out_off[:-1], out_off[1:])]
+    if any(t.dtype != torch.float32 for t in maps):
+        raise TypeError(f"{what}: expects float32 maps")
+    dev = kernels.check_cuda(what, *maps)
+    key = (tuple(s.shape for s, _ in score_raw),
+           tuple(None if r is None else r.shape for _, r in score_raw), tuple(ks), cell,
+           cell_cap, threshold, min_threshold, border, dev,
+           torch.cuda.current_stream(dev).cuda_stream)
+    plan = _SEL_PLANS.get(key) or _sel_plan(key, score_raw, ks, cell, cell_cap, threshold,
+                                            min_threshold, border, dev)
+    work, _, lead, sizes, out_off = plan
+    for li, (s, r) in enumerate(score_raw):
+        work.score[li] = s.data_ptr()
+        work.raw[li] = r.data_ptr() if r is not None else None
+    xy = torch.empty(lead + (out_off[-1], 2), dtype=torch.float32, device=dev)
+    resp = torch.empty(lead + (out_off[-1],), dtype=torch.float32, device=dev)
+    valid = torch.empty(lead + (out_off[-1],), dtype=torch.bool, device=dev)
+    work.xy, work.resp, work.valid = xy.data_ptr(), resp.data_ptr(), valid.data_ptr()
+    kernels.launch("kp_select_batch" if lead else "kp_select", ctypes.addressof(work))
+    return list(zip(xy.split_with_sizes(sizes, dim=-2), resp.split_with_sizes(sizes, dim=-1),
+                    valid.split_with_sizes(sizes, dim=-1)))
 
 
 def select_keypoints(score: torch.Tensor, k: int, cell: int = 32, cell_cap: int = 8,

@@ -21,7 +21,8 @@ Counterpart of structure_slam_pointline_tpu/ops/lsd.py (`detect_lines`,
    fragments linked, the links closed by four squarings (bit rows in
    shared memory), each component's representative and extents, the
    pairwise suppression of duplicates, the stable top L and the line
-   coefficients, in one block that writes no [K, K] plane. Replaces
+   coefficients, in one cluster of 8 blocks (the link and suppression
+   pairs split over them) that writes no [K, K] plane. Replaces
    lsd.py:442-536. `detect_lines_pyramid`'s cross-octave dedup and top L
    is kernel 26's `lsd_octave_merge` (lsd.py:551-641).
 
@@ -513,7 +514,8 @@ class _LsdWork(ctypes.Structure):
                  ("angle_tol", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in (
                     "ref", "avalid", "ep0", "ep1", "resp0", "resp1", "ang0", "ang1", "valid0",
-                    "valid1", "endpoints", "line2d", "response", "angle", "valid", "octave")])
+                    "valid1", "endpoints", "line2d", "response", "angle", "valid", "octave",
+                    "trace")])
 
 
 def _merge_launch(entry: str, L: int, inputs: dict, **scalars) -> Lines:
@@ -539,8 +541,8 @@ def _merge_launch(entry: str, L: int, inputs: dict, **scalars) -> Lines:
 def lsd_merge(ref: torch.Tensor, avalid: torch.Tensor, n_lines: int, min_length: float,
               angle_tol: float) -> Lines:
     """The merges of one octave (`lsd_merge_plain`). CPU tensors -> plain
-    version; CUDA tensors -> kernel 26's `lsd_merge` (or raise), one block
-    that writes no [K, K] plane."""
+    version; CUDA tensors -> kernel 26's `lsd_merge` (or raise), one
+    cluster launch that writes no [K, K] plane."""
     if ref.device.type == "cpu":
         return lsd_merge_plain(ref, avalid, n_lines, min_length, angle_tol)
     K = ref.shape[0]

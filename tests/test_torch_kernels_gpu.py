@@ -120,13 +120,15 @@ def test_point_frontend_kernels_match_plain(levels, octaves):
     """Kernel 25 (the pyramid and blur) at 640x480, 75 x 101 and on a
     [2, H, W] stack; kernels 1 (FAST + NMS) and 2 (ORB) on every level of
     one bench frame; kernel 11 on the ORB levels at 1024 and 2048
-    keypoints and as the LSD anchor selection of both octaves."""
+    keypoints, as the LSD anchor selection of both octaves and on
+    selection_levels' edge cases."""
     _check_pyramid(octaves[0])
     _check_fast_nms(levels)
     _check_orb(levels)
     for n_kp in (1024, 2048):
         _check_kp_select(levels, n_kp)
     _check_kp_select_lsd_anchors(octaves)
+    _check_kp_select_edges(levels[0][0].device)
 
 
 def _check_pyramid(img):
@@ -498,30 +500,67 @@ def collinear_chain(K=256, n=40, seed=3):
     return torch.from_numpy(ref), torch.from_numpy(valid)
 
 
+def dense_lines(K=256, n=60, seed=5):
+    """Refined segments [K, 7] and anchor flags: n overlapping fragments,
+    25-40 px long and 4 px apart, on each of two long lines (within 0.6 px
+    and 0.02 rad of it), so each links to ~15 others directly and its
+    component holds all n (rows of ~n set bits after the squarings), the
+    rest scattered; a few failing anchors."""
+    g = np.random.default_rng(seed)
+    ref = np.zeros((K, 7), np.float32)
+    for c, (o, a) in enumerate((((30.0, 60.0), 0.25), ((500.0, 40.0), 1.9))):
+        for i in range(n):
+            d = a + g.uniform(-0.02, 0.02)
+            u = np.array([np.cos(d), np.sin(d)])
+            s = np.array(o) + np.array([np.cos(a), np.sin(a)]) * 4.0 * i \
+                + np.array([-np.sin(a), np.cos(a)]) * g.uniform(-0.6, 0.6)
+            ref[c * n + i, :4] = [*s, *(s + g.uniform(25.0, 40.0) * u)]
+    m = K - 2 * n
+    a = g.uniform(0, np.pi, m)
+    c = g.uniform([20, 20], [620, 460], (m, 2))
+    ln = g.uniform(10, 60, m)
+    half = 0.5 * ln[:, None] * np.stack([np.cos(a), np.sin(a)], 1)
+    ref[2 * n:, :4] = np.concatenate([c - half, c + half], 1)
+    ref[:, 4] = np.hypot(ref[:, 2] - ref[:, 0], ref[:, 3] - ref[:, 1])
+    ref[:, 5] = g.uniform(5, 40, K)
+    ref[:, 6] = ref[:, 4] * ref[:, 5]
+    valid = g.uniform(size=K) < 0.97
+    return torch.from_numpy(ref), torch.from_numpy(valid)
+
+
 def _check_lsd_merge(octaves):
-    """Kernel 26's lsd_merge on both octaves' refined anchors and on
-    collinear_chain, its lsd_octave_merge on the two octaves' lines."""
+    """Kernel 26's lsd_merge on both octaves' refined anchors (octave 0
+    also at L = K), on collinear_chain (at K = 256 and at K = 200, not a
+    multiple of 32) and on dense_lines (rows of ~60 set bits); its
+    lsd_octave_merge on the two octaves' lines."""
     fe = FrontendConfig()
+    dev = octaves[0].device
     cases = []
     for img, K, S in zip(octaves, (256, 128), (48, 24)):
         ax, ay, avalid, packed = _anchors(img, K, 1)
         cases.append((f"octave {tuple(img.shape)}", lsd.lsd_refine_plain(
             img, packed, ax, ay, S, fe.line_refine_iters, fe.line_angle_tol,
-            fe.line_grad_threshold), avalid))
+            fe.line_grad_threshold), avalid, fe.n_lines))
     ref, valid = collinear_chain()
-    cases.append(("collinear chain", ref.to(octaves[0].device), valid.to(octaves[0].device)))
+    cases.append(("collinear chain", ref.to(dev), valid.to(dev), fe.n_lines))
+    cases.append(("octave 0, L = K", cases[0][1], cases[0][2], 256))
+    ref, valid = collinear_chain(K=200)
+    cases.append(("collinear chain, K = 200", ref.to(dev), valid.to(dev), fe.n_lines))
+    ref, valid = dense_lines()
+    cases.append(("dense links", ref.to(dev), valid.to(dev), fe.n_lines))
     outs = []
-    for what, ref, avalid in cases:
+    for what, ref, avalid, L in cases:
         before = kernels.COUNTS["lsd_merge"]
-        args = (ref, avalid, fe.n_lines, fe.line_min_length, fe.line_angle_tol)
+        args = (ref, avalid, L, fe.line_min_length, fe.line_angle_tol)
         out_k = lsd.lsd_merge(*args)
         assert kernels.COUNTS["lsd_merge"] == before + 1, "lsd_merge: launch count"
         out_p = lsd.lsd_merge_plain(*args)
         _lines_equal(f"lsd_merge {what}", out_k, out_p)
         assert out_p.valid.sum().item() >= 8, f"lsd_merge {what}: too few lines"
         outs.append(out_p)
-    chain_len = (outs[2].endpoints[:, 2:] - outs[2].endpoints[:, :2]).norm(dim=1).max().item()
-    assert chain_len > 400.0, f"lsd_merge: the chain merged to {chain_len} px only"
+    for c, limit in ((2, 400.0), (4, 400.0), (5, 200.0)):
+        longest = (outs[c].endpoints[:, 2:] - outs[c].endpoints[:, :2]).norm(dim=1).max().item()
+        assert longest > limit, f"lsd_merge {cases[c][0]}: merged to {longest} px only"
     out_k = lsd.lsd_octave_merge(outs[0], outs[1], fe.line_angle_tol)
     out_p = lsd.lsd_octave_merge_plain(outs[0], outs[1], fe.line_angle_tol)
     _lines_equal("lsd_octave_merge", out_k, out_p)
@@ -574,9 +613,64 @@ def _check_kp_select(levels, n_kp):
     out_k = fast.select_keypoints_levels(score_raw, ks, **kw)
     out_p = fast.select_keypoints_levels_plain(score_raw, ks, **kw)
     torch.cuda.synchronize()
-    assert kernels.COUNTS["kp_select"] == before + 2, "kp_select: launch count"
+    assert kernels.COUNTS["kp_select"] == before + 1, "kp_select: launch count"
     assert sum(int(v.sum()) for _, _, v in out_k) > n_kp // 2, "kp_select: too few keypoints"
     _assert_selection_equal(out_k, out_p, f"ORB {n_kp}")
+
+
+def selection_levels(seed=31):
+    """Score and raw maps for kernel 11's edge cases, one level each:
+    (a) 128 x 160 at 32 px cells, cap 8 (160 candidates): 10 scores of 80
+    and 60 of exactly 50 spread over the 20 cells, so a budget of 30 takes
+    the 20 tied ones of the lowest flat index (cell-major, then rank in the
+    cell); (b) 96 x 96, 9 cells x 8 = 72 candidates, 27 of them scored (3
+    a cell), under a budget of 100; (c) 64 x 96 with every score under the
+    floor;
+    (d) 120 x 200 of random scores. Returns [(nms, raw)] and the budgets."""
+    g = np.random.default_rng(seed)
+    a = np.zeros((128, 160), np.float32)
+    ys, xs = np.mgrid[8:120:9, 8:152:13]
+    spots = np.stack([ys.ravel(), xs.ravel()], 1)
+    g.shuffle(spots)
+    a[spots[:10, 0], spots[:10, 1]] = 80.0
+    a[spots[10:70, 0], spots[10:70, 1]] = 50.0
+    b = np.zeros((96, 96), np.float32)
+    yb, xb = np.mgrid[0:96:32, 0:96:32]
+    for dy, dx in ((6, 9), (17, 25), (26, 14)):
+        b[yb + dy, xb + dx] = g.uniform(8.0, 60.0, yb.shape)
+    c = g.uniform(0.0, 6.9, (64, 96)).astype(np.float32)
+    d = (g.uniform(size=(120, 200)) < 0.2) * g.uniform(0.0, 90.0, (120, 200))
+    maps = [a, b, c, d.astype(np.float32)]
+    return ([(torch.from_numpy(m), torch.from_numpy(g.uniform(0.0, 90.0, m.shape)
+                                                    .astype(np.float32))) for m in maps],
+            [30, 100, 12, 40])
+
+
+def _check_kp_select_edges(cuda):
+    """Kernel 11 against its plain version on every slot (xy, resp, valid
+    bit-equal, the invalid ones too) on selection_levels: ties straddling
+    the k-th place across cells, a level with fewer candidates than its
+    budget, a level all below the floor; at 32 px cells with cap 8, then
+    at 8 px cells with cap 1 (phase 2f's shape), with and without raw
+    maps; one launch a call."""
+    score_raw, ks = selection_levels()
+    pairs = [(s.to(cuda), r.to(cuda)) for s, r in score_raw]
+    for cell, cap in ((32, 8), (8, 1)):
+        for raw in (True, False):
+            sr = [(s, r if raw else None) for s, r in pairs]
+            kw = dict(cell=cell, cell_cap=cap, threshold=20.0, min_threshold=7.0, border=4)
+            before = kernels.COUNTS["kp_select"]
+            out_k = fast.select_keypoints_levels(sr, ks, **kw)
+            assert kernels.COUNTS["kp_select"] == before + 1, "kp_select: launch count"
+            out_p = fast.select_keypoints_levels_plain(sr, ks, **kw)
+            for lv, (ok_, op) in enumerate(zip(out_k, out_p)):
+                for name, x, y in zip(("xy", "resp", "valid"), ok_, op):
+                    assert torch.equal(x, y), f"kp_select edges cell {cell} cap {cap} raw " \
+                                              f"{raw} level {lv}: {name}"
+            valid = [int(v.sum()) for _, _, v in out_p]
+            if cap == 8:
+                assert valid[0] == 30 and valid[1] == 27 and valid[2] == 0, valid
+                assert (out_p[0][1] == 50.0).sum().item() == 20, "kp_select: the ties"
 
 
 def _check_kp_select_lsd_anchors(octaves):
@@ -1157,7 +1251,7 @@ def _check_batched_frontend(cuda):
         assert (dk == dp).all(-1).float().mean().item() >= 0.995, "orb_describe_batch"
         assert (ak - ap).abs().max().item() <= 1e-4, "orb_describe_batch"
     n = len(levels)
-    for name, per in (("fast_nms_batch", n), ("kp_select_batch", 2), ("orb_describe_batch", n)):
+    for name, per in (("fast_nms_batch", n), ("kp_select_batch", 1), ("orb_describe_batch", n)):
         assert kernels.COUNTS[name] - before[name] == per, f"{name}: launch count"
     kb = extract.extract_orb(imgs, fe)
     for b in range(3):

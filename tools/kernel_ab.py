@@ -4,7 +4,8 @@ its plain version, then timed by launch name beside a PyTorch call for the
 same work.
 
     python3 tools/kernel_ab.py ROOT [ROOT ...] [--kernels NAME ...]
-                               [--systems N:CAP ...] [--reps 20] [--out FILE]
+                               [--systems N:CAP ...] [--reps 20] [--trace]
+                               [--out FILE]
 
 Each root is a checkout of this repository (for example the parent commit
 unpacked with `git archive` into `out_parent/`, which `.gitignore`'s
@@ -39,7 +40,20 @@ all):
 - dense_solve: per N:CAP (`--systems`), a damped J^T J + 1e-3 I of N rows
   and a random right side (numpy, seed 1, drawn in the order given) at a
   capacity of CAP rows (which picks the panel width); pivots and x against
-  `lu_solve_blocked_plain` (bit for bit), timed beside torch.linalg.solve.
+  `lu_solve_blocked_plain` (bit for bit), timed beside torch.linalg.solve;
+- lsd_merge: kernel 26 on the recorded calls of bench frames 0-19 and every
+  25th to 225 (`bench_calls`: the frame's own `detect_lines_pyramid`), both
+  entries bit-equal to `lsd_merge_plain` / `lsd_octave_merge_plain` on
+  every output of every call, timed a frame over all the calls, for the
+  first frame and for each late frame (200 and after); `--trace` adds,
+  for roots whose source has the marks, each phase's clock64 cycles and
+  the rows' popcounts around each squaring (`merge_trace`, a copy built
+  with -DSSPL_LSD_TRACE into the root's build/);
+- kp_select: kernel 11 on the same frames' recorded calls (the ORB
+  8-level call, both LSD anchor calls): valid equal, xy and resp equal on
+  valid slots (and whether every slot is), launches a call, frame 200's
+  three calls timed one by one and together, and the batch entry on frames
+  200 and 225 stacked (equal to their single-frame calls).
 
 Device time is per call from torch.profiler, by kernel name (memsets and
 copies under their own names); caller time is the median of CUDA events
@@ -213,12 +227,193 @@ def case_dense_solve(cs, reps: int, systems) -> dict:
     return out
 
 
+# the bench frames whose frontend calls are recorded: the first 20 and every
+# 25th (the lines path runs bootstrap + 200 frames, ~238 of the sequence)
+BENCH_FRAMES = tuple(range(20)) + tuple(range(25, 240, 25))
+
+
+def bench_calls(frames=BENCH_FRAMES) -> dict:
+    """The main path's frontend calls on bench frames, recorded: for each
+    frame {"kp_select": [ORB 8-level call, LSD octave 0 anchors, octave 1
+    anchors], "lsd_merge": [octave 0, octave 1], "lsd_octave_merge": [one]},
+    each an (args, kwargs) pair of the frame's own call (the run-time ORB
+    budget, lines on), made by `extract_orb` and `detect_lines_pyramid` of
+    the root's port on the card."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.config import CameraConfig, FrontendConfig
+    from structure_slam_pointline_tpu_torch.io import synthetic
+    from structure_slam_pointline_tpu_torch.ops import extract, fast, lsd
+
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    poses = synthetic.circular_trajectory(610, radius=0.5)
+    fe = FrontendConfig()
+    out = {}
+    for f in frames:
+        img = torch.from_numpy(synthetic.render(scene, poses[f], cam, noise=2.0, seed=f)).cuda()
+        rec = {"kp_select": [], "lsd_merge": [], "lsd_octave_merge": []}
+        saved = {}
+        for name, mod, attr in (("kp_select", fast, "select_keypoints_levels"),
+                                ("lsd_merge", lsd, "lsd_merge"),
+                                ("lsd_octave_merge", lsd, "lsd_octave_merge")):
+            fn = saved[(mod, attr)] = getattr(mod, attr)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                rec[_name].append((a, kw))
+                return _fn(*a, **kw)
+            setattr(mod, attr, wrapped)
+        try:
+            extract.extract_orb(img, fe)
+            lsd.detect_lines_pyramid(img, fe)
+        finally:
+            for (mod, attr), fn in saved.items():
+                setattr(mod, attr, fn)
+        out[f] = rec
+    return out
+
+
+def merge_trace(calls) -> list:
+    """Kernel 26's lsd_merge of `calls` through a copy built with
+    -DSSPL_LSD_TRACE (into the root's build/): per call the cycles of each
+    phase (clock64 marks), the squarings run and the rows each walked, and
+    the rows' popcounts before and after each squaring (sum, mean, max)."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.ops import lsd
+
+    out_lib = os.path.join(kernels.BUILD_DIR, "libsspl_lsd_merge_trace.so")
+    cmd = kernels._nvcc_cmd("lsd_merge.cu", out_lib)
+    subprocess.run(cmd[:1] + ["-DSSPL_LSD_TRACE"] + cmd[1:], check=True, capture_output=True)
+    lib = ctypes.CDLL(out_lib)
+    lib.sspl_lsd_merge.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    phases = ("stage", "links", "transpose", "square1", "square2", "square3", "square4",
+              "extents", "suppression", "rank", "write")
+    res = []
+    for (ref, avalid, L, min_length, angle_tol), _ in calls:
+        K = ref.shape[0]
+        tr = torch.zeros(20 + 5 * K, dtype=torch.int64, device=ref.device)
+        outs = [torch.empty(s, dtype=d, device=ref.device) for s, d in (
+            ((L, 4), torch.float32), ((L, 3), torch.float32), ((L,), torch.float32),
+            ((L,), torch.float32), ((L,), torch.bool), ((L,), torch.int32))]
+        work = lsd._LsdWork(K=K, L=L, min_length=lsd._c(min_length),
+                            angle_tol=lsd._c(angle_tol), ref=ref.data_ptr(),
+                            avalid=avalid.data_ptr(), trace=tr.data_ptr(),
+                            **{k: t.data_ptr() for k, t in zip(lsd.Lines._fields, outs)})
+        err = lib.sspl_lsd_merge(ctypes.addressof(work),
+                                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"traced lsd_merge failed: {err}")
+        t = tr.cpu().tolist()
+        pop = torch.tensor(t[20:]).reshape(5, K).float()
+        res.append({"K": K, "cycles": dict(zip(phases, [t[i + 1] - t[i] for i in range(11)])),
+                    "total_cycles": t[11] - t[0], "squarings_run": t[16],
+                    "rows_walked": t[12:16],
+                    "popcount_sum": pop.sum(1).tolist(), "popcount_mean": pop.mean(1).tolist(),
+                    "popcount_max": pop.max(1).values.tolist()})
+    return res
+
+
+def case_lsd_merge(cs, reps: int, _systems, trace=False) -> dict:
+    """Kernel 26 on the bench frames' recorded calls: every output of
+    every call bit-equal to the plain version's; device time a frame (the
+    two octaves) over all the recorded calls, the first frame's and each
+    late frame's (200 and after); the cross-octave step likewise; with
+    --trace, `merge_trace` of the first frame's and the late frames'."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.ops import lsd
+
+    frames = bench_calls()
+
+    def equal(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
+
+    out = {}
+    for name, fn, plain in (("lsd_merge", lsd.lsd_merge, lsd.lsd_merge_plain),
+                            ("lsd_octave_merge", lsd.lsd_octave_merge,
+                             lsd.lsd_octave_merge_plain)):
+        calls = [c for f in frames for c in frames[f][name]]
+        differ = [f"frame {f} call {i}" for f in frames for i, (a, k) in
+                  enumerate(frames[f][name]) if not equal(fn(*a, **k), plain(*a, **k))]
+        per_frame = len(frames[0][name])
+        all_t = timed(cs, lambda: [fn(*a, **k) for a, k in calls], reps)
+        row = {"ok": not differ, "calls": len(calls), "differ": differ[:20],
+               "frame_device_ms": all_t["device_ms"] * per_frame / len(calls),
+               "frame_caller_ms": all_t["caller_ms"] * per_frame / len(calls),
+               "by_kernel_per_frame": {k: v * per_frame / len(calls)
+                                       for k, v in all_t["by_kernel"].items()}}
+        for f in [0] + [f for f in frames if f >= 200]:
+            ft = timed(cs, lambda: [fn(*a, **k) for a, k in frames[f][name]], reps)
+            row[f"frame{f}_device_ms"] = ft["device_ms"]
+        out[name] = row
+    if trace:
+        out["trace"] = {f: merge_trace(frames[f]["lsd_merge"])
+                        for f in [0] + [f for f in frames if f >= 200]}
+    return out
+
+
+def case_kp_select(cs, reps: int, _systems, **_) -> dict:
+    """Kernel 11 on the bench frames' recorded calls (the ORB 8-level call
+    and both LSD anchor calls of each): valid equal with xy and resp equal
+    on valid slots (`ok`), and whether every slot is bit-equal; launches a
+    call; device and caller ms of each of frame 200's three calls and of
+    the three together; the batch entry on frames 200 and 225's ORB maps
+    stacked, equal to the two single-frame calls, timed."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.ops import fast
+
+    frames = bench_calls()
+    on_valid = every_slot = True
+    n = 0
+    for f in frames:
+        for a, k in frames[f]["kp_select"]:
+            for (xk, rk, vk), (xp, rp, vp) in zip(fast.select_keypoints_levels(*a, **k),
+                                                  fast.select_keypoints_levels_plain(*a, **k)):
+                on_valid &= (torch.equal(vk, vp) and torch.equal(rk[vk], rp[vp])
+                             and torch.equal(xk[vk], xp[vp]))
+                every_slot &= torch.equal(xk, xp) and torch.equal(rk, rp)
+            n += 1
+    a, k = frames[200]["kp_select"][0]
+    kernels.reset_counts()
+    fast.select_keypoints_levels(*a, **k)
+    out = {"ok": bool(on_valid), "every_slot_equal": bool(every_slot), "calls": n,
+           "launches_per_call": kernels.COUNTS["kp_select"]}
+    names = ("orb_8_levels", "lsd_octave0", "lsd_octave1")
+    for name, (a, k) in zip(names, frames[200]["kp_select"]):
+        out[name] = timed(cs, lambda: fast.select_keypoints_levels(*a, **k), reps)
+    out["frame"] = timed(cs, lambda: [fast.select_keypoints_levels(*a, **k)
+                                      for a, k in frames[200]["kp_select"]], reps)
+    # the batch entry: frames 200 and 225's ORB maps as [2, H, W] stacks
+    (sr200, *rest), k = frames[200]["kp_select"][0]
+    sr225 = frames[225]["kp_select"][0][0][0]
+    stacked = [(torch.stack([s0, s1]), torch.stack([r0, r1]))
+               for (s0, r0), (s1, r1) in zip(sr200, sr225)]
+    one = [fast.select_keypoints_levels(sr, *rest, **k) for sr in (sr200, sr225)]
+    both = fast.select_keypoints_levels(stacked, *rest, **k)
+    out["batch_equal"] = all(torch.equal(x[b], y) for lv, (xb, o0, o1) in
+                             enumerate(zip(both, *one)) for b, ob in enumerate((o0, o1))
+                             for x, y in zip(xb, ob))
+    out["ok"] = out["ok"] and out["batch_equal"]
+    out["batch_2_frames"] = timed(
+        cs, lambda: fast.select_keypoints_levels(stacked, *rest, **k), reps)
+    return out
+
+
 CASES = {"ransac_pnp": case_ransac_pnp, "lsd_support": case_lsd_support,
          "pose_lm": case_pose_lm, "lsd_refine": case_lsd_refine,
-         "dense_solve": case_dense_solve}
+         "dense_solve": case_dense_solve, "lsd_merge": case_lsd_merge,
+         "kp_select": case_kp_select}
 
 
-def one_root(root: str, names, reps: int, systems) -> dict:
+def one_root(root: str, names, reps: int, systems, trace: bool = False) -> dict:
     # the timing helpers and the test inputs from here, the port from the
     # root (chip_smoke puts its own directory first on the path: the root
     # goes before it)
@@ -238,7 +433,20 @@ def one_root(root: str, names, reps: int, systems) -> dict:
         lines = [ln for ln in log.splitlines()
                  if "Compiling entry" in ln or "Used" in ln or "stack frame" in ln]
         print(f"[ptxas] {root} {src}:\n  " + "\n  ".join(lines), flush=True)
-    return {"root": root, **{n: CASES[n](cs, reps, systems) for n in names}}
+    res = {"root": root}
+    for n in names:
+        if n == "lsd_merge":
+            res[n] = case_lsd_merge(cs, reps, systems, trace=trace and _traceable(root))
+        else:
+            res[n] = CASES[n](cs, reps, systems)
+    return res
+
+
+def _traceable(root: str) -> bool:
+    """Whether the root's kernel 26 source has the trace marks."""
+    with open(os.path.join(root, "structure_slam_pointline_tpu_torch", "csrc",
+                           "lsd_merge.cu")) as f:
+        return "SSPL_LSD_TRACE" in f.read()
 
 
 def main() -> int:
@@ -248,10 +456,12 @@ def main() -> int:
     ap.add_argument("--systems", nargs="+", default=list(SYSTEMS))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out")
+    ap.add_argument("--trace", action="store_true",
+                    help="lsd_merge: per-phase cycles and row popcounts (roots with the marks)")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        res = one_root(os.path.abspath(a.roots[0]), a.kernels, a.reps, a.systems)
+        res = one_root(os.path.abspath(a.roots[0]), a.kernels, a.reps, a.systems, a.trace)
         print("RESULT " + json.dumps(res), flush=True)
         return 0
     import torch
@@ -265,7 +475,8 @@ def main() -> int:
     for root in a.roots:
         p = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--one",
                             "--reps", str(a.reps), "--kernels", *a.kernels,
-                            "--systems", *a.systems], capture_output=True, text=True)
+                            "--systems", *a.systems] + (["--trace"] if a.trace else []),
+                           capture_output=True, text=True)
         sys.stderr.write(p.stderr[-4000:])
         res = None
         for ln in p.stdout.splitlines():
@@ -277,13 +488,20 @@ def main() -> int:
         if p.returncode != 0 or res is None:
             print(f"kernel_ab: {root} failed ({p.returncode})", file=sys.stderr)
             rc = 1
-        elif not all(v["ok"] for n in a.kernels for v in res[n].values()):
+        elif not all(v["ok"] for n in a.kernels for v in _checked(res[n])):
             print(f"kernel_ab: {root} disagrees with its plain versions", file=sys.stderr)
             rc = 1
     if a.out:
         with open(a.out, "w") as f:
             json.dump(results, f, indent=1)
     return rc
+
+
+def _checked(case: dict) -> list:
+    """A case's results that carry an `ok`: its sub-results, or itself."""
+    if "ok" in case:
+        return [case]
+    return [v for v in case.values() if isinstance(v, dict) and "ok" in v]
 
 
 if __name__ == "__main__":
