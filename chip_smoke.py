@@ -186,8 +186,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    zeroed around the three calls): the same pivot rows as its plain
    version, x within 1e-5 of the largest |x|, the backward error within
    10x of torch.linalg.solve's, each timed beside torch.linalg.solve; the
-   device time of kernel 12's solve launches is split out at the window
-   and at 64 keyframes (`split`). Phase 2g's shapes:
+   device time of kernel 12's launches is split out at the window (its
+   one launch a call) and at 64 keyframes (the chain's solve launches
+   apart, `split`; `tools/kernel_ab.py --kernels local_ba --trace` splits
+   the one launch by phase). Phase 2g's shapes:
    kernel 12's sharded form against its sharded plain version (poses and
    landmarks within 1e-3, masks >= 99.5%, two launches bit-identical, one
    call under set_sync_debug_mode("error")) at the main path's window and
@@ -563,17 +565,20 @@ def by_kernel(fn, reps: int = 3) -> dict:
 
 
 def shard_split(fn, reps: int = 3) -> dict:
-    """Where kernel 12's sharded form spends device time in one call:
-    the per-shard launches (grid, classify, landmarks, reduce, backsub,
-    edges), the replicated solve, and the torch ops between them (the
-    ordered sums of the shards' partials, the input copies and fills, the
-    ORed flags): device ms per call, `by_kernel` grouped; None when the
-    profiler records no device events."""
-    out = {"shard_ms": 0.0, "solve_ms": 0.0, "torch_ops_ms": 0.0}
+    """Where a kernel 12 call spends device time: its chain's per-shard
+    launches (grid, classify, landmarks, reduce, backsub, edges), the
+    replicated solve, the one-launch form's single kernel, and the torch
+    ops between them (the ordered sums of the shards' partials, the input
+    copies and fills, the ORed flags): device ms per call, `by_kernel`
+    grouped; None when the profiler records no device events. The
+    one-launch form's phases are split by `tools/kernel_ab.py --kernels
+    local_ba --trace`."""
+    out = {"shard_ms": 0.0, "solve_ms": 0.0, "one_launch_ms": 0.0, "torch_ops_ms": 0.0}
     shard = ("grid_kernel", "classify_kernel", "landmarks_kernel", "reduce_kernel",
              "backsub_kernel", "edges_kernel")
     for name, ms in by_kernel(fn, reps).items():
-        key = ("solve_ms" if "solve_kernel" in name else
+        key = ("one_launch_ms" if name == "persist_kernel" else
+               "solve_ms" if "solve_kernel" in name else
                "shard_ms" if name in shard else "torch_ops_ms")
         out[key] += ms
     return out if sum(out.values()) > 0 else None
@@ -1611,7 +1616,7 @@ def glue_kernels(rec12: dict, frames: int) -> list:
                       "alone, no blur)",
         bytes=2 * (sum(px[:-1]) + sum(px[1:]) + sum(px)),
         ops=sum(px) * OPS_PYR_BLUR_PX + sum(px[1:]) * OPS_PYR_RESIZE_PX,
-        shape=f"{len(lp)} levels of {tuple(lp[0].shape)} ({sum(px)} px), 8 launches a call "
+        shape=f"{len(lp)} levels of {tuple(lp[0].shape)} ({sum(px)} px), one launch a call "
               f"({len(calls)} calls checked)"))
 
     # kernel 26: integer outputs bit-equal, floats bit-equal or within 1e-5

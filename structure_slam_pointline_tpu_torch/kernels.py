@@ -26,9 +26,10 @@ once, into one library, and each kernel is counted on its own; every
 launch of any of them adds one to its kernel's `COUNTS[name]`, where the
 wrapper launches it and nowhere else; `reset_counts()` zeroes them.
 Kernels 22-26's C entries make all of a call's launches (memsets and
-copies included), so each counts one per call: kernel 25's call launches
-once per pyramid level, the tracking entries of kernel 22 a memset and two
-kernels.
+copies included), so each counts one per call: kernel 25's call is one
+launch for every level, the tracking entries of kernel 22 a memset and two
+kernels. Kernel 12 counts each launch: one a call at up to 16 keyframes
+(`ba_persist`), its chain's 85 at global BA's 64.
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ FMAD = {"null_vector4.cu"}
 
 ENTRIES = {name: (name,) for name in SOURCES}
 ENTRIES["obs_bits"] = ("obs_bits", "votes_from_bits")
-ENTRIES["local_ba"] = ("ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
+ENTRIES["local_ba"] = ("ba_persist", "ba_grid", "ba_classify", "ba_landmarks", "ba_reduce",
                        "ba_solve", "ba_backsub", "ba_edges")
 ENTRIES["ransac_pnp"] = ("pnp_hypotheses", "pnp_select")
 ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
@@ -169,6 +170,7 @@ _ARGTYPES = {
     "kp_select_batch": [_P, _P],
     # local BA: a pointer to the host-side work description (optim/local_ba.py
     # _Work), then per entry: classify's mode, edges' two output masks
+    "ba_persist": [_P, _P, _P, _P],
     "ba_grid": [_P, _P],
     "ba_classify": [_P, _I, _P],
     "ba_landmarks": [_P, _P],

@@ -22,12 +22,15 @@ stack at once (elementwise: bit-equal).
 
 Those bodies are the plain versions (`*_plain`). The public functions
 are the wrappers of kernel 25 (csrc/pyramid.cu): a CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises. The kernel
-writes a level and its blurred plane in one launch per level, for all
-frames of a stack at once, from weight tables (`_taps`, the non-zero run
-of each output index's bf16 weights) uploaded once per device and shape
-list; the blur's 7 weights go in as arguments. `resize_bilinear` and
-`blur` alone launch the kernel's one-op forms.
+plain version; a CUDA tensor launches the kernel or raises. One launch
+writes every level and blurred plane of a call, for all frames of a
+stack at once, level after level with a grid barrier between them, from
+weight tables (`_taps`, the non-zero run of each output index's bf16
+weights) uploaded once per device and shape list, with each level's
+resize tile (`_tile`: 32 x 32 unless a source window would pass the
+kernel's 64 x 64) and each tile row's and column's source window
+(`_spans`); the blur's 7 weights go in as arguments.
+`resize_bilinear` and `blur` alone launch the kernel's one-op forms.
 """
 
 from __future__ import annotations
@@ -136,17 +139,22 @@ def build_blurred_pyramid_plain(img: torch.Tensor, n_levels: int = 8,
 # ---- kernel 25 (csrc/pyramid.cu) ----
 
 MAX_LEVELS = 16
+MAX_SPANS = 640          # resize tile rows and columns of a call, at most
 TAPS = 8                 # resize taps per output index the kernel takes
 _ENTRY = 2 + TAPS        # (first, count, weights) per output index
+TILE = 32                # a resize tile's outputs per axis, at most
+SRC = 64                 # its source window per axis, at most
 
 
 class _PyrWork(ctypes.Structure):
     """Kernel 25's description of one call (`struct Work` in
     csrc/pyramid.cu)."""
     _fields_ = ([(n, ctypes.c_int) for n in ("B", "n_levels", "first", "blur")]
-                + [(n, ctypes.c_int * MAX_LEVELS) for n in ("H", "W", "row_tab", "col_tab")]
+                + [(n, ctypes.c_int * MAX_LEVELS) for n in ("H", "W", "row_tab", "col_tab", "tr",
+                                                            "tc", "row_span", "col_span")]
                 + [(n, ctypes.c_void_p * MAX_LEVELS) for n in ("level", "out", "blurred")]
-                + [("tab", ctypes.c_void_p), ("taps", ctypes.c_float * 7)])
+                + [("tab", ctypes.c_void_p), ("taps", ctypes.c_float * 7),
+                   ("trace", ctypes.c_void_p), ("span", ctypes.c_short * (2 * MAX_SPANS))])
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,23 +176,59 @@ def _taps(m: int, n: int) -> np.ndarray:
     return out
 
 
+def _spans(m: int, n: int, size: int) -> list:
+    """(first source index, count) of the source window of each tile of
+    `size` consecutive outputs of an m -> n resize ((0, 0) for a tile
+    with no tap)."""
+    t = _taps(m, n)
+    out = []
+    for i in range(0, n, size):
+        run = t[i:i + size]
+        run = run[run[:, 1] > 0]
+        lo = int(run[:, 0].min()) if len(run) else 0
+        out.append((lo, int((run[:, 0] + run[:, 1]).max()) - lo if len(run) else 0))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tile(m: int, n: int) -> int:
+    """The largest of 32, 16, 8, ... outputs of an m -> n resize whose
+    every tile's source window spans at most SRC."""
+    size = TILE
+    while size > 1 and max(c for _, c in _spans(m, n, size)) > SRC:
+        size //= 2
+    return size
+
+
 _TABLES: dict = {}
 
 
 def _table(shapes: tuple, device) -> tuple:
-    """(device table, row offsets, column offsets) of the resizes between
-    consecutive `shapes`, uploaded once per device and shape list."""
+    """(device table, {field: per-level ints of _PyrWork}, the tiles'
+    source windows) of the resizes between consecutive `shapes`: the taps
+    uploaded once per device and shape list, each level's entries, resize
+    tile and first window in the lists."""
     key = (str(device), shapes)
     if key not in _TABLES:
-        parts, rows, cols, n = [], [0] * MAX_LEVELS, [0] * MAX_LEVELS, 0
+        parts, spans, n = [], [], 0
+        ints = {f: [0] * MAX_LEVELS for f in ("row_tab", "col_tab", "tr", "tc", "row_span",
+                                               "col_span")}
         for lv in range(1, len(shapes)):
-            for axis, offs in ((0, rows), (1, cols)):
-                t = _taps(shapes[lv - 1][axis], shapes[lv][axis])
-                offs[lv] = n
+            for axis, ax in ((0, "row"), (1, "col")):
+                m_, n_ = shapes[lv - 1][axis], shapes[lv][axis]
+                t, size = _taps(m_, n_), _tile(m_, n_)
+                ints[f"{ax}_tab"][lv], ints["tr" if axis == 0 else "tc"][lv] = n, size
+                ints[f"{ax}_span"][lv] = len(spans)
+                spans += _spans(m_, n_, size)
                 parts.append(t)
                 n += t.shape[0]
+        if len(spans) > MAX_SPANS or max((a + c for a, c in spans), default=0) > 32767:
+            raise ValueError(f"pyramid: {len(spans)} resize tile windows up to "
+                             f"{max((a + c for a, c in spans), default=0)}, the kernel takes "
+                             f"{MAX_SPANS} up to 32767 (int16)")
         tab = np.concatenate(parts) if parts else np.zeros((1, _ENTRY), np.float32)
-        _TABLES[key] = (torch.from_numpy(tab).to(device), rows, cols)
+        _TABLES[key] = (torch.from_numpy(tab).to(device), ints,
+                        [v for sp in spans for v in sp])
     return _TABLES[key]
 
 
@@ -195,11 +239,14 @@ def _blur_taps(sigma: float, radius: int) -> tuple:
     return tuple(float(v) for v in k)
 
 
-def _launch(img: torch.Tensor, shapes: list, first: int, blur: bool, sigma: float):
+def _launch(img: torch.Tensor, shapes: list, first: int, blur: bool, sigma: float,
+            trace: torch.Tensor | None = None):
     """Kernel 25 over levels first..len(shapes)-1 of `img` ([H, W] or a
     [B, H, W] stack, bf16, level first - 1 or level 0): the new levels and,
     with `blur`, the blurred planes (level 0's too when first is 0), all
-    views of one new buffer."""
+    views of one new buffer, each starting on a 16-byte boundary. `trace`
+    (int64 [2 MAX_LEVELS + 2]) is for a build with -DSSPL_PYR_TRACE
+    (tools/kernel_ab.py)."""
     name = "pyramid"
     kernels.check_dtype(name, img, torch.bfloat16)
     if img.dim() not in (2, 3) or len(shapes) > MAX_LEVELS:
@@ -210,26 +257,28 @@ def _launch(img: torch.Tensor, shapes: list, first: int, blur: bool, sigma: floa
     lead = tuple(img.shape[:-2])
     B = int(np.prod(lead)) if lead else 1
     shapes = tuple(tuple(int(v) for v in s) for s in shapes)
-    tab, rows, cols = _table(shapes, dev)
+    tab, ints, spans = _table(shapes, dev)
     sizes = [(lv, "out", shapes[lv]) for lv in range(max(first, 1), len(shapes))]
     if blur:
         sizes += [(lv, "blurred", shapes[lv]) for lv in range(first, len(shapes))]
-    buf = torch.empty(B * sum(h * w for _, _, (h, w) in sizes), dtype=torch.bfloat16,
-                      device=dev)
-    planes, o = {}, 0
-    for lv, kind, (h, w) in sizes:
+    at = np.cumsum([0] + [-(-B * h * w // 8) * 8 for _, _, (h, w) in sizes])
+    buf = torch.empty(int(at[-1]), dtype=torch.bfloat16, device=dev)
+    planes = {}
+    for (lv, kind, (h, w)), o in zip(sizes, at):
         planes[kind, lv] = buf[o:o + B * h * w].view(lead + (h, w))
-        o += B * h * w
     work = _PyrWork(B=B, n_levels=len(shapes), first=first, blur=int(blur), tab=tab.data_ptr(),
-                    taps=(ctypes.c_float * 7)(*(_blur_taps(float(sigma), 3) if blur else ())))
+                    taps=(ctypes.c_float * 7)(*(_blur_taps(float(sigma), 3) if blur else ())),
+                    **{f: (ctypes.c_int * MAX_LEVELS)(*v) for f, v in ints.items()})
+    work.span[:len(spans)] = spans
     for lv, (h, w) in enumerate(shapes):
         work.H[lv], work.W[lv] = h, w
-        work.row_tab[lv], work.col_tab[lv] = rows[lv], cols[lv]
         if ("out", lv) in planes:
             work.out[lv] = work.level[lv] = planes["out", lv].data_ptr()
         if ("blurred", lv) in planes:
             work.blurred[lv] = planes["blurred", lv].data_ptr()
     work.level[0] = img.data_ptr()
+    if trace is not None:
+        work.trace = trace.data_ptr()
     kernels.launch(name, ctypes.addressof(work))
     return planes
 
@@ -268,7 +317,8 @@ def build_blurred_pyramid(img: torch.Tensor, n_levels: int = 8,
                           scale_factor: float = 1.2, sigma: float = 2.0):
     """(levels, blurred levels) of a grayscale bf16 [H, W] image or a
     [B, H, W] stack. CPU tensor -> plain version; CUDA tensor -> kernel 25
-    (or raise): one launch per level for all frames, level 0 blurred only."""
+    (or raise): one launch for every level of all frames, level 0 blurred
+    only."""
     if img.device.type == "cpu":
         return build_blurred_pyramid_plain(img, n_levels, scale_factor, sigma)
     shapes = level_shapes(*img.shape[-2:], n_levels, scale_factor)

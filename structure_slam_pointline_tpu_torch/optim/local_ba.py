@@ -11,9 +11,11 @@ residual row each ([KL, LL] grids). Schedule: 5 iterations, the chi2 cut,
 15 more; 3x3 blocks get the trace-relative damping floor of the
 reference (local_ba.py:286-315).
 
-`bundle_adjust` is the wrapper of CUDA kernel 12 (csrc/local_ba.cu: the
-whole schedule as a fixed chain of launches, no host synchronization),
-for local BA's 10-16 keyframes and global BA's 64 (optim/global_ba.py).
+`bundle_adjust` is the wrapper of CUDA kernel 12 (csrc/local_ba.cu), in
+two forms picked by shape, neither with a host synchronization: local
+BA's 10-16 keyframes in one launch a call (`_persist_ba`: one thread-block
+cluster runs the whole schedule, landmark-major over edge lists), global
+BA's 64 (optim/global_ba.py) as a fixed chain of launches (`_kernel_ba`).
 `bundle_adjust_plain` is its plain version: the schedule as torch ops,
 each Schur product one matmul, the reduced system by torch.linalg.solve
 (the reference's jnp.linalg.solve), over the valid keyframes and the
@@ -21,12 +23,14 @@ landmarks that have an edge.
 
 The same schedule runs landmark-sharded (the reference's `axis_name`
 form, local_ba.py:236-250, :532-555, shard-mapped by
-parallel/dist_ba.py): `bundle_adjust_sharded` (kernel 12's sharded form)
+parallel/dist_ba.py): `bundle_adjust_sharded` (kernel 12's sharded form,
+the chain)
 and `bundle_adjust_sharded_plain` run this process's shards of a mesh
 (parallel/mesh.py), each over its own landmark columns, and sum only the
 camera side of the system over the shards before one replicated solve.
 One engine, `_schedule`, serves every plain form, and one launch chain,
-`_kernel_ba`, both kernel forms: one shard is the unsharded schedule.
+`_kernel_ba`, the sharded form and global BA: one shard is the unsharded
+schedule.
 """
 
 from __future__ import annotations
@@ -551,7 +555,8 @@ class _Work(ctypes.Structure):
     """Kernel 12's work description (`struct Work` in csrc/local_ba.cu):
     sizes, scalars and device pointers, read by every launch. The sharded
     form's fields (`col0`, `ln_col0`, `cost_part`) stay 0 / null in the
-    unsharded form."""
+    unsharded forms; the one-launch form's (`iters1` on) stay 0 / null in
+    the chain."""
     _fields_ = ([(n, ctypes.c_int) for n in ("KL", "F", "PL", "LF", "LL", "NJ", "col0",
                                              "ln_col0")]
                 + [(n, ctypes.c_float) for n in (
@@ -562,7 +567,11 @@ class _Work(ctypes.Structure):
                     "edge_valid", "mp_valid", "obs_l", "ln_sigma2", "edge_ln",
                     "ln_edge_valid", "ln_valid", "T", "X", "pgrid", "lgrid", "edge_bits",
                     "act_bits", "inl_bits", "A", "AHi", "HB", "Hpi", "bp", "lm_cost",
-                    "Sred", "Hk", "dxc", "cost", "Sg", "cost_part", "piv")])
+                    "Sred", "Hk", "dxc", "cost", "Sg", "cost_part", "piv")]
+                + [(n, ctypes.c_int) for n in ("iters1", "iters2")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "T_in", "X_pt", "X_ls", "X_le", "kf_free", "lm_info", "lm_off", "counts",
+                    "obs", "Ae", "trace")])
 
 
 def _kernel_inputs(what: str, prob: BAProblem, lines):
@@ -627,13 +636,23 @@ def _solve_matrix(KL: int, dev) -> dict:
             "piv": torch.empty(n_red, dtype=torch.int32, device=dev)}
 
 
+ONE_LAUNCH_KEYFRAMES = 16   # kernel 12's one-launch form: a camera per half-warp lane
+
+
 def bundle_adjust(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
                   lines: BALineProblem | None = None) -> BAResult:
     """`bundle_adjust_plain`'s schedule. CPU tensors -> plain version; CUDA
-    tensors -> kernel 12 (4 launches per iteration and 5 more, 85 at the
-    default 5 + 15 iterations; no host synchronization), or raise."""
+    tensors -> kernel 12, or raise, in the form its shape picks (no host
+    synchronization in either):
+    - up to 16 keyframes (local BA's window): one launch a call
+      (`_persist_ba`: the whole schedule in one thread-block cluster,
+      landmark-major, no [KL, landmarks] planes);
+    - more (global BA's 64): the launch chain (`_kernel_ba`: 4 launches per
+      iteration and 5 more, 85 at the default 5 + 15 iterations)."""
     if prob.kf_T_cw.device.type == "cpu":
         return bundle_adjust_plain(prob, intr, cfg, lines=lines)
+    if prob.edge_mp.shape[0] <= ONE_LAUNCH_KEYFRAMES:
+        return _persist_ba("bundle_adjust", prob, intr, cfg, lines)
     return _kernel_ba("bundle_adjust", prob, intr, cfg, lines, None)
 
 
@@ -654,8 +673,49 @@ def bundle_adjust_sharded(prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
     return _kernel_ba("bundle_adjust_sharded", prob, intr, cfg, lines, mesh)
 
 
+def _persist_ba(what: str, prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
+                lines: BALineProblem | None, trace: torch.Tensor | None = None) -> BAResult:
+    """Kernel 12's one-launch form (`ba_persist`, counted as `local_ba`):
+    the caller's inputs are read in place and the outputs written by the
+    launch itself (no torch op runs on the card); `trace` (int64 [16]) is
+    for a build with -DSSPL_BA_TRACE (tools/kernel_ab.py)."""
+    ins = _kernel_inputs(what, prob, lines)
+    dev = ins[0].device
+    KL, F = prob.edge_mp.shape
+    PL = prob.mp_xyz.shape[0]
+    LL = lines.ln_start.shape[0] if lines is not None else 0
+    LF = lines.edge_ln.shape[1] if lines is not None else 0
+    NJ = PL + 2 * LL
+    slots = KL * (F + 2 * LF)   # a point edge takes one slot, a line edge two
+    empty = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    i32, i64 = torch.int32, torch.int64
+    T = empty(KL, 4, 4)
+    X = empty(max(NJ, 1), 3)
+    inl = empty(KL, F, dt=torch.bool)
+    linl = empty(KL, LF, dt=torch.bool) if lines is not None else inl
+    cost = empty(1)
+    buf = dict(T=T, X=X, cost=cost, edge_bits=empty(PL + LL, dt=i64),
+               inl_bits=empty(PL + LL, dt=i64),
+               Hpi=empty(NJ, 9), bp=empty(NJ, 3), mp_valid=ins[8], T_in=ins[0], X_pt=ins[7],
+               kf_free=ins[1], lm_info=empty(PL + LL, 4, dt=i32), lm_off=empty(PL + LL, dt=i32),
+               counts=empty(3, dt=i32), obs=empty(slots, 4), Ae=empty(slots, 18),
+               **_solve_matrix(KL, dev))
+    if lines is not None:
+        buf.update(ln_valid=ins[11], X_ls=ins[9], X_le=ins[10])
+    if trace is not None:
+        buf["trace"] = trace
+    work = _work(ins, intr, cfg, PL, LL, buf)
+    work.iters1, work.iters2 = cfg.local_ba_iters_first, cfg.local_ba_iters_second
+    kernels.launch("local_ba", ctypes.addressof(work), kernels.ptr(inl), kernels.ptr(linl),
+                   entry="ba_persist")
+    res = BAResult(kf_T_cw=T, mp_xyz=X[:PL], edge_inlier=inl, cost=cost[0])
+    if lines is None:
+        return res
+    return res._replace(ln_start=X[PL:PL + LL], ln_end=X[PL + LL:NJ], line_inlier=linl)
+
+
 def _kernel_ba(what: str, prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
-               lines: BALineProblem | None, mesh) -> BAResult:
+               lines: BALineProblem | None, mesh, trace: torch.Tensor | None = None) -> BAResult:
     """Kernel 12's launch chain, unsharded (`mesh` None: one span of every
     column on the caller's stream, counted as `local_ba`) or over this
     process's shards of `mesh` (counted as `local_ba_shard`):
@@ -671,7 +731,9 @@ def _kernel_ba(what: str, prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
       buffers and sums its landmark costs itself;
     - every shard stream waits for the solve, then back-substitutes;
     - each shard's ba_edges writes its own flags; they are ORed, then
-      summed over the group (> 0)."""
+      summed over the group (> 0).
+    `trace` (int64 [16]) reaches the solve's Work, for a build with
+    -DSSPL_BA_TRACE (tools/kernel_ab.py)."""
     ins = _kernel_inputs(what, prob, lines)
     T_in, kf_free, kf_valid, mp_xyz, mp_valid = ins[0], ins[1], ins[2], ins[7], ins[8]
     dev = T_in.device
@@ -715,6 +777,9 @@ def _kernel_ba(what: str, prob: BAProblem, intr: Intrinsics, cfg: OptimConfig,
     if sharded:   # the solve's own Work, reading the summed partials
         bufs.append(dict(**shared, **views(total), **_solve_matrix(KL, dev)))
         works.append(_work(ins, intr, cfg, 0, 0, bufs[-1]))
+    if trace is not None:
+        bufs[-1]["trace"] = trace
+        works[-1].trace = trace.data_ptr()
     solve = works[-1]
     inl = torch.empty((nl, KL, F), dtype=torch.bool, device=dev)
     linl = torch.empty((nl, KL, LF), dtype=torch.bool, device=dev) if lines is not None \

@@ -134,17 +134,26 @@ def test_point_frontend_kernels_match_plain(levels, octaves):
 def _check_pyramid(img):
     """Kernel 25 bit-equal to its plain version on the card: every level
     and blurred plane of a bench frame, of a 75 x 101 frame (the blur's
-    halo wraps more than one tile there) and of a [2, H, W] stack, one
-    launch per call; the one-op forms (resize alone, blur alone) on each
-    level."""
+    halo wraps more than one tile there) and of a [2, H, W] stack, one C
+    call and one device kernel (torch.profiler) per call; the one-op forms
+    (resize alone, blur alone) on each level."""
+    from torch.profiler import ProfilerActivity, profile
+
     fe = FrontendConfig()
     small = border_frame().to(img.device)
     for frame in (img, small, torch.stack([img, img.flip(1)])):
         x = frame.to(torch.bfloat16)
+        pyramid.build_blurred_pyramid(x, fe.n_levels, fe.scale_factor, fe.blur_sigma)
+        torch.cuda.synchronize()   # the shapes' weight tables uploaded
         before = kernels.COUNTS["pyramid"]
-        lv_k, bl_k = pyramid.build_blurred_pyramid(x, fe.n_levels, fe.scale_factor,
-                                                   fe.blur_sigma)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lv_k, bl_k = pyramid.build_blurred_pyramid(x, fe.n_levels, fe.scale_factor,
+                                                       fe.blur_sigma)
+            torch.cuda.synchronize()
         assert kernels.COUNTS["pyramid"] == before + 1, "pyramid: launch count"
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert launched == 1, f"pyramid at {tuple(x.shape)}: {launched} device kernels a call"
         lv_p, bl_p = pyramid.build_blurred_pyramid_plain(x, fe.n_levels, fe.scale_factor,
                                                          fe.blur_sigma)
         for lv in range(fe.n_levels):
@@ -1085,10 +1094,13 @@ def _to(t, dev):
 
 
 def test_local_ba_matches_plain(cuda):
-    """Kernel 12 at 16 keyframes, with lines and points only; its dense
-    solver alone at the window's and global BA's system sizes."""
+    """Kernel 12's one-launch form at 16 keyframes, with lines and points
+    only, and at the main path's occupancy (9 valid keyframes of 16 slots,
+    8 free, lines on); its dense solver alone at the window's and global
+    BA's system sizes."""
     for with_lines in (True, False):
         _check_local_ba(cuda, with_lines)
+    _check_local_ba(cuda, True, n_valid=9)
     _check_dense_solve(cuda, ((96, 96), (378, 378)))
 
 
@@ -1130,9 +1142,27 @@ def _check_dense_solve(cuda, shapes):
             assert be <= 10 * be_lib, f"{what}: backward error {be:.2e} vs {be_lib:.2e}"
 
 
-def _check_local_ba(cuda, with_lines):
-    what = f"local_ba ({'lines' if with_lines else 'points only'})"
+def window_slots(prob, lines, n_valid):
+    """The problem as the main path's window holds it: keyframe slots
+    n_valid.. invalid with no edge (the padding), the first fixed and the
+    other valid ones free."""
+    KL = prob.kf_valid.shape[0]
+    valid = torch.arange(KL) < n_valid
+    pad = ~valid[:, None]
+    prob = prob._replace(kf_valid=valid, kf_free=valid & (torch.arange(KL) >= 1),
+                         edge_valid=prob.edge_valid & ~pad,
+                         edge_mp=torch.where(pad, -1, prob.edge_mp))
+    lines = lines._replace(edge_valid=lines.edge_valid & ~pad,
+                           edge_ln=torch.where(pad, -1, lines.edge_ln))
+    return prob, lines
+
+
+def _check_local_ba(cuda, with_lines, n_valid=None):
+    what = f"local_ba ({'lines' if with_lines else 'points only'}" \
+        f"{f', {n_valid} valid keyframes' if n_valid else ''})"
     prob, lines, intr = ba_problem()
+    if n_valid:
+        prob, lines = window_slots(prob, lines, n_valid)
     prob = _to(prob, cuda)
     lines = _to(lines, cuda) if with_lines else None
     cfg = OptimConfig()
@@ -1144,7 +1174,7 @@ def _check_local_ba(cuda, with_lines):
         rk2 = local_ba.bundle_adjust(prob, intr, cfg, lines=lines)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert kernels.COUNTS["local_ba"] == before + 2 * 85, f"{what}: launch count"
+    assert kernels.COUNTS["local_ba"] == before + 2, f"{what}: launch count"
     rp = local_ba.bundle_adjust_plain(prob, intr, cfg, lines=lines)
     for a, b in zip(rk, rk2):
         if a is not None:
@@ -1158,6 +1188,9 @@ def _check_local_ba(cuda, with_lines):
         assert (rk.ln_end - rp.ln_end).abs().max().item() <= 1e-3, f"{what}: line ends"
         assert (rk.line_inlier == rp.line_inlier).float().mean().item() >= 0.995, \
             f"{what}: line masks"
+    if n_valid:
+        assert torch.equal(rk.kf_T_cw[n_valid:], prob.kf_T_cw[n_valid:]), f"{what}: padding"
+        assert not rk.edge_inlier[n_valid:].any(), f"{what}: padding's edges"
 
 
 def test_sharded_and_batched_kernels_match_plain(cuda):

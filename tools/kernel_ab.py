@@ -5,7 +5,7 @@ same work.
 
     python3 tools/kernel_ab.py ROOT [ROOT ...] [--kernels NAME ...]
                                [--systems N:CAP ...] [--reps 20] [--trace]
-                               [--out FILE]
+                               [--window FILE] [--out FILE]
 
 Each root is a checkout of this repository (for example the parent commit
 unpacked with `git archive` into `out_parent/`, which `.gitignore`'s
@@ -53,7 +53,20 @@ all):
   8-level call, both LSD anchor calls): valid equal, xy and resp equal on
   valid slots (and whether every slot is), launches a call, frame 200's
   three calls timed one by one and together, and the batch entry on frames
-  200 and 225 stacked (equal to their single-frame calls).
+  200 and 225 stacked (equal to their single-frame calls);
+- local_ba: kernel 12 on the main path's largest recorded window (the lines
+  path run once with this tree's port before the roots, saved to
+  `--window`, default `build/ba_window.pt`) and on global BA's 64-keyframe
+  shape (`ba_problem`, 64 keyframes, 56 valid): within 1e-3 of
+  `bundle_adjust_plain`, masks equal on >= 99.5%, two calls bit-identical,
+  launches a call, timed; `--trace` adds the one-launch form's cycles by
+  phase at the window and the chain's `ba_solve` split (assembly, solve)
+  at 64 keyframes (`ba_trace`, a copy built with -DSSPL_BA_TRACE);
+- pyramid: kernel 25 on bench frames 0, 40 and 200 and frames 40 + 200
+  stacked, bit-equal to `build_blurred_pyramid_plain`, C calls and device
+  kernels a call, timed; `--trace` adds block 0's cycles per phase, its
+  tiles and the grid barrier after them (`pyr_trace`, a copy built with
+  -DSSPL_PYR_TRACE).
 
 Device time is per call from torch.profiler, by kernel name (memsets and
 copies under their own names); caller time is the median of CUDA events
@@ -407,13 +420,228 @@ def case_kp_select(cs, reps: int, _systems, **_) -> dict:
     return out
 
 
+def record_ba_window(path: str) -> None:
+    """The main path's largest local BA window: the lines path (bootstrap +
+    200 frames of the bench scene, `chip_smoke.drive`) with the tree's port,
+    its `bundle_adjust` calls recorded; the one with the most valid
+    keyframes saved to `path` (CPU tensors)."""
+    import torch
+
+    import chip_smoke as cs
+    from structure_slam_pointline_tpu_torch.config import CameraConfig, SLAMConfig
+    from structure_slam_pointline_tpu_torch.io import synthetic
+    from structure_slam_pointline_tpu_torch.optim import local_ba
+
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(n_points=350, n_lines=40, seed=0)
+    poses = synthetic.circular_trajectory(10 + 6 * 100, radius=0.5)
+
+    def frame(i):
+        return synthetic.render(scene, poses[i], cam, noise=2.0, seed=i)
+
+    with cs.Recorder(local_ba, "bundle_adjust",
+                     lambda prob, *a, **kw: ("ba", int(prob.kf_valid.sum()))) as rec:
+        cs.drive(SLAMConfig(camera=cam), 200, frame, poses, "lines (kernel_ab)")
+    key = max(rec.calls, key=lambda k: k[1])
+    args, kw = rec.calls[key]
+
+    def cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        if hasattr(a, "_fields") and all(isinstance(x, torch.Tensor) for x in a):
+            return type(a)(*[x.cpu() for x in a])
+        return a
+
+    torch.save({"args": [cpu(a) for a in args], "kw": {k: cpu(v) for k, v in kw.items()},
+                "calls": {str(k): n for k, n in rec.n.items()}}, path)
+
+
+def ba_trace(calls: dict) -> dict:
+    """Kernel 12 on each call through a copy of `csrc/local_ba.cu` built
+    with -DSSPL_BA_TRACE (into the root's build/): the one-launch form (up
+    to 16 keyframes) with the cycles between rank 0's barriers by phase,
+    summed over the call, and the 64 warps' mean cycles in their landmark
+    steps and in those steps' pair sums; the chain (64 keyframes) with its
+    `ba_solve` launches' assembly (with the cost sum) and solve."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.optim import local_ba
+
+    out_lib = os.path.join(kernels.BUILD_DIR, "libsspl_local_ba_trace.so")
+    cmd = kernels._nvcc_cmd("local_ba.cu", out_lib)
+    subprocess.run(cmd[:1] + ["-DSSPL_BA_TRACE"] + cmd[1:], check=True, capture_output=True)
+    lib = ctypes.CDLL(out_lib)
+    for entry in kernels.ENTRIES["local_ba"] + ("dense_solve",):
+        getattr(lib, f"sspl_{entry}").argtypes = kernels._ARGTYPES[entry]
+    normal = kernels.lib("local_ba")
+    source = kernels.SOURCES["local_ba"]
+    phases = ("setup", "landmarks", "block_sums", "assembly", "solve", "backsub", "classify",
+              "edges")
+    out = {}
+    for name, ((prob, intr, cfg), kw) in calls.items():
+        tr = torch.zeros(16, dtype=torch.int64, device=prob.kf_T_cw.device)
+        one = prob.edge_mp.shape[0] <= local_ba.ONE_LAUNCH_KEYFRAMES
+        kernels._LIBS[source] = lib
+        try:
+            if one:
+                local_ba._persist_ba("bundle_adjust", prob, intr, cfg, kw.get("lines"), trace=tr)
+            else:
+                local_ba._kernel_ba("bundle_adjust", prob, intr, cfg, kw.get("lines"), None,
+                                    trace=tr)
+            torch.cuda.synchronize()
+        finally:
+            kernels._LIBS[source] = normal
+        t = tr.cpu().tolist()
+        cyc = {p: c for p, c in zip(phases, t[:8]) if one or p in ("assembly", "solve")}
+        out[name] = {"form": "one launch" if one else "chain (ba_solve launches)",
+                     "cycles": cyc, "total_cycles": sum(cyc.values())}
+        if one:
+            out[name].update(warp_step_cycles_mean=t[8] / 64, warp_pair_cycles_mean=t[9] / 64)
+    return out
+
+
+def case_local_ba(cs, reps: int, _systems, trace=False, window=None) -> dict:
+    """Kernel 12 on the main path's recorded window (`record_ba_window`) and
+    on global BA's 64-keyframe shape (`tests/test_torch_kernels_gpu.py
+    ba_problem` at 64 keyframes, 16384 points, 1024 lines, the last 8
+    slots invalid): poses and landmarks within 1e-3 of `bundle_adjust_plain`,
+    masks equal on >= 99.5% of edges, two calls bit-identical; launches a
+    call, device ms by launch name and caller ms; with --trace, `ba_trace`
+    of the window (roots whose source has the marks)."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.optim import local_ba
+    from test_torch_kernels_gpu import _to, ba_problem
+    from structure_slam_pointline_tpu_torch.config import OptimConfig
+
+    def cuda(a):
+        if isinstance(a, torch.Tensor):
+            return a.cuda()
+        if hasattr(a, "_fields") and all(isinstance(x, torch.Tensor) for x in a):
+            return _to(a, "cuda")
+        return a
+
+    saved = torch.load(window, weights_only=False)
+    win = ([cuda(a) for a in saved["args"]], {k: cuda(v) for k, v in saved["kw"].items()})
+    prob, lines, intr = ba_problem(KL=64, PL=16384, LL=1024, F=1024, LF=64)
+    prob = _to(prob._replace(kf_valid=torch.arange(64) < 56), "cuda")
+    kl64 = ([prob, intr, OptimConfig()], {"lines": _to(lines, "cuda")})
+    out = {}
+    for name, (args, kw) in (("window", win), ("kl64", kl64)):
+        run = lambda: local_ba.bundle_adjust(*args, **kw)  # noqa: E731
+        kernels.reset_counts()
+        rk = run()
+        launches = kernels.COUNTS["local_ba"]
+        rk2 = run()
+        rp = local_ba.bundle_adjust_plain(*args, **kw)
+        err = max((a - b).abs().max().item() for a, b in zip(
+            (rk.kf_T_cw, rk.mp_xyz, rk.ln_start, rk.ln_end),
+            (rp.kf_T_cw, rp.mp_xyz, rp.ln_start, rp.ln_end)) if a is not None)
+        masks = min((a == b).float().mean().item() for a, b in
+                    ((rk.edge_inlier, rp.edge_inlier), (rk.line_inlier, rp.line_inlier))
+                    if a is not None)
+        same = all(torch.equal(a, b) for a, b in zip(rk, rk2) if a is not None)
+        p0 = args[0]
+        ln = kw.get("lines")
+        out[name] = {"ok": err <= 1e-3 and masks >= 0.995 and same, "max_abs_err": err,
+                     "masks_equal": masks, "bit_identical": same, "launches": launches,
+                     "keyframes": int(p0.kf_valid.sum()), "free": int(p0.kf_free.sum()),
+                     "rows": int(p0.edge_valid.sum()) + (2 * int(ln.edge_valid.sum())
+                                                          if ln is not None else 0),
+                     **timed(cs, run, reps)}
+    out["window"]["recorded_calls"] = saved["calls"]
+    if trace:
+        out["trace"] = ba_trace({"window": win, "kl64": kl64})
+    return out
+
+
+def pyr_trace(img, args) -> dict:
+    """Kernel 25 on one input through a copy of `csrc/pyramid.cu` built with
+    -DSSPL_PYR_TRACE (into the root's build/): block 0's cycles per phase
+    on its own tiles and in the grid barrier after them."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.ops import pyramid
+
+    out_lib = os.path.join(kernels.BUILD_DIR, "libsspl_pyramid_trace.so")
+    cmd = kernels._nvcc_cmd("pyramid.cu", out_lib)
+    subprocess.run(cmd[:1] + ["-DSSPL_PYR_TRACE"] + cmd[1:], check=True, capture_output=True)
+    lib = ctypes.CDLL(out_lib)
+    lib.sspl_pyramid.argtypes = kernels._ARGTYPES["pyramid"]
+    source = kernels.SOURCES["pyramid"]
+    normal = kernels.lib("pyramid")
+    n_levels, scale, sigma = args
+    shapes = pyramid.level_shapes(*img.shape[-2:], n_levels, scale)
+    tr = torch.zeros(2 * pyramid.MAX_LEVELS + 2, dtype=torch.int64, device=img.device)
+    kernels._LIBS[source] = lib
+    try:
+        pyramid._launch(img, shapes, 0, True, sigma, trace=tr)
+        torch.cuda.synchronize()
+    finally:
+        kernels._LIBS[source] = normal
+    t = tr.cpu().tolist()
+    phases = {f"phase{q}": {"tiles": t[2 * q], "barrier": t[2 * q + 1]}
+              for q in range(1, n_levels + 1)}
+    return {"phases": phases, "total_cycles": sum(t)}
+
+
+def case_pyramid(cs, reps: int, _systems, trace=False, **_) -> dict:
+    """Kernel 25 on bench frames 0, 40 and 200 (640x480, the frontend's 8
+    levels at 1.2) and on frames 40 and 200 stacked: every level and
+    blurred plane bit-equal to `build_blurred_pyramid_plain`; C calls and
+    device kernels a call; device and caller ms a frame and for the
+    stack."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.config import CameraConfig, FrontendConfig
+    from structure_slam_pointline_tpu_torch.io import synthetic
+    from structure_slam_pointline_tpu_torch.ops import pyramid
+
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    poses = synthetic.circular_trajectory(610, radius=0.5)
+    fe = FrontendConfig()
+    imgs = {f: torch.from_numpy(synthetic.render(scene, poses[f], cam, noise=2.0, seed=f))
+            .cuda().to(torch.bfloat16) for f in (0, 40, 200)}
+    inputs = {f"frame{f}": x for f, x in imgs.items()}
+    inputs["stack_40_200"] = torch.stack([imgs[40], imgs[200]])
+    args = (fe.n_levels, fe.scale_factor, fe.blur_sigma)
+    out = {"ok": True}
+    for name, x in inputs.items():
+        run = lambda: pyramid.build_blurred_pyramid(x, *args)  # noqa: E731
+        kernels.reset_counts()
+        lk, bk = run()
+        calls = kernels.COUNTS["pyramid"]
+        lp, bp = pyramid.build_blurred_pyramid_plain(x, *args)
+        differ = sum(int((a != b).sum()) for a, b in zip(lk + bk, lp + bp))
+        t = timed(cs, run, reps)
+        out[name] = {"differ_px": differ, "c_calls": calls,
+                     "device_kernels": len(t["by_kernel"]), **t}
+        out["ok"] = out["ok"] and differ == 0
+    if trace:
+        out["trace"] = {name: pyr_trace(x, args) for name, x in inputs.items()
+                        if name in ("frame40", "stack_40_200")}
+    return out
+
+
 CASES = {"ransac_pnp": case_ransac_pnp, "lsd_support": case_lsd_support,
          "pose_lm": case_pose_lm, "lsd_refine": case_lsd_refine,
          "dense_solve": case_dense_solve, "lsd_merge": case_lsd_merge,
-         "kp_select": case_kp_select}
+         "kp_select": case_kp_select, "local_ba": case_local_ba, "pyramid": case_pyramid}
 
 
-def one_root(root: str, names, reps: int, systems, trace: bool = False) -> dict:
+def one_root(root: str, names, reps: int, systems, trace: bool = False,
+             window: str | None = None) -> dict:
     # the timing helpers and the test inputs from here, the port from the
     # root (chip_smoke puts its own directory first on the path: the root
     # goes before it)
@@ -436,17 +664,26 @@ def one_root(root: str, names, reps: int, systems, trace: bool = False) -> dict:
     res = {"root": root}
     for n in names:
         if n == "lsd_merge":
-            res[n] = case_lsd_merge(cs, reps, systems, trace=trace and _traceable(root))
+            res[n] = case_lsd_merge(cs, reps, systems,
+                                    trace=trace and _traceable(root, "lsd_merge.cu",
+                                                               "SSPL_LSD_TRACE"))
+        elif n == "pyramid":
+            res[n] = case_pyramid(cs, reps, systems,
+                                  trace=trace and _traceable(root, "pyramid.cu",
+                                                             "SSPL_PYR_TRACE"))
+        elif n == "local_ba":
+            res[n] = case_local_ba(cs, reps, systems, window=window,
+                                   trace=trace and _traceable(root, "local_ba.cu",
+                                                              "SSPL_BA_TRACE"))
         else:
             res[n] = CASES[n](cs, reps, systems)
     return res
 
 
-def _traceable(root: str) -> bool:
-    """Whether the root's kernel 26 source has the trace marks."""
-    with open(os.path.join(root, "structure_slam_pointline_tpu_torch", "csrc",
-                           "lsd_merge.cu")) as f:
-        return "SSPL_LSD_TRACE" in f.read()
+def _traceable(root: str, source: str, mark: str) -> bool:
+    """Whether the root's source has the trace marks."""
+    with open(os.path.join(root, "structure_slam_pointline_tpu_torch", "csrc", source)) as f:
+        return mark in f.read()
 
 
 def main() -> int:
@@ -457,11 +694,20 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out")
     ap.add_argument("--trace", action="store_true",
-                    help="lsd_merge: per-phase cycles and row popcounts (roots with the marks)")
+                    help="lsd_merge: per-phase cycles and row popcounts; local_ba, pyramid: "
+                         "per-phase cycles (roots with the marks)")
+    ap.add_argument("--window", default=os.path.join(HERE, "build", "ba_window.pt"),
+                    help="local_ba: the recorded main-path window (made if missing)")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--record", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
+    if a.record:
+        sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+        record_ba_window(a.window)
+        return 0
     if a.one:
-        res = one_root(os.path.abspath(a.roots[0]), a.kernels, a.reps, a.systems, a.trace)
+        res = one_root(os.path.abspath(a.roots[0]), a.kernels, a.reps, a.systems, a.trace,
+                       a.window)
         print("RESULT " + json.dumps(res), flush=True)
         return 0
     import torch
@@ -471,11 +717,21 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
+    if "local_ba" in a.kernels and not os.path.exists(a.window):
+        os.makedirs(os.path.dirname(os.path.abspath(a.window)), exist_ok=True)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), HERE, "--record",
+                            "--window", a.window], capture_output=True, text=True)
+        sys.stderr.write(p.stderr[-4000:])
+        print("\n".join(ln for ln in p.stdout.splitlines() if ln.startswith("[e2e")), flush=True)
+        if p.returncode != 0:
+            print("kernel_ab: recording the BA window failed", file=sys.stderr)
+            return 1
     results, rc = [], 0
     for root in a.roots:
         p = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--one",
                             "--reps", str(a.reps), "--kernels", *a.kernels,
-                            "--systems", *a.systems] + (["--trace"] if a.trace else []),
+                            "--systems", *a.systems, "--window", a.window]
+                           + (["--trace"] if a.trace else []),
                            capture_output=True, text=True)
         sys.stderr.write(p.stderr[-4000:])
         res = None
