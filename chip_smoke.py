@@ -106,10 +106,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
       launched (counters zeroed just before, read just after).
 3. Kernels against plain: the first call of every distinct shape each
    wrapper saw in phase 2a is replayed on the card through the kernel and
-   through its plain PyTorch version: FAST/NMS maps, Hamming best / second
-   / columns and the LSD support maps (score, packed ridge plane) must be
-   equal; ORB descriptors equal on >= 99.5% of keypoints with angles within
-   1e-4 rad; pose within 1e-4 (rotation and translation entries) with
+   through its plain PyTorch version: FAST/NMS maps (kernel 1's per-frame
+   entry, all levels of a frame in one launch, one launch a frame over
+   phase 2a), Hamming best / second / columns and the LSD support maps
+   (score, packed ridge plane) must be equal; ORB descriptors (kernel 2's
+   per-frame entry over all levels at each recorded keypoint count, one
+   launch a frame) equal on >= 99.5% of keypoints with angles within 1e-4
+   rad, level-0 xy and octaves equal; pose within 1e-4 (rotation and translation entries) with
    inlier masks equal on >= 99.5% of edges and n_inliers equal to the
    kernel's masks' sum; the LSD refinement's outputs bit-equal on every
    valid anchor; LBD words equal on >= 99% of
@@ -200,7 +203,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    bounds; its plain version is timed from the caller only (one call of
    ~4 x 10^4 small torch ops); the batch entries of kernels 1, 11 and 2 at
    the frontend's stacks against their plain versions (FAST maps and
-   selections equal, ORB as kernel 2 on one frame). Phase 2f's shapes: kernel 5 at the half shape (the
+   selections equal, ORB as kernel 2 on one frame; kernels 1 and 2 one
+   launch for every level of the stack). Phase 2f's shapes: kernel 5 at the half shape (the
    support on the 2x2 box half image, the ridge plane at full resolution)
    equal, timed as its own row; kernel 6 on its half-pixel anchors
    bit-equal on every valid anchor; kernel 11 at 8 px cells and a 2 px
@@ -222,7 +226,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    torch.profiler; prints the wall time, the device-busy time and device
    kernels per frame and the top device kernels; then one more frame with
    every torch call labelled by its line (`pageable_copies`): its pageable
-   host-to-device copies grouped by the line of the port that issued them.
+   host-to-device copies grouped by the line of the port that issued them,
+   and its device kernels, counted and by name.
 
 Output: a JSON line of the end-to-end, function and profile numbers, the JSON line
 {"kernels": [...]}, the nvidia-smi line, and as the last line
@@ -687,10 +692,14 @@ def pageable_copies(slam, img, idx: int) -> dict:
         with Sites():
             slam.track_sequence(img[None], idx)
         torch.cuda.synchronize()
-    by_line, n_copies, n_kernels = {}, 0, 0
+    by_line, by_name, n_copies, n_kernels = {}, {}, 0, 0
     for e in prof.events():
         for k in getattr(e, "kernels", []) or []:
             n_kernels += 1
+            name = k.name.replace("(anonymous namespace)::", "")
+            m = re.search(r"([A-Za-z_][A-Za-z0-9_]*)\s*(<[^()]*>)?\s*\(", name)
+            name = (m.group(1) if m else name)[:60]
+            by_name[name] = by_name.get(name, 0) + 1
             if "HtoD" not in k.name or "Pageable" not in k.name:
                 continue
             n_copies += 1
@@ -700,10 +709,13 @@ def pageable_copies(slam, img, idx: int) -> dict:
             site = p.name[5:] if p is not None else "(no frame of the package)"
             by_line[site] = by_line.get(site, 0) + 1
     out = {"pageable_htod_per_frame": n_copies, "device_kernels_linked": n_kernels,
-           "by_line": dict(sorted(by_line.items(), key=lambda kv: -kv[1]))}
+           "by_line": dict(sorted(by_line.items(), key=lambda kv: -kv[1])),
+           "device_kernels_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1]))}
     print(f"[profile] one frame with each torch call labelled by its line: {n_copies} "
           f"pageable host-to-device copies, {n_kernels} device kernels linked to ops; "
           f"copies by line: {out['by_line']}", flush=True)
+    print(f"[profile] that frame's device kernels by name: "
+          f"{out['device_kernels_by_name']}", flush=True)
     return out
 
 
@@ -836,6 +848,14 @@ def every_call(tag: str):
     """A Recorder key function: a key of its own for every call (each
     recorded)."""
     return first_calls(tag, sys.maxsize)
+
+
+def per_level(recorder) -> None:
+    """Drops `concat` from a selection Recorder's calls: `extract_orb` asks
+    kernel 11 for its concatenated buffers, and phase 3 compares the kernel
+    with its plain version level by level."""
+    recorder.calls = {k: (a, {n: v for n, v in kw.items() if n != "concat"})
+                      for k, (a, kw) in recorder.calls.items()}
 
 
 class Spy:
@@ -2045,10 +2065,10 @@ def main() -> int:
         return select_key(score_raw, ks, **kw) + (sel_frames()[1],)
 
     rec = {
-        "fast_nms": Recorder(fast, "fast_score_nms",
-                             lambda img: ("fast", tuple(img.shape))),
-        "orb_describe": Recorder(orb, "orient_and_describe",
-                                 lambda im, xy: ("orb", tuple(im.shape), xy.shape[0])),
+        "fast_nms": Recorder(fast, "fast_score_nms_levels",
+                             lambda lvs: ("fast", tuple(tuple(lv.shape) for lv in lvs))),
+        "orb_describe": Recorder(orb, "orient_and_describe_levels",
+                                 lambda bl, xy, *a: ("orb", tuple(bl[0].shape), xy.shape[0])),
         "hamming_best2": Recorder(
             hamming, "masked_best2",
             lambda a, b, m: ("ham", tuple(a.shape), tuple(b.shape), tuple(m.shape))),
@@ -2115,6 +2135,7 @@ def main() -> int:
     slam, e2e, counts = drive(cfg, N_TRACK, frame, poses, "lines")
     for r in (*rec.values(), *fuse_rec.values(), *rec12.values()):
         r.__exit__()
+    per_level(rec["kp_select"])
     zero = [k for k, v in counts.items() if v == 0 and k not in OFF_MAIN_PATH]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
@@ -2354,6 +2375,7 @@ def main() -> int:
     _, e2e_ds2, counts_ds2 = drive(cfg_ds2, N_TRACK, frame, poses, "lines ds=2")
     for r in rec_ds2.values():
         r.__exit__()
+    per_level(rec_ds2["kp_select"])
     zero = [k for k, v in counts_ds2.items() if v == 0 and k not in OFF_MAIN_PATH]
     if zero:
         fail(f"kernels never launched at line_support_downsample = 2: {zero}")
@@ -2455,13 +2477,14 @@ def main() -> int:
     bimgs = torch.from_numpy(np.stack([frame(j) for j in BATCH_FRAMES])).cuda()
     extractor = make_batch_extractor(batch_frontend.frame_mesh(MESH_SHARDS), fe)
     batch_rec = {
-        "fast_nms_batch": Recorder(fast, "fast_score_nms",
-                                   lambda im: ("fast", tuple(im.shape))),
+        "fast_nms_batch": Recorder(fast, "fast_score_nms_levels",
+                                   lambda lvs: ("fast", tuple(lvs[0].shape))),
         "kp_select_batch": Recorder(fast, "select_keypoints_levels",
                                     lambda sr, ks, **kw: ("sel", tuple(sr[0][0].shape),
                                                           tuple(ks))),
-        "orb_describe_batch": Recorder(orb, "orient_and_describe",
-                                       lambda im, xy: ("orb", tuple(im.shape), xy.shape[1])),
+        "orb_describe_batch": Recorder(orb, "orient_and_describe_levels",
+                                       lambda bl, xy, *a: ("orb", tuple(bl[0].shape),
+                                                           xy.shape[1])),
     }
     for r in batch_rec.values():
         r.__enter__()
@@ -2472,6 +2495,7 @@ def main() -> int:
     counts_batch = dict(kernels.COUNTS)
     for r in batch_rec.values():
         r.__exit__()
+    per_level(batch_rec["kp_select_batch"])
 
     def single(img):
         ln = lsd.detect_lines(img, fe)
@@ -2506,47 +2530,64 @@ def main() -> int:
 
     # ---- phase 3: kernels against their plain versions ----
     rows = []
-    # FAST: all levels of one frame
-    fast_calls = [v[0] for k, v in rec["fast_nms"].calls.items()]
+    # FAST: the per-frame entry, all levels of a frame in one launch
+    frames_2a = e2e["init_frame"] + 1 + N_TRACK
+    for name in ("fast_nms", "orb_describe"):
+        if counts[name] != frames_2a:
+            fail(f"{name}: {counts[name]} launches over phase 2a's {frames_2a} frames, "
+                 "not one a frame")
+    fast_calls = [v[0][0] for v in rec["fast_nms"].calls.values()]
     fast_err = 0.0
-    for (img,) in fast_calls:
-        raw_k, nms_k = fast.fast_score_nms(img)
-        raw_p, nms_p = fast.fast_score_nms_plain(img)
-        if not (torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)):
-            fail(f"fast_nms disagrees at {tuple(img.shape)}: raw "
-                 f"{int((raw_k != raw_p).sum())} nms {int((nms_k != nms_p).sum())}")
-        fast_err = max(fast_err, (raw_k - raw_p).abs().max().item(),
-                       (nms_k - nms_p).abs().max().item())
-    px = sum(im.numel() for (im,) in fast_calls)
+    for lvs in fast_calls:
+        for lv, (raw_k, nms_k), (raw_p, nms_p) in zip(
+                lvs, fast.fast_score_nms_levels(lvs), fast.fast_score_nms_levels_plain(lvs)):
+            if not (torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)):
+                fail(f"fast_nms disagrees at {tuple(lv.shape)}: raw "
+                     f"{int((raw_k != raw_p).sum())} nms {int((nms_k != nms_p).sum())}")
+            fast_err = max(fast_err, (raw_k - raw_p).abs().max().item(),
+                           (nms_k - nms_p).abs().max().item())
+    fast_lvs = fast_calls[0]
+    px = sum(lv.numel() for lv in fast_lvs)
+    # subtract / min / max a pixel with the arcs by doubling: 16 differences,
+    # 32 for the 2-arcs' min and max, 32 for the 4-arcs', 64 for the 9-arcs',
+    # 30 for the bright and dark reductions, 2 for the score, 2 for the
+    # jitter, 5 for the separable 3x3 max and the NMS test (183: under the
+    # bytes, which bind)
+    fast_ops = 16 + 32 + 32 + 64 + 30 + 2 + 2 + 5
     rows.append(dict(
-        name="fast_nms", max_abs_err=fast_err,
-        **timings(lambda: [fast.fast_score_nms(im) for (im,) in fast_calls],
-                  lambda: [fast.fast_score_nms_plain(im) for (im,) in fast_calls]),
-        bytes=px * (2 + 4 + 4), ops=px * 320, library_ms=None,
-        shape=f"{len(fast_calls)} levels, {px} px"))
+        name="fast_nms", max_abs_err=fast_err, frames=frames_2a,
+        **timings(lambda: fast.fast_score_nms_levels(fast_lvs),
+                  lambda: fast.fast_score_nms_levels_plain(fast_lvs)),
+        bytes=px * (2 + 4 + 4), ops=px * fast_ops, library_ms=None,
+        shape=f"all {len(fast_lvs)} levels of a frame in one launch, {px} px"))
 
+    # ORB: the per-frame entry at each recorded keypoint count (the
+    # bootstrap's and the tracking's budgets), the tracking's timed
     orb_calls = [v[0] for k, v in sorted(rec["orb_describe"].calls.items(),
                                          key=lambda kv: kv[0][2])]
     worst_desc, worst_ang = 1.0, 0.0
-    for im, xy in orb_calls:
-        ak, dk = orb.orient_and_describe(im, xy)
-        ap, dp = orb.orient_and_describe_plain(im, xy)
-        eq = (dk == dp).all(1).float().mean().item() if xy.shape[0] else 1.0
-        worst_desc = min(worst_desc, eq)
-        worst_ang = max(worst_ang, (ak - ap).abs().max().item() if xy.shape[0] else 0.0)
+    for args in orb_calls:
+        ak, dk, xk, ok = orb.orient_and_describe_levels(*args)
+        ap, dp, xp, op = orb.orient_and_describe_levels_plain(*args)
+        worst_desc = min(worst_desc, (dk == dp).all(1).float().mean().item())
+        worst_ang = max(worst_ang, (ak - ap).abs().max().item())
+        if not (torch.equal(xk, xp) and torch.equal(ok, op)):
+            fail(f"orb_describe: level-0 xy or octaves differ at {args[1].shape[0]} keypoints")
     if worst_desc < 0.995 or worst_ang > 1e-4:
         fail(f"orb_describe disagrees: descriptors equal {worst_desc:.4f}, "
              f"angle err {worst_ang:.2e}")
-    run_orb = [c for c in orb_calls if c[1].shape[0] in
-               set(extract.level_budgets(cfg.frontend.n_keypoints, 8, 1.2))]
-    nkp = sum(c[1].shape[0] for c in run_orb)
+    orb_args = next((a for a in orb_calls if a[1].shape[0] == cfg.frontend.n_keypoints), None)
+    if orb_args is None:
+        fail(f"orb_describe: no call at {cfg.frontend.n_keypoints} keypoints recorded")
+    nkp = orb_args[1].shape[0]
     rows.append(dict(
-        name="orb_describe", max_abs_err=worst_ang,
-        **timings(lambda: [orb.orient_and_describe(im, xy) for im, xy in run_orb],
-                  lambda: [orb.orient_and_describe_plain(im, xy) for im, xy in run_orb]),
-        bytes=sum(im.numel() * 2 + xy.shape[0] * (8 + 4 + 32) for im, xy in run_orb)
+        name="orb_describe", max_abs_err=worst_ang, frames=frames_2a,
+        **timings(lambda: orb.orient_and_describe_levels(*orb_args),
+                  lambda: orb.orient_and_describe_levels_plain(*orb_args)),
+        bytes=sum(im.numel() * 2 for im in orb_args[0]) + nkp * (8 + 4 + 32 + 8 + 4)
         + 64 * 256 * 4, ops=nkp * 11000, library_ms=None,
-        shape=f"{len(run_orb)} levels, {nkp} keypoints"))
+        shape=f"all {len(orb_args[0])} levels of a frame in one launch, {nkp} keypoints "
+              f"({len(orb_calls)} keypoint counts checked)"))
 
     ham_calls = rec["hamming_best2"].calls
     ham_err = 0
@@ -3426,17 +3467,20 @@ def main() -> int:
         return [v for k, v in batch_rec[name].calls.items() if len(k[1]) == 3]
 
     fb_calls = [v[0][0] for v in stacked("fast_nms_batch")]
-    for im in fb_calls:
-        (rk_, nk), (rp_, np_) = fast.fast_score_nms(im), fast.fast_score_nms_plain(im)
-        if not (torch.equal(rk_, rp_) and torch.equal(nk, np_)):
-            fail(f"fast_nms_batch disagrees at {tuple(im.shape)}")
-    px = sum(im.numel() for im in fb_calls)
+    for lvs in fb_calls:
+        for lv, (rk_, nk), (rp_, np_) in zip(lvs, fast.fast_score_nms_levels(lvs),
+                                             fast.fast_score_nms_levels_plain(lvs)):
+            if not (torch.equal(rk_, rp_) and torch.equal(nk, np_)):
+                fail(f"fast_nms_batch disagrees at {tuple(lv.shape)}")
+    fb_lvs = fb_calls[0]
+    px = sum(lv.numel() for lv in fb_lvs)
     rows.append(dict(
         name="fast_nms_batch", max_abs_err=0.0,
-        **timings(lambda: [fast.fast_score_nms(im) for im in fb_calls],
-                  lambda: [fast.fast_score_nms_plain(im) for im in fb_calls]),
-        bytes=px * (2 + 4 + 4), ops=px * 320, library_ms=None,
-        shape=f"{len(fb_calls)} levels x {fb_calls[0].shape[0]} frames, {px} px"))
+        **timings(lambda: fast.fast_score_nms_levels(fb_lvs),
+                  lambda: fast.fast_score_nms_levels_plain(fb_lvs)),
+        bytes=px * (2 + 4 + 4), ops=px * fast_ops, library_ms=None,
+        shape=f"{len(fb_lvs)} levels x {fb_lvs[0].shape[0]} frames in one launch, {px} px "
+              f"({len(fb_calls)} calls checked)"))
     (sb_args, sb_kw), = stacked("kp_select_batch")
     sb_maps, sb_ks = sb_args[0], sb_kw["ks"]   # extract_orb passes ks by name
     out_k = fast.select_keypoints_levels(*sb_args, **sb_kw)
@@ -3456,23 +3500,26 @@ def main() -> int:
               f"{nsel} keypoints"))
     ob_calls = [v[0] for v in stacked("orb_describe_batch")]
     ob_desc, ob_ang = 1.0, 0.0
-    for im, xy in ob_calls:
-        ak, dk = orb.orient_and_describe(im, xy)
-        ap, dp = orb.orient_and_describe_plain(im, xy)
+    for args in ob_calls:
+        ak, dk, xk, ok = orb.orient_and_describe_levels(*args)
+        ap, dp, xp, op = orb.orient_and_describe_levels_plain(*args)
         ob_desc = min(ob_desc, (dk == dp).all(-1).float().mean().item())
         ob_ang = max(ob_ang, (ak - ap).abs().max().item())
+        if not (torch.equal(xk, xp) and torch.equal(ok, op)):
+            fail("orb_describe_batch: level-0 xy or octaves differ")
     if ob_desc < 0.995 or ob_ang > 1e-4:
         fail(f"orb_describe_batch disagrees: descriptors equal {ob_desc:.4f}, "
              f"angle err {ob_ang:.2e}")
-    nkp = sum(xy.shape[0] * xy.shape[1] for _, xy in ob_calls)
+    ob_args = ob_calls[0]
+    nkp = ob_args[1].shape[0] * ob_args[1].shape[1]
     rows.append(dict(
         name="orb_describe_batch", max_abs_err=ob_ang,
-        **timings(lambda: [orb.orient_and_describe(im, xy) for im, xy in ob_calls],
-                  lambda: [orb.orient_and_describe_plain(im, xy) for im, xy in ob_calls]),
-        bytes=sum(im.numel() * 2 + xy.shape[0] * xy.shape[1] * (8 + 4 + 32)
-                  for im, xy in ob_calls) + 64 * 256 * 4,
-        ops=nkp * 11000, library_ms=None,
-        shape=f"{len(ob_calls)} levels x {ob_calls[0][0].shape[0]} frames, {nkp} keypoints"))
+        **timings(lambda: orb.orient_and_describe_levels(*ob_args),
+                  lambda: orb.orient_and_describe_levels_plain(*ob_args)),
+        bytes=sum(im.numel() * 2 for im in ob_args[0]) + nkp * (8 + 4 + 32 + 8 + 4)
+        + 64 * 256 * 4, ops=nkp * 11000, library_ms=None,
+        shape=f"{len(ob_args[0])} levels x {ob_args[1].shape[0]} frames in one launch, "
+              f"{nkp} keypoints ({len(ob_calls)} calls checked)"))
     print(f"[time] batch entries done at {time.time() - t_start:.0f} s", flush=True)
     # kernel 14 as detect's scorer (nothing masked): equal, or within 1e-6
     dq_err = 0.0

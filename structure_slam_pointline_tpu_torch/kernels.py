@@ -28,8 +28,11 @@ wrapper launches it and nowhere else; `reset_counts()` zeroes them.
 Kernels 22-26's C entries make all of a call's launches (memsets and
 copies included), so each counts one per call: kernel 25's call is one
 launch for every level, the tracking entries of kernel 22 a memset and two
-kernels. Kernel 12 counts each launch: one a call at up to 16 keyframes
-(`ba_persist`), its chain's 85 at global BA's 64.
+kernels. Kernels 1, 2 and 11 make one launch a call over every level of
+a frame, or of a [B, H, W] stack (counted as `fast_nms_batch`,
+`orb_describe_batch`, `kp_select_batch`; kernels 1 and 2 through their
+one C entry). Kernel 12 counts each launch: one a call at up to 16
+keyframes (`ba_persist`), its chain's 85 at global BA's 64.
 """
 
 from __future__ import annotations
@@ -113,6 +116,9 @@ ENTRIES["ransac_sim3"] = ("sim3_hypotheses", "sim3_count", "sim3_select")
 ENTRIES["pose_graph"] = ("pg_jacobians", "pg_assemble", "pg_solve", "pg_cost", "pg_decide")
 ENTRIES["compact"] = ("compact_scan", "compact_gather", "compact_remap")
 ENTRIES["local_ba_shard"] = ENTRIES["local_ba"]
+# kernels 1 and 2 on a [B, H, W] stack: the same C entry, counted apart
+ENTRIES["fast_nms_batch"] = ENTRIES["fast_nms"]
+ENTRIES["orb_describe_batch"] = ENTRIES["orb_describe"]
 
 COUNTS = {name: 0 for name in SOURCES}
 
@@ -124,14 +130,11 @@ _F = ctypes.c_float
 
 # argument signatures of the exported C entry points
 _ARGTYPES = {
-    # img, raw, nms, H, W, stream
-    "fast_nms": [_P, _P, _P, _I, _I, _P],
-    # img, raw, nms, B, H, W, stream
-    "fast_nms_batch": [_P, _P, _P, _I, _I, _I, _P],
-    # img, H, W, xy, K, tables, angle, desc, stream
-    "orb_describe": [_P, _I, _I, _P, _I, _P, _P, _P, _P],
-    # img, B, H, W, xy, K, tables, angle, desc, stream
-    "orb_describe_batch": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    # kernels 1 and 2: a pointer to the host-side level table (ops/fast.py
+    # _FastWork, ops/orb.py _OrbWork: every level of a call, B frames for a
+    # stack)
+    "fast_nms": [_P, _P],
+    "orb_describe": [_P, _P],
     # a, b, allow, B, M, N, batch_a, batch_b, best, best_j, second, second_j, stream
     "hamming_best2": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # T_init, pts, pts row stride, line starts, stride, line ends, stride,

@@ -10,11 +10,19 @@ grayscale [H, W] image to a fixed-capacity keypoint set:
     desc [K, 8]    packed 256-bit descriptors (int32 bit patterns)
     valid [K]      bool mask (padding slots are False)
 
+The levels with a keypoint budget go through the kernels once a frame
+each, all levels in one call: kernel 25 (the bf16 pyramid and blur), kernel
+1 (FAST + NMS, the maps as views of one buffer), kernel 11 (the selection,
+its concatenated buffers: the levels' budgets one after another) and
+kernel 2 (ORB), which reads kernel 11's xy and writes the Keypoints
+columns itself (xy * the level's scale, the octave, angle and
+descriptor); response and valid are kernel 11's own buffers. On the card
+a frame is four C calls and no torch op between them. On the CPU each
+step is its plain version (per-level loops and concatenations).
+
 `extract_orb` also maps a [B, H, W] stack to Keypoints with a leading B
-axis, each frame's equal to its own call's: the pyramid built for the
-stack (ops/pyramid.py), then per level one launch of kernels 1 and 2 for
-all B frames and one selection (kernel 11, two launches) over all levels
-and frames.
+axis, each frame's equal to its own call's: the same four calls, each
+covering all B frames (the batch entries).
 """
 
 from __future__ import annotations
@@ -57,26 +65,18 @@ def extract_orb(img: torch.Tensor, cfg: FrontendConfig,
     scales = pyramid.level_scales(cfg.n_levels, cfg.scale_factor)
     levels, blurred = pyramid.build_blurred_pyramid(
         img.to(torch.bfloat16), cfg.n_levels, cfg.scale_factor, cfg.blur_sigma)
-    lead = tuple(img.shape[:-2])
 
     lvs = [lv for lv in range(cfg.n_levels) if budgets[lv] > 0]
-    score_raw = []
-    for lv in lvs:
-        raw, nms = fast.fast_score_nms(levels[lv])
-        score_raw.append((nms, raw))
-    sels = fast.select_keypoints_levels(
-        score_raw, ks=[budgets[lv] for lv in lvs], cell=cfg.cell_size,
-        cell_cap=8, threshold=cfg.fast_threshold,
-        min_threshold=cfg.fast_min_threshold, border=orb.PATCH_RADIUS + 1)
-    parts = []
-    for lv, (xy, resp, valid) in zip(lvs, sels):
-        ang, desc = orb.orient_and_describe(blurred[lv], xy.contiguous())
-        xy0 = xy * float(scales[lv])
-        octv = torch.full(lead + (budgets[lv],), lv, dtype=torch.int32, device=img.device)
-        parts.append((xy0, resp, octv, ang, desc, valid))
-    cat = lambda i: torch.cat([p[i] for p in parts], dim=len(lead))  # noqa: E731
-    return Keypoints(xy=cat(0), response=cat(1), octave=cat(2), angle=cat(3),
-                     desc=cat(4), valid=cat(5))
+    ks = [budgets[lv] for lv in lvs]
+    maps = fast.fast_score_nms_levels([levels[lv] for lv in lvs])
+    xy, resp, valid = fast.select_keypoints_levels(
+        [(nms, raw) for raw, nms in maps], ks=ks, cell=cfg.cell_size, cell_cap=8,
+        threshold=cfg.fast_threshold, min_threshold=cfg.fast_min_threshold,
+        border=orb.PATCH_RADIUS + 1, concat=True)
+    angle, desc, xy0, octave = orb.orient_and_describe_levels(
+        [blurred[lv] for lv in lvs], xy, ks, [float(scales[lv]) for lv in lvs], lvs)
+    return Keypoints(xy=xy0, response=resp, octave=octave, angle=angle, desc=desc,
+                     valid=valid)
 
 
 __all__ = ["Keypoints", "level_budgets", "extract_orb"]

@@ -2,17 +2,21 @@
 
 Counterpart of structure_slam_pointline_tpu/ops/fast.py.
 
-`fast_score_nms` is the wrapper of CUDA kernel 1 (csrc/fast.cu), which
-replaces the reference's roll-built `fast_score` (fast.py:39) and
-`nms3` (fast.py:73). `fast_score_nms_plain` is its plain version and
-repeats the reference's arithmetic op for op in bf16: 16 rolled
-differences rounded to bf16, the sliding 9-arc min, the 3 px border
-zeroed, and NMS on `score + jitter` where the jitter
-((y*131 + x*31) % 251) * 1e-5 is itself a bf16 product and the sum is
-rounded to bf16 (measured against XLA:CPU: no excess precision is kept,
-so the jitter only separates near-zero ties). Rolls wrap at the borders;
-the border zeroing hides that from the raw map but not from the NMS
-input, and the kernel reproduces the wrap.
+`fast_score_nms_levels` is the wrapper of CUDA kernel 1 (csrc/fast.cu)
+for a frame: one launch for every pyramid level, from a ctypes level
+table kept per (shapes, stream), the raw and NMS maps written as float32
+views of one buffer, each view on a 16-byte boundary. `fast_score_nms` is
+a one-level call of the same kernel. The kernel replaces the reference's
+roll-built `fast_score` (fast.py:39) and `nms3` (fast.py:73).
+`fast_score_nms_plain` is the plain version of one level (and
+`fast_score_nms_levels_plain` the loop over levels); it repeats the
+reference's arithmetic op for op in bf16: 16 rolled differences rounded
+to bf16, the sliding 9-arc min, the 3 px border zeroed, and NMS on
+`score + jitter` where the jitter ((y*131 + x*31) % 251) * 1e-5 is itself
+a bf16 product and the sum is rounded to bf16 (measured against XLA:CPU:
+no excess precision is kept, so the jitter only separates near-zero
+ties). Rolls wrap at the borders; the border zeroing hides that from
+both maps (no pixel inside the border reads a wrapped value).
 
 `select_keypoints_levels` is the wrapper of CUDA kernel 11
 (csrc/kp_select.cu, one launch: a warp per cell for the per-cell top
@@ -20,17 +24,17 @@ input, and the kernel reproduces the wrap.
 a radix select and writes the sub-pixel offsets). The wrapper keeps one
 ctypes work description per (shapes, budgets, options, stream), with the
 level tables, the candidate scratch and the per-level counters, and fills
-in only the maps and the outputs on each call.
-`select_keypoints_levels_plain` is its plain version: `cell_cap` rounds
-of masked argmax per cell (argmax keeps the first index, like
-jnp.argmax) and one global ranking per level by a STABLE descending
-sort, so ties go to the lower index as in `lax.top_k`.
+in only the maps and the outputs on each call; with `concat` it returns
+the kernel's own buffers, the levels one after another, which kernel 2's
+levels entry reads. `select_keypoints_levels_plain` is its plain version:
+`cell_cap` rounds of masked argmax per cell (argmax keeps the first
+index, like jnp.argmax) and one global ranking per level by a STABLE
+descending sort, so ties go to the lower index as in `lax.top_k`.
 
-Both also take a [B, H, W] stack of frames per level (the data-parallel
+Both also take [B, H, W] stacks of frames per level (the data-parallel
 frontend, parallel/batch_frontend.py): kernels 1 and 11's batch entries,
-one launch for all B frames, each frame bit-equal to its
-single-frame call. Their plain versions run a stack
-frame by frame.
+one launch for every level of all B frames, each frame bit-equal to its
+single-frame call. Their plain versions run a stack frame by frame.
 """
 
 from __future__ import annotations
@@ -101,33 +105,93 @@ def fast_score_nms_plain(img: torch.Tensor):
     return raw.float(), nms3_plain(raw).float()
 
 
+def fast_score_nms_levels_plain(levels: list) -> list:
+    """[(raw, nms)] of each level: `fast_score_nms_plain` level by level."""
+    return [fast_score_nms_plain(lv) for lv in levels]
+
+
+MAX_LEVELS = 16          # the level tables of kernels 1 and 11
+
+
+class _FastWork(ctypes.Structure):
+    """Kernel 1's description of one call (`struct Work` in csrc/fast.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p * MAX_LEVELS) for n in ("img", "raw", "nms")]
+                + [(n, ctypes.c_int * MAX_LEVELS) for n in ("h", "w")]
+                + [(n, ctypes.c_int) for n in ("L", "B")])
+
+
+# (level shapes, device, stream) -> (work with its shapes filled, the maps'
+# offsets in the output buffer), one per stream like kernel 11's plans
+_FAST_PLANS: dict = {}
+
+
+def _fast_plan(key):
+    shapes = key[0]
+    lead = shapes[0][:-2]
+    if not 1 <= len(shapes) <= MAX_LEVELS or any(
+            len(sh) not in (2, 3) or sh[:-2] != lead or min(sh) < 1 for sh in shapes):
+        raise ValueError(f"fast_score_nms_levels: expects 1 to {MAX_LEVELS} [H, W] or "
+                         f"[B, H, W] levels of one leading size, got {list(shapes)}")
+    B = lead[0] if lead else 1
+    if B > 65535:
+        raise ValueError(f"fast_score_nms_levels: {B} frames, the kernel takes 65535")
+    work = _FastWork(L=len(shapes), B=B)
+    for li, sh in enumerate(shapes):
+        work.h[li], work.w[li] = sh[-2], sh[-1]
+    # the raw and NMS map of each level, each view on a 16-byte boundary
+    at = np.cumsum([0] + [-(-int(np.prod(sh)) // 4) * 4 for sh in shapes for _ in (0, 1)])
+    plan = (work, [int(a) for a in at])
+    _FAST_PLANS[key] = plan
+    return plan
+
+
+def fast_score_nms_levels(levels: list) -> list:
+    """[(raw, nms)] float32 FAST score maps of bf16 levels, each [H, W], or
+    each a [B, H, W] stack of one leading size (the frame's pyramid).
+
+    CPU tensors -> plain version; CUDA tensors -> kernel 1, one launch for
+    every level (and every frame of a stack: the batch entry), or raise.
+    The maps are views of one new buffer, each on a 16-byte boundary."""
+    if levels[0].device.type == "cpu":
+        return fast_score_nms_levels_plain(levels)
+    what = "fast_score_nms_levels"
+    for lv in levels:
+        kernels.check_dtype(what, lv, torch.bfloat16)
+    dev = kernels.check_cuda(what, *levels)
+    key = (tuple(tuple(lv.shape) for lv in levels), dev,
+           torch.cuda.current_stream(dev).cuda_stream)
+    work, at = _FAST_PLANS.get(key) or _fast_plan(key)
+    buf = torch.empty(at[-1], dtype=torch.float32, device=dev)
+    out = []
+    for li, lv in enumerate(levels):
+        n = lv.numel()
+        raw = buf[at[2 * li]:at[2 * li] + n].view(lv.shape)
+        nms = buf[at[2 * li + 1]:at[2 * li + 1] + n].view(lv.shape)
+        work.img[li], work.raw[li], work.nms[li] = lv.data_ptr(), raw.data_ptr(), nms.data_ptr()
+        out.append((raw, nms))
+    kernels.launch("fast_nms_batch" if levels[0].dim() == 3 else "fast_nms",
+                   ctypes.addressof(work), entry="fast_nms")
+    return out
+
+
 def fast_score_nms(img: torch.Tensor):
     """(raw, nms) float32 FAST score maps of a bf16 [H, W] level, or of a
     [B, H, W] stack of one level.
 
-    CPU tensor -> plain version; CUDA tensor -> kernel 1, one launch (its
-    batch entry for a stack), or raise."""
+    CPU tensor -> plain version; CUDA tensor -> kernel 1, one launch of
+    one level (its batch entry for a stack), or raise."""
     if img.dim() not in (2, 3) or img.shape[0] < 1:
         raise ValueError(f"fast_score_nms: expects [H, W] or [B, H, W], got "
                          f"{tuple(img.shape)}")
     if img.device.type == "cpu":
         return fast_score_nms_plain(img)
-    kernels.check_dtype("fast_score_nms", img, torch.bfloat16)
-    kernels.check_cuda("fast_score_nms", img)
-    h, w = img.shape[-2:]
-    raw = torch.empty(img.shape, dtype=torch.float32, device=img.device)
-    nms = torch.empty_like(raw)
-    args = (kernels.ptr(img), kernels.ptr(raw), kernels.ptr(nms))
-    if img.dim() == 2:
-        kernels.launch("fast_nms", *args, h, w)
-    else:
-        kernels.launch("fast_nms_batch", *args, img.shape[0], h, w)
-    return raw, nms
+    return fast_score_nms_levels([img])[0]
 
 
 def select_keypoints_levels_plain(score_raw: list, ks: list, cell: int = 32,
                                   cell_cap: int = 8, threshold: float = 20.0,
-                                  min_threshold: float = 7.0, border: int = 16):
+                                  min_threshold: float = 7.0, border: int = 16,
+                                  concat: bool = False):
     """Per-cell top-`cell_cap` then a global top-k per level, with parabola
     sub-pixel offsets from the raw map; same candidates and ranking as
     the reference's `select_keypoints_levels` (fast.py:197).
@@ -135,7 +199,14 @@ def select_keypoints_levels_plain(score_raw: list, ks: list, cell: int = 32,
     `score_raw` = [(nms_score, raw_score or None)] float32 per level (None:
     no sub-pixel offsets). Returns a list of (xy [k, 2], resp [k], valid
     [k]) per level; [B, H, W] maps are selected frame by frame, each
-    level's outputs then with a leading B axis."""
+    level's outputs then with a leading B axis. With `concat`, the levels'
+    outputs joined along the keypoint axis: (xy [K, 2], resp [K], valid
+    [K]), K the sum of the budgets."""
+    if concat:
+        outs = select_keypoints_levels_plain(score_raw, ks, cell, cell_cap, threshold,
+                                             min_threshold, border)
+        return (torch.cat([o[0] for o in outs], dim=-2),
+                *(torch.cat([o[q] for o in outs], dim=-1) for q in (1, 2)))
     if score_raw[0][0].dim() == 3:
         per_frame = [select_keypoints_levels_plain(
             [(s[b], r[b] if r is not None else None) for s, r in score_raw], ks, cell,
@@ -231,7 +302,6 @@ def select_keypoints_levels_plain(score_raw: list, ks: list, cell: int = 32,
     return outs
 
 
-MAX_LEVELS = 16          # kernel 11's level table
 MAX_LEVEL_CANDIDATES = 16384   # a level's cells x cap, whose keys kernel 11 holds in shared memory
 
 
@@ -294,14 +364,17 @@ def _sel_plan(key, score_raw, ks, cell, cell_cap, threshold, min_threshold, bord
 
 def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
                             cell_cap: int = 8, threshold: float = 20.0,
-                            min_threshold: float = 7.0, border: int = 16):
+                            min_threshold: float = 7.0, border: int = 16,
+                            concat: bool = False):
     """`select_keypoints_levels_plain`'s result, over [H, W] maps or [B, H,
     W] stacks (one frame per leading index). CPU tensors -> plain version;
     CUDA tensors -> kernel 11, one launch (its batch entry for stacks, all
-    B frames at once), or raise."""
+    B frames at once), or raise. With `concat`, the kernel's own buffers
+    (the levels joined along the keypoint axis, as kernel 2's levels entry
+    reads them) instead of their per-level views."""
     if score_raw[0][0].device.type == "cpu":
         return select_keypoints_levels_plain(score_raw, ks, cell, cell_cap, threshold,
-                                             min_threshold, border)
+                                             min_threshold, border, concat)
     what = "select_keypoints_levels"
     maps = [t for pair in score_raw for t in pair if t is not None]
     if any(t.dtype != torch.float32 for t in maps):
@@ -322,6 +395,8 @@ def select_keypoints_levels(score_raw: list, ks: list, cell: int = 32,
     valid = torch.empty(lead + (out_off[-1],), dtype=torch.bool, device=dev)
     work.xy, work.resp, work.valid = xy.data_ptr(), resp.data_ptr(), valid.data_ptr()
     kernels.launch("kp_select_batch" if lead else "kp_select", ctypes.addressof(work))
+    if concat:
+        return xy, resp, valid
     return list(zip(xy.split_with_sizes(sizes, dim=-2), resp.split_with_sizes(sizes, dim=-1),
                     valid.split_with_sizes(sizes, dim=-1)))
 
@@ -339,5 +414,6 @@ def select_keypoints(score: torch.Tensor, k: int, cell: int = 32, cell_cap: int 
 
 
 __all__ = ["fast_score_plain", "nms3_plain", "fast_score_nms_plain",
-           "fast_score_nms", "select_keypoints_levels", "select_keypoints_levels_plain",
+           "fast_score_nms", "fast_score_nms_levels", "fast_score_nms_levels_plain",
+           "select_keypoints_levels", "select_keypoints_levels_plain",
            "select_keypoints", "ARC_LEN"]

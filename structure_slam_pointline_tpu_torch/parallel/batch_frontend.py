@@ -5,13 +5,13 @@ which vmaps the single-frame extraction over a batch of frames sharded
 over devices. Here each shard of a `frame_mesh` (parallel/mesh.py) takes
 a contiguous block of the frames and runs, on its own CUDA stream:
 
-- `extract.extract_orb` of the whole block: its pyramid, then per level
-  one launch of kernel 1 (FAST + NMS) and of kernel 2 (ORB) for all of
-  the block's frames and one selection (kernel 11, two launches) over
-  all levels and frames: the batch entries, the counterpart of the vmap;
-- with lines, LSD and LBD (kernels 5, 6, 8 and 7) frame by frame, as the
-  reference's `one(img)` runs them: `lsd.detect_lines` (one octave) and
-  `lbd.describe_lines`.
+- `extract.extract_orb` of the whole block: one launch each of kernel 25
+  (the pyramid and blur), kernel 1 (FAST + NMS), kernel 11 (the
+  selection) and kernel 2 (ORB), every level of all the block's frames in
+  each: the batch entries, the counterpart of the vmap;
+- with lines, LSD and LBD frame by frame, as the reference's `one(img)`
+  runs them: `lsd.detect_lines` (one octave: kernels 5, 11, 6 and 26) and
+  `lbd.describe_lines` (kernel 7).
 
 Every frame's keypoints, descriptors, lines and LBD words equal the
 single-frame frontend's. No collective is needed: the frames are

@@ -70,9 +70,16 @@ def test_pyramid_and_blur_bit_exact(which):
 
 
 def test_fast_and_nms_bit_exact():
+    """Each level alone and the frame's levels entry (all 8 in one call)."""
     j, t = _levels()
-    for raw_j, nms_j, b in zip(*_jax_fast(j[0]), t[0]):
+    raws, nmss = _jax_fast(j[0])
+    for raw_j, nms_j, b in zip(raws, nmss, t[0]):
         raw_t, nms_t = tfast.fast_score_nms(b)
+        np.testing.assert_array_equal(raw_t.numpy(), _np(raw_j))
+        np.testing.assert_array_equal(nms_t.numpy(), _np(nms_j))
+    maps = tfast.fast_score_nms_levels(list(t[0]))
+    assert len(maps) == len(raws)
+    for (raw_t, nms_t), raw_j, nms_j in zip(maps, raws, nmss):
         np.testing.assert_array_equal(raw_t.numpy(), _np(raw_j))
         np.testing.assert_array_equal(nms_t.numpy(), _np(nms_j))
 
@@ -98,8 +105,12 @@ def test_orb_tables_are_the_references():
 
 
 def test_orient_and_describe():
+    """Each level alone, then the frame's levels entry on the same
+    keypoints (100 a level, one after another as kernel 11 writes them):
+    angles, descriptors, level-0 coordinates and octaves per level."""
     j, t = _levels()
     g = np.random.default_rng(1)
+    per_level = []
     for a, b in zip(j[1], t[1]):
         h, w = b.shape
         xy = np.stack([g.uniform(16, w - 17, 100), g.uniform(16, h - 17, 100)], 1)
@@ -108,6 +119,17 @@ def test_orient_and_describe():
         ang_t, desc_t = torb.orient_and_describe(b, torch.from_numpy(xy))
         np.testing.assert_allclose(ang_t.numpy(), np.asarray(ang_j), atol=1e-4)
         np.testing.assert_array_equal(desc_t.numpy().view(np.uint32), np.asarray(desc_j))
+        per_level.append((xy, np.asarray(ang_j), np.asarray(desc_j)))
+    scales = jpyr.level_scales(8, 1.2)
+    xy_all = torch.from_numpy(np.concatenate([p[0] for p in per_level]))
+    ang_t, desc_t, xy0_t, oct_t = torb.orient_and_describe_levels(
+        list(t[1]), xy_all, [100] * 8, [float(s) for s in scales], list(range(8)))
+    for lv, (xy, ang_j, desc_j) in enumerate(per_level):
+        sl = slice(100 * lv, 100 * (lv + 1))
+        np.testing.assert_allclose(ang_t[sl].numpy(), ang_j, atol=1e-4)
+        np.testing.assert_array_equal(desc_t[sl].numpy().view(np.uint32), desc_j)
+        np.testing.assert_array_equal(xy0_t[sl].numpy(), xy * np.float32(scales[lv]))
+        np.testing.assert_array_equal(oct_t[sl].numpy(), np.full(100, lv, np.int32))
 
 
 def test_extract_orb_320x240_256_keypoints():

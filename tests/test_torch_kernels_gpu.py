@@ -169,6 +169,8 @@ def _check_pyramid(img):
 
 
 def _check_fast_nms(levels):
+    """Kernel 1 level by level and as the frame's levels entry, bit-equal
+    to the plain version; one launch a call."""
     before = kernels.COUNTS["fast_nms"]
     for lv in levels[0]:
         raw_k, nms_k = fast.fast_score_nms(lv)
@@ -177,10 +179,21 @@ def _check_fast_nms(levels):
         assert torch.equal(raw_k, raw_p)
         assert torch.equal(nms_k, nms_p)
     assert kernels.COUNTS["fast_nms"] == before + len(levels[0])
+    before = kernels.COUNTS["fast_nms"]
+    maps_k = fast.fast_score_nms_levels(list(levels[0]))
+    assert kernels.COUNTS["fast_nms"] == before + 1, "fast_nms_levels: launches a call"
+    maps_p = fast.fast_score_nms_levels_plain(list(levels[0]))
+    for lv, ((raw_k, nms_k), (raw_p, nms_p)) in enumerate(zip(maps_k, maps_p)):
+        assert torch.equal(raw_k, raw_p), f"fast_nms_levels level {lv}: raw"
+        assert torch.equal(nms_k, nms_p), f"fast_nms_levels level {lv}: nms"
 
 
 def _check_orb(levels):
+    """Kernel 2 level by level and as the frame's levels entry (300
+    keypoints a level): descriptors equal on >= 99.5%, angles within 1e-4,
+    xy0 and octaves equal; one launch a call."""
     g = np.random.default_rng(0)
+    xys = []
     for bl in levels[1]:
         h, w = bl.shape
         xy = np.stack([g.uniform(16, w - 17, 300), g.uniform(16, h - 17, 300)], 1)
@@ -190,6 +203,17 @@ def _check_orb(levels):
         torch.cuda.synchronize()
         assert (dk == dp).all(1).float().mean().item() >= 0.995
         assert (ak - ap).abs().max().item() <= 1e-4
+        xys.append(xy)
+    fe = FrontendConfig()
+    scales = [float(s) for s in pyramid.level_scales(fe.n_levels, fe.scale_factor)]
+    args = (list(levels[1]), torch.cat(xys), [300] * len(xys), scales, list(range(len(xys))))
+    before = kernels.COUNTS["orb_describe"]
+    ak, dk, xk, ok = orb.orient_and_describe_levels(*args)
+    assert kernels.COUNTS["orb_describe"] == before + 1, "orb_describe_levels: launches a call"
+    ap, dp, xp, op = orb.orient_and_describe_levels_plain(*args)
+    assert (dk == dp).all(1).float().mean().item() >= 0.995, "orb_describe_levels"
+    assert (ak - ap).abs().max().item() <= 1e-4, "orb_describe_levels"
+    assert torch.equal(xk, xp) and torch.equal(ok, op), "orb_describe_levels: xy0, octave"
 
 
 def _descs(g, n):
@@ -1254,9 +1278,9 @@ def _check_batched_frontend(cuda):
             assert torch.equal(x[b], y), "the batched pyramid differs"
     score_raw = []
     before = dict(kernels.COUNTS)
-    for lv in levels:
-        raw, nms = fast.fast_score_nms(lv)
-        raw_p, nms_p = fast.fast_score_nms_plain(lv)
+    maps = fast.fast_score_nms_levels(levels)
+    for lv, (raw, nms), (raw_p, nms_p) in zip(levels, maps,
+                                              fast.fast_score_nms_levels_plain(levels)):
         assert torch.equal(raw, raw_p) and torch.equal(nms, nms_p), "fast_nms_batch"
         for b in range(3):
             r1, n1 = fast.fast_score_nms(lv[b])
@@ -1274,18 +1298,20 @@ def _check_batched_frontend(cuda):
                 and torch.equal(vk[b], v1), f"kp_select_batch frame {b} level {lvl}"
         _assert_selection_equal([(x[b], r[b], v[b]) for x, r, v in sel],
                                 [(x[b], r[b], v[b]) for x, r, v in sel_p], f"batch frame {b}")
-    for (xy, _, _), bl in zip(sel, blurred):
-        xy = xy.contiguous()
-        ak, dk = orb.orient_and_describe(bl, xy)
-        ap, dp = orb.orient_and_describe_plain(bl, xy)
-        for b in range(3):
-            a1, d1 = orb.orient_and_describe(bl[b], xy[b])
-            assert torch.equal(ak[b], a1) and torch.equal(dk[b], d1), "orb_describe_batch"
-        assert (dk == dp).all(-1).float().mean().item() >= 0.995, "orb_describe_batch"
-        assert (ak - ap).abs().max().item() <= 1e-4, "orb_describe_batch"
-    n = len(levels)
-    for name, per in (("fast_nms_batch", n), ("kp_select_batch", 1), ("orb_describe_batch", n)):
-        assert kernels.COUNTS[name] - before[name] == per, f"{name}: launch count"
+    scales = [float(s) for s in pyramid.level_scales(fe.n_levels, fe.scale_factor)]
+    xy = torch.cat([x for x, _, _ in sel], dim=1)
+    args = (blurred, xy, ks, scales, list(range(len(ks))))
+    ak, dk, xk, ok = orb.orient_and_describe_levels(*args)
+    ap, dp, xp, op = orb.orient_and_describe_levels_plain(*args)
+    for b in range(3):
+        one = orb.orient_and_describe_levels([bl[b] for bl in blurred], xy[b], *args[2:])
+        assert all(torch.equal(x[b], y) for x, y in zip((ak, dk, xk, ok), one)), \
+            "orb_describe_batch"
+    assert (dk == dp).all(-1).float().mean().item() >= 0.995, "orb_describe_batch"
+    assert (ak - ap).abs().max().item() <= 1e-4, "orb_describe_batch"
+    assert torch.equal(xk, xp) and torch.equal(ok, op), "orb_describe_batch: xy0, octave"
+    for name in ("fast_nms_batch", "kp_select_batch", "orb_describe_batch"):
+        assert kernels.COUNTS[name] - before[name] == 1, f"{name}: launch count"
     kb = extract.extract_orb(imgs, fe)
     for b in range(3):
         k1 = extract.extract_orb(imgs[b], fe)
@@ -1337,6 +1363,8 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda, monkeypatch):
                       (compact, "compact_keyframes_plain"),
                       (local_ba, "bundle_adjust_sharded_plain"),
                       (fast, "fast_score_nms_plain"), (orb, "orient_and_describe_plain"),
+                      (fast, "fast_score_nms_levels_plain"),
+                      (orb, "orient_and_describe_levels_plain"),
                       (linalg, "lu_solve_blocked_plain"),
                       (local_mapping, "fuse_match_points_plain"),
                       (local_mapping, "fuse_match_lines_plain"),

@@ -66,7 +66,17 @@ all):
   stacked, bit-equal to `build_blurred_pyramid_plain`, C calls and device
   kernels a call, timed; `--trace` adds block 0's cycles per phase, its
   tiles and the grid barrier after them (`pyr_trace`, a copy built with
-  -DSSPL_PYR_TRACE).
+  -DSSPL_PYR_TRACE);
+- fast: kernel 1 on the levels of bench frames 0, 40 and 200 and of frames
+  40 + 200 stacked (made by the root's kernel 25), every level bit-equal
+  to `fast_score_nms_plain`, C calls a frame, timed a frame; a root without
+  the per-frame entry runs its per-level calls;
+- orb: kernel 2 on the same frames' keypoints (the frontend's 1024,
+  selected by the root's kernels 1 and 11), descriptors equal on >= 99.5%
+  and angles within 1e-4 of the plain version, level-0 xy and octaves
+  equal, C calls a frame, timed a frame alone and with the per-level glue
+  a root without the per-frame entry runs (products, fills,
+  concatenations).
 
 Device time is per call from torch.profiler, by kernel name (memsets and
 copies under their own names); caller time is the median of CUDA events
@@ -634,10 +644,132 @@ def case_pyramid(cs, reps: int, _systems, trace=False, **_) -> dict:
     return out
 
 
+def bench_levels(frames=(0, 40, 200)) -> dict:
+    """The levels and blurred levels of bench frames (640x480, the
+    frontend's 8 levels at 1.2), made by the root's kernel 25, and of
+    frames 40 and 200 stacked."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch.config import CameraConfig, FrontendConfig
+    from structure_slam_pointline_tpu_torch.io import synthetic
+    from structure_slam_pointline_tpu_torch.ops import pyramid
+
+    cam = CameraConfig(fy=480.0)
+    scene = synthetic.make_room_scene(350, 40, seed=0)
+    poses = synthetic.circular_trajectory(610, radius=0.5)
+    fe = FrontendConfig()
+    imgs = {f: torch.from_numpy(synthetic.render(scene, poses[f], cam, noise=2.0, seed=f))
+            .cuda().to(torch.bfloat16) for f in frames}
+    inputs = {f"frame{f}": x for f, x in imgs.items()}
+    inputs["stack_40_200"] = torch.stack([imgs[40], imgs[200]])
+    return {name: pyramid.build_blurred_pyramid(x, fe.n_levels, fe.scale_factor,
+                                                fe.blur_sigma)
+            for name, x in inputs.items()}
+
+
+def case_fast(cs, reps: int, _systems, **_) -> dict:
+    """Kernel 1 on bench frames 0, 40 and 200 and on frames 40 and 200
+    stacked: every level's raw and NMS maps bit-equal to
+    `fast_score_nms_plain`; C calls (launches) a frame and device and
+    caller ms a frame, by launch name. A root without the per-frame entry
+    (`fast_score_nms_levels`) runs its per-level calls."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.ops import fast
+
+    per_frame = hasattr(fast, "fast_score_nms_levels")
+    out = {"ok": True, "per_frame_entry": per_frame}
+    for name, (levels, _) in bench_levels().items():
+        if per_frame:
+            run = lambda: fast.fast_score_nms_levels(levels)  # noqa: E731
+        else:
+            run = lambda: [fast.fast_score_nms(lv) for lv in levels]  # noqa: E731
+        kernels.reset_counts()
+        maps = run()
+        calls = sum(kernels.COUNTS[k] for k in ("fast_nms", "fast_nms_batch"))
+        differ = sum(int((a != b).sum()) for lv, km in zip(levels, maps)
+                     for a, b in zip(km, fast.fast_score_nms_plain(lv)))
+        out[name] = {"differ_px": differ, "c_calls": calls,
+                     "px": sum(lv.numel() for lv in levels), **timed(cs, run, reps)}
+        out["ok"] = out["ok"] and differ == 0
+    return out
+
+
+def case_orb(cs, reps: int, _systems, **_) -> dict:
+    """Kernel 2 on the keypoints of bench frames 0, 40 and 200 and of
+    frames 40 and 200 stacked (the frontend's 1024 a frame, selected by
+    the root's kernels 1 and 11): descriptors equal to the plain version's
+    on >= 99.5% and angles within 1e-4 (the card's gates), level-0 xy and
+    octaves equal; C calls (launches) a frame and device and caller ms by
+    launch name, of the kernel alone (`kernel`) and with the per-level
+    glue that a root without the per-frame entry
+    (`orient_and_describe_levels`) runs around its per-level calls (the
+    level-0 products, the octave fills and the concatenations,
+    `with_glue`)."""
+    import torch
+
+    from structure_slam_pointline_tpu_torch import kernels
+    from structure_slam_pointline_tpu_torch.config import FrontendConfig
+    from structure_slam_pointline_tpu_torch.ops import extract, fast, orb, pyramid
+
+    fe = FrontendConfig()
+    ks = extract.level_budgets(fe.n_keypoints, fe.n_levels, fe.scale_factor)
+    scales = [float(s) for s in pyramid.level_scales(fe.n_levels, fe.scale_factor)]
+    octaves = list(range(fe.n_levels))
+    kw = dict(cell=fe.cell_size, cell_cap=8, threshold=fe.fast_threshold,
+              min_threshold=fe.fast_min_threshold, border=orb.PATCH_RADIUS + 1)
+    per_frame = hasattr(orb, "orient_and_describe_levels")
+    out = {"ok": True, "per_frame_entry": per_frame}
+    for name, (levels, blurred) in bench_levels().items():
+        maps = [fast.fast_score_nms(lv) for lv in levels]
+        sel = fast.select_keypoints_levels([(n, r) for r, n in maps], ks, **kw)
+        xys = [x.contiguous() for x, _, _ in sel]
+        xy = torch.cat(xys, dim=-2)
+        lead = tuple(xy.shape[:-2])
+        args = (blurred, xy, ks, scales, octaves)
+        plain = orb.orient_and_describe_levels_plain(*args) if per_frame else None
+        if per_frame:
+            kernel = lambda: orb.orient_and_describe_levels(*args)  # noqa: E731
+            glue = kernel
+        else:
+            kernel = lambda: [orb.orient_and_describe(bl, x)  # noqa: E731
+                              for bl, x in zip(blurred, xys)]
+
+            def glue():
+                parts = [(a, d, x * s, torch.full(lead + (k,), o, dtype=torch.int32,
+                                                   device=x.device))
+                         for (a, d), x, k, s, o in zip(kernel(), xys, ks, scales, octaves)]
+                return tuple(torch.cat([p[i] for p in parts], dim=len(lead))
+                             for i in range(4))
+        kernels.reset_counts()
+        res = glue()
+        calls = sum(kernels.COUNTS[k] for k in ("orb_describe", "orb_describe_batch"))
+        if plain is None:
+            pl = [orb.orient_and_describe_plain(bl, x) for bl, x in zip(blurred, xys)]
+            plain = (torch.cat([p[0] for p in pl], dim=len(lead)),
+                     torch.cat([p[1] for p in pl], dim=len(lead)), res[2], res[3])
+        desc_eq = (res[1] == plain[1]).all(-1).float().mean().item()
+        ang_err = (res[0] - plain[0]).abs().max().item()
+        same = torch.equal(res[2], plain[2]) and torch.equal(res[3], plain[3])
+        ok = desc_eq >= 0.995 and ang_err <= 1e-4 and same
+        out[name] = {"ok": ok, "desc_equal": desc_eq, "angle_err": ang_err,
+                     "xy0_octave_equal": same, "keypoints": xy.numel() // 2,
+                     "c_calls": calls, "kernel": timed(cs, kernel, reps),
+                     "with_glue": timed(cs, glue, reps)}
+        out["ok"] = out["ok"] and ok
+    return out
+
+
 CASES = {"ransac_pnp": case_ransac_pnp, "lsd_support": case_lsd_support,
          "pose_lm": case_pose_lm, "lsd_refine": case_lsd_refine,
          "dense_solve": case_dense_solve, "lsd_merge": case_lsd_merge,
-         "kp_select": case_kp_select, "local_ba": case_local_ba, "pyramid": case_pyramid}
+         "kp_select": case_kp_select, "local_ba": case_local_ba, "pyramid": case_pyramid,
+         "fast": case_fast, "orb": case_orb}
+# the kernels a case runs, where its name is not the kernel's (built and
+# reported by -Xptxas -v before the case)
+CASE_KERNELS = {"fast": ("pyramid", "fast_nms"),
+                "orb": ("pyramid", "fast_nms", "kp_select", "orb_describe")}
 
 
 def one_root(root: str, names, reps: int, systems, trace: bool = False,
@@ -656,12 +788,14 @@ def one_root(root: str, names, reps: int, systems, trace: bool = False,
     if port != root:
         raise RuntimeError(f"kernel_ab: imported the port from {port}, not {root}")
 
-    reports = kernels.build_all(names)
+    reports = kernels.build_all(sorted({k for n in names for k in CASE_KERNELS.get(n, (n,))}))
     for src, log in sorted(reports.items()):
         lines = [ln for ln in log.splitlines()
                  if "Compiling entry" in ln or "Used" in ln or "stack frame" in ln]
         print(f"[ptxas] {root} {src}:\n  " + "\n  ".join(lines), flush=True)
-    res = {"root": root}
+    res = {"root": root, "ptxas": {src: [ln.strip() for ln in log.splitlines()
+                                         if "Used" in ln or "spill" in ln]
+                                   for src, log in reports.items()}}
     for n in names:
         if n == "lsd_merge":
             res[n] = case_lsd_merge(cs, reps, systems,

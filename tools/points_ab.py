@@ -20,7 +20,10 @@ root's kernels into its `build/`. The scenarios:
   more under torch.profiler (device kernels and device-busy ms per frame,
   wall ms per frame) and one more through chip_smoke.py's
   `pageable_copies` (of the tree this tool runs from): its pageable
-  host-to-device copies grouped by the line of the port that issued them.
+  host-to-device copies grouped by the line of the port that issued them,
+  and its device kernels linked to torch ops, counted and by name (the
+  port's own kernels, launched through ctypes, link to no op and are not
+  among them).
   One JSON line per run (as `points`, plus those numbers).
 - `loop`: chip_smoke.py's phase 2d with loop closing on (`loop_scenario`,
   `run_loop`: the reference's loop test), `--repeats` times in the one
@@ -63,7 +66,9 @@ copies = tool_smoke.pageable_copies(slam, frame(j0 + 20), j0 + 20)
 result.update(profile_wall_ms_per_frame=wall, device_busy_ms_per_frame=busy,
               device_kernels_per_frame=n_k,
               pageable_htod_per_frame=copies["pageable_htod_per_frame"],
-              pageable_htod_by_line=copies["by_line"])
+              pageable_htod_by_line=copies["by_line"],
+              labelled_frame_kernels_linked=copies["device_kernels_linked"],
+              labelled_frame_kernels_by_name=copies["device_kernels_by_name"])
 """
 
 RUN = {"points": r"""
